@@ -4,8 +4,7 @@ Each source in csrc/ is compiled by nvcc for Hopper (sm_90a) into a shared
 library with a plain C interface and loaded with ctypes: no PyTorch headers,
 so a build takes seconds, not minutes. Libraries go to _build/ (listed in
 .gitignore), named by a hash of the source and flags, so a source is rebuilt
-only when it changes. `build(names)` starts one nvcc per stale source, all
-at once, and waits for them together.
+only when it changes.
 """
 from __future__ import annotations
 
@@ -16,7 +15,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -44,33 +43,23 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
-def build(names: Sequence[str]) -> Dict[str, str]:
-    """Compile every stale source in `names` in parallel; returns the
-    compiler's output per source that was built. Raises RuntimeError with
+def build(name: str) -> str:
+    """Compile csrc/<name>.cu unless its library is current; returns the
+    compiler's output ("" when nothing was built). Raises RuntimeError with
     that output when nvcc fails."""
-    stale = [n for n in names if not _lib_path(n).exists()]
-    if not stale:
-        return {}
-    nvcc = _nvcc()
+    lib = _lib_path(name)
+    if lib.exists():
+        return ""
     BUILD_DIR.mkdir(exist_ok=True)
-    procs = {}
-    for n in stale:
-        tmp = _lib_path(n).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
-        procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                          stderr=subprocess.STDOUT, text=True))
-    logs, failed = {}, []
-    for n, (tmp, proc) in procs.items():
-        logs[n] = proc.communicate()[0]
-        if proc.returncode == 0:
-            os.replace(tmp, _lib_path(n))
-        else:
-            tmp.unlink(missing_ok=True)
-            failed.append(n)
-    if failed:
-        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
-                           + "\n".join(logs[n] for n in failed))
-    return logs
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                           str(CSRC / f"{name}.cu")],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
+    os.replace(tmp, lib)
+    return proc.stdout
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -78,6 +67,6 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            build([name])
+            build(name)
             lib = _libs[name] = ctypes.CDLL(str(_lib_path(name)))
         return lib

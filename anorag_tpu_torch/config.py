@@ -17,8 +17,7 @@ DEFAULTS = {
         "max_length": 512,
         "normalize": True,
         "dim": 1024,
-        # torch = the transformer encoder (models/encoder.py; "jax", the
-        # reference's name for its encoder backend, selects it too);
+        # torch = the transformer encoder (models/encoder.py);
         # hash = the deterministic feature-hash embedder.
         "backend": "torch",
         "query_prefix": "",

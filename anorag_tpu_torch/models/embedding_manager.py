@@ -3,8 +3,7 @@
 Counterpart of anorag_tpu/models/embedding_manager.py (encode_texts,
 encode_atomic_notes, encode_queries :134-165). Backends:
   * 'torch' -- the transformer encoder (models/encoder.py); it replaces the
-    reference's default 'jax' backend, and the name 'jax' selects it too so
-    that one config drives both packages. Weights are drawn from a seeded
+    reference's default 'jax' backend. Weights are drawn from a seeded
     torch.Generator unless a state_dict is loaded (load_encoder_state);
   * 'hash' -- the deterministic feature-hash embedder (host numpy).
 Unlike the reference this is a plain object, not a process-wide singleton.
@@ -23,9 +22,6 @@ from anorag_tpu_torch.models.hash_embedder import HashEmbedder
 from anorag_tpu_torch.models.tokenizer import get_tokenizer
 from anorag_tpu_torch.utils.text import note_embedding_text
 
-ENCODER_BACKENDS = ("torch", "jax")
-
-
 class EmbeddingManager:
     def __init__(self, cfg: Any = None, device: DeviceLike = None, seed: int = 0):
         self.cfg = as_config(cfg)
@@ -33,7 +29,7 @@ class EmbeddingManager:
         self.seed = seed
         emb = self.cfg.get("embedding")
         self.backend = emb.get("backend", "torch")
-        if self.backend not in ENCODER_BACKENDS + ("hash",):
+        if self.backend not in ("torch", "hash"):
             raise ValueError(f"unknown embedding backend {self.backend!r}")
         self.dim = emb.get("dim", 1024)
         self.batch_size = emb.get("batch_size", 64)

@@ -231,10 +231,28 @@ def window_winners_ref(doc_rows: torch.Tensor, weight_rows: torch.Tensor,
     return _winners_plain(a, w, n_docs, max_seg, block_l, n_pos)
 
 
+_winners_lib = None
+
+
+def _load_winners() -> ctypes.CDLL:
+    """The kernel's library, built on first use, its C signatures set once."""
+    global _winners_lib
+    if _winners_lib is None:
+        from anorag_tpu_torch import _build
+
+        lib = _build.load("window_winners")
+        lib.anorag_window_winners.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 3
+            + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        lib.anorag_window_winners.restype = ctypes.c_int
+        lib.anorag_window_winners_parts.argtypes = [ctypes.c_int]
+        lib.anorag_window_winners_parts.restype = ctypes.c_int
+        _winners_lib = lib
+    return _winners_lib
+
+
 def _launch_winners(a: torch.Tensor, w: torch.Tensor, n_docs: int,
                     max_seg: int, block_l: int, n_pos: int):
-    from anorag_tpu_torch import _build
-
     if a.dtype != torch.int32 or w.dtype != torch.float32:
         raise TypeError(f"window_winners takes int32 ids and f32 weights, got "
                         f"{a.dtype} and {w.dtype}")
@@ -246,22 +264,17 @@ def _launch_winners(a: torch.Tensor, w: torch.Tensor, n_docs: int,
     b, l = a.shape
     if b > 65535:
         raise ValueError(f"window_winners: at most 65535 rows, got {b}")
-    lib = _build.load("window_winners")
-    fn = lib.anorag_window_winners
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 3
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    lib.anorag_window_winners_parts.argtypes = [ctypes.c_int]
-    lib.anorag_window_winners_parts.restype = ctypes.c_int
+    lib = _load_winners()
     parts = lib.anorag_window_winners_parts(block_l)
     dev = a.device
     wv = torch.empty((b, block_l), dtype=torch.float32, device=dev)
     wd = torch.empty((b, block_l), dtype=torch.int32, device=dev)
     mx = torch.empty((b, 1), dtype=torch.float32, device=dev)
     mx_part = torch.empty((b, parts), dtype=torch.float32, device=dev)
-    err = fn(a.data_ptr(), w.data_ptr(), wv.data_ptr(), wd.data_ptr(),
-             mx.data_ptr(), mx_part.data_ptr(), b, l, n_pos, block_l, n_docs,
-             max_seg, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    err = lib.anorag_window_winners(
+        a.data_ptr(), w.data_ptr(), wv.data_ptr(), wd.data_ptr(), mx.data_ptr(),
+        mx_part.data_ptr(), b, l, n_pos, block_l, n_docs, max_seg, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"window_winners kernel launch failed: CUDA error {err}")
     window_winners.launches += 1

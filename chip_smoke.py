@@ -5,24 +5,29 @@
 
 Phases, each printing its seconds:
   1. device  -- nvidia-smi's name and power limit, torch's device name;
-  2. build   -- nvcc builds every CUDA kernel of the path (plain C
-                interface, ctypes), all sources at once;
+  2. build   -- nvcc builds the path's CUDA kernel (plain C interface,
+                ctypes);
   3. setup   -- a 200,000-note corpus drawn from a 30,000-word Zipf
                 vocabulary (40 terms a note), 1024-wide unit embeddings
                 and the full-width encoder (24 layers, hidden 1024, bf16),
                 all from --seed, data and weights made on the card;
   4. kernels -- each kernel against its plain PyTorch version on the card:
                 the odd shapes of the CPU tests and the main path's real
-                batch; ids equal, values to rtol 1e-6; kernel, plain and
-                bound times at the real shape;
-  5. serve   -- a ServingEngine answers --requests requests of --batch
-                queries (8 content-band terms each); every response has
+                batch; ids equal, values to rtol 1e-6; at the real shape
+                the kernel's and the plain version's device time (20 calls
+                back to back, CUDA events), the wrapper's host time per
+                call, and the bound;
+  5. serve   -- a ServingEngine answers 4 requests of 512 queries (8
+                content-band terms each); every response has
                 top_k rows of valid note ids; the kernels' launch counts,
                 reset just before, match the batches routed to them; one
                 batch again with the plain sparse stage gives the same
                 top-10 ids; latency, QPS and peak memory;
   6. breakdown -- one batch again, stage by stage (encode, host plan,
-                upload, sparse, dense + fusion, finalize), synchronised.
+                upload, sparse, dense + fusion, finalize), synchronised;
+  7. trace   -- one request through a ServingEngine under torch.profiler:
+                the device's busy time and idle share, the window-winners
+                kernels' own time, and the largest device kernels.
 Then one JSON line of kernel numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure prints its traceback and exits
 non-zero without that last line; so does a machine without CUDA.
@@ -69,23 +74,54 @@ def _query_terms(rng, b: int):
     return [rng.choice(ranks, size=Q_LEN, p=p) for _ in range(b)]
 
 
-def _time_ms(fn, iters: int = 20) -> float:
-    """Median of `iters` CUDA-event timings of fn(), after 3 warm-ups."""
+def _time_ms(fn, n: int = 20, reps: int = 5):
+    """(device ms, host ms) per call of fn(), after 3 warm-ups. Device: n
+    calls back to back between two CUDA events, over n, median of `reps`.
+    A sleep kernel queued first holds the card until all n calls are
+    enqueued, so the host path between launches opens no gaps. Host: the
+    time the n calls take to enqueue, over n."""
     import torch
+
+    def event():
+        return torch.cuda.Event(enable_timing=True)
 
     for _ in range(3):
         fn()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
         fn()
+    host_ms = 1e3 * (time.perf_counter() - t0) / n
+    torch.cuda.synchronize()
+    start, end = event(), event()
+    start.record()
+    torch.cuda._sleep(1_000_000)
+    end.record()
+    end.synchronize()
+    hold = int(3 * n * host_ms * 1e6 / start.elapsed_time(end)) + 1
+    times = []
+    for _ in range(reps):
+        start, end = event(), event()
+        torch.cuda._sleep(hold)
+        start.record()
+        for _ in range(n):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / n)
     times.sort()
-    return times[len(times) // 2]
+    return times[len(times) // 2], host_ms
+
+
+def _busy_ms(events) -> float:
+    """Union of the device intervals of profiler events, in ms."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    return busy / 1e3
 
 
 def _check_winners(got, want, what: str) -> float:
@@ -103,10 +139,9 @@ def _check_winners(got, want, what: str) -> float:
     return float(max(err, (mx - rm).abs().max()))
 
 
-def run(dev, seed: int = 0, n_notes: int = N_NOTES,
-        n_requests: int = N_REQUESTS, batch_size: int = BATCH):
+def run(dev, seed: int = 0):
     """All phases on device `dev`; returns (kernel numbers, nvidia-smi
-    line, device name). Sizes other than the defaults are for rehearsals."""
+    line, device name)."""
     import numpy as np
     import torch
 
@@ -135,22 +170,21 @@ def run(dev, seed: int = 0, n_notes: int = N_NOTES,
     t = _phase("device", t)
 
     # 2. build
-    logs = _build.build(["window_winners"])
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                print(f"nvcc {name}: {line.strip()}")
-    print(f"built: {', '.join(logs) or 'all cached'}")
+    log = _build.build("window_winners")
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line or "error" in line:
+            print(f"nvcc window_winners: {line.strip()}")
+    print("built: window_winners" if log else "window_winners: cached")
     t = _phase("build", t)
 
     # 3. setup: corpus, embeddings and encoder weights from --seed
     rng = np.random.default_rng(seed)
     words = np.array([f"w{i}" for i in range(VOCAB)])
-    doc_terms = _zipf_doc_terms(rng, n_notes)
+    doc_terms = _zipf_doc_terms(rng, N_NOTES)
     notes = [{"note_id": f"n{i}", "title": "", "content": " ".join(row)}
              for i, row in enumerate(words[doc_terms].tolist())]
     gen = torch.Generator(device=dev).manual_seed(seed)
-    emb = torch.randn((n_notes, 1024), generator=gen, device=dev)
+    emb = torch.randn((N_NOTES, 1024), generator=gen, device=dev)
     emb = (emb / torch.linalg.vector_norm(emb, dim=1, keepdim=True)).to(torch.bfloat16)
     cfg = {"vector_store": {"top_k": 20}, "context": {"max_notes_for_llm": 20}}
     em = EmbeddingManager(cfg, device=dev, seed=seed)
@@ -158,8 +192,8 @@ def run(dev, seed: int = 0, n_notes: int = N_NOTES,
     qp = QueryProcessor(notes, embeddings=emb, cfg=cfg, device=dev,
                         embedding_manager=em)
     del emb
-    requests = [[" ".join(words[q]) for q in _query_terms(rng, batch_size)]
-                for _ in range(n_requests)]
+    requests = [[" ".join(words[q]) for q in _query_terms(rng, BATCH)]
+                for _ in range(N_REQUESTS)]
     retriever = qp.retriever
     n_docs = len(notes)
     top_k = qp.default_top_k()
@@ -187,8 +221,9 @@ def run(dev, seed: int = 0, n_notes: int = N_NOTES,
                                f"window_winners main path ({b}, {l})"))
     torch.cuda.synchronize()
     print(f"kernel check: {len(errs)} comparisons equal, max abs err {max(errs):.3g}")
-    kernel_ms = _time_ms(lambda: window_winners(dr, wr, n_docs, max_seg))
-    plain_ms = _time_ms(lambda: window_winners_ref(dr, wr, n_docs, max_seg))
+    kernel_ms, wrapper_host_ms = _time_ms(
+        lambda: window_winners(dr, wr, n_docs, max_seg))
+    plain_ms, _ = _time_ms(lambda: window_winners_ref(dr, wr, n_docs, max_seg))
     block_l = min(1024, max(l, 256))
     moved = 2 * 4 * b * l + 8 * b * block_l + 4 * b
     starts = int(((dr[:, 1:] != dr[:, :-1]) & (dr[:, :-1] < n_docs)).sum())
@@ -196,8 +231,9 @@ def run(dev, seed: int = 0, n_notes: int = N_NOTES,
     ops = b * (l + 1) + starts * (2 * max_seg - 1)
     bound_ms = 1e3 * max(moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
     bound_by = "bytes" if moved / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else "operations"
-    print(f"window_winners at ({b}, {l}) max_seg {max_seg}: kernel {kernel_ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+    print(f"window_winners at ({b}, {l}) max_seg {max_seg}: kernel {kernel_ms:.4f} ms "
+          f"a launch (20 back to back), wrapper's host path {wrapper_host_ms:.4f} ms "
+          f"a call, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
           f"{moved / 1e6:.1f} MB, {ops / 1e6:.1f} M ops) | {smi_line}")
     t = _phase("kernels", t)
 
@@ -212,7 +248,7 @@ def run(dev, seed: int = 0, n_notes: int = N_NOTES,
     window_winners.launches = 0
     done_at = {}
     t_serve = time.perf_counter()
-    with ServingEngine(qp, sub_batch=batch_size, depth=2) as engine:
+    with ServingEngine(qp, sub_batch=BATCH, depth=2) as engine:
         submitted = []
         for i, req in enumerate(requests):
             fut = engine.submit(req)
@@ -234,7 +270,7 @@ def run(dev, seed: int = 0, n_notes: int = N_NOTES,
                              f"path; {routed} sub-batches were routed to it")
     lat = [done_at[i] - s for i, (s, _) in enumerate(submitted)]
     n_q = sum(len(r) for r in requests)
-    print(f"served {len(requests)} x {batch_size} queries over {n_docs} notes: "
+    print(f"served {len(requests)} x {BATCH} queries over {n_docs} notes: "
           f"window_winners launches {launches} (routed {routed}); latency per "
           f"request {', '.join(f'{x:.3f}' for x in lat)} s; "
           f"{n_q / (t_end - t_serve):.1f} queries/s; peak memory {peak_gb:.2f} GB "
@@ -281,6 +317,34 @@ def run(dev, seed: int = 0, n_notes: int = N_NOTES,
           + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
           + f"; sum {sum(stages.values()):.4f} | {smi_line}")
     t = _phase("breakdown", t)
+
+    # 7. trace: one request through the engine under torch.profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    with ServingEngine(qp, sub_batch=BATCH, depth=2) as engine:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            engine.submit(requests[0]).result(timeout=600)
+            torch.cuda.synchronize(dev)
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    on_card = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if on_card:
+        by_name = {}
+        for e in on_card:
+            span = (e.time_range.end - e.time_range.start) / 1e3
+            by_name[e.name] = by_name.get(e.name, 0.0) + span
+        busy = _busy_ms(on_card)
+        ww = sum(v for k, v in by_name.items() if "window_winners_kernel" in k
+                 or "row_max_kernel" in k)
+        print(f"trace of one {BATCH}-query request: wall {wall_ms:.2f} ms, device busy "
+              f"{busy:.2f} ms, idle share {1 - busy / wall_ms:.4f}; window_winners "
+              f"kernels {ww:.4f} ms | {smi_line}")
+        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+            print(f"  device {ms:9.3f} ms  {name[:140]}")
+    else:
+        print("trace: no device events recorded; idle share not measured")
+    t = _phase("trace", t)
 
     return {"kernels": [{
         "name": "bm25_window_winners", "route": "cuda",

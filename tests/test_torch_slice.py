@@ -117,11 +117,13 @@ def test_process_batch_matches_reference_encoder_backend():
         "encoder.dtype": "float32"})
     notes = _notes(n_extra=120, seed=1)
     jqp = JQueryProcessor(notes, cfg=loader, llm=None)
-    em = EmbeddingManager(loader.as_dict(), device="cpu")
+    port_cfg = loader.as_dict()
+    port_cfg["embedding"]["backend"] = "torch"
+    em = EmbeddingManager(port_cfg, device="cpu")
     np_params = jax.tree.map(np.asarray, jqp.em._params)
     em.load_encoder_state(params_from_jax(
         np_params, EncoderConfig.from_config(loader.get("encoder"))))
-    qp = QueryProcessor(notes, cfg=loader.as_dict(), device="cpu",
+    qp = QueryProcessor(notes, cfg=port_cfg, device="cpu",
                         embedding_manager=em)
     want = jqp.retriever.hybrid_search(QUERIES, top_k=10)
     got = qp.process_batch(QUERIES, top_k=10)
@@ -200,3 +202,9 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         EmbeddingManager({"embedding": {"backend": "hash"}})
     assert resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("backend", ["jax", "bge"])
+def test_embedding_manager_rejects_backends_it_does_not_have(backend):
+    with pytest.raises(ValueError, match="backend"):
+        EmbeddingManager({"embedding": {"backend": backend}}, device="cpu")
