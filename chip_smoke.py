@@ -74,7 +74,7 @@ def _query_terms(rng, b: int):
     return [rng.choice(ranks, size=Q_LEN, p=p) for _ in range(b)]
 
 
-def _time_ms(fn, n: int = 20, reps: int = 5):
+def _time_ms(fn, n: int = 20, reps: int = 21):
     """(device ms, host ms) per call of fn(), after 3 warm-ups. Device: n
     calls back to back between two CUDA events, over n, median of `reps`.
     A sleep kernel queued first holds the card until all n calls are
