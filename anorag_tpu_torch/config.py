@@ -1,7 +1,7 @@
 """Configuration for the port: the keys its slice reads, with defaults.
 
 Counterpart of the subset of anorag_tpu/config/defaults.py that the batched
-hybrid query reads. A config is a nested dict (for example one loaded from
+hybrid query and the dense search read. A config is a nested dict (for example one loaded from
 the repo's YAML files); `Config` merges it over these defaults and answers
 dotted lookups, as anorag_tpu's ConfigLoader.get does.
 """
@@ -35,7 +35,10 @@ DEFAULTS = {
     },
     "vector_store": {"top_k": 20, "index_type": "IVFFlat"},
     "context": {"max_notes_for_llm": 20},
-    "tpu": {"sharded_search": "auto"},
+    "tpu": {
+        "sharded_search": "auto",
+        "ivf": {"nlist": 20, "nprobe": 4, "kmeans_iters": 15},
+    },
 }
 
 

@@ -1,23 +1,52 @@
-"""Hybrid dense + BM25 top-k by candidate-union fusion.
+"""Dense top-k search and hybrid dense + BM25 top-k by candidate-union fusion.
 
-Counterpart of anorag_tpu/ops/topk.py: NEG_INF (:32), hybrid_topk (:562)
-and hybrid_fuse (:750). The dense candidates are an f32 matmul followed by
-an exact top-k (the reference's approx_max_k is exact on the CPU backend
-the tests compare against); this matmul is outside any Pallas kernel in the
-reference and stays torch.matmul here.
+Counterpart of anorag_tpu/ops/topk.py: NEG_INF and POS_INF (:32), _round_up
+(:36), dense_topk_xla (:369), _sort_topk (:410), dense_topk (:432), _pad_k
+(:550), hybrid_topk (:562), hybrid_fuse (:750) and dense_topk_np (:838).
+
+The TPU kernel _topk_kernel (:40) is csrc/streaming_topk.cu, reached through
+dense_topk_kernel (method="kernel" / use_kernel=True, the counterpart of
+method="pallas" / use_pallas=True); dense_topk_ref is its plain version.
+
+Tie rule: every route returns the exact top-k by (score descending, lower
+row first), lax.top_k's rule, as the reference's "exact" and "scan" methods
+do. The reference's Pallas kernel keeps, among exactly tied scores, the rows
+its slot history leaves (ROADMAP, faults found); the port does not copy it.
+The matmuls outside the kernel stay torch.matmul, as the reference leaves
+them to XLA.
 """
 from __future__ import annotations
 
+import ctypes
+from typing import Optional
+
+import numpy as np
 import torch
 
 NEG_INF = -3.0e38
+POS_INF = 3.0e38
+SCAN_CHUNK = 65536          # corpus rows per step of the chunked scan
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
 
 
 def top_k(x: torch.Tensor, k: int):
     """lax.top_k along the last dim: values descending, ties to the lower
-    index (a stable sort), exact membership at the k-th value."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
+    index, exact membership at the k-th value. For f32, one torch.topk over
+    int64 keys that hold the value's order-preserving bits above the
+    reversed index, so no two keys tie (-0.0 counts as 0.0, as in a sort);
+    other dtypes take a stable sort."""
+    k = min(k, x.shape[-1])
+    if x.dtype != torch.float32:
+        vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+        return vals[..., :k], idx[..., :k]
+    bits = (x + 0.0).view(torch.int32).long()
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits) * (1 << 32)
+    key += 0xFFFFFFFF - torch.arange(x.shape[-1], device=x.device)
+    idx = torch.topk(key, k, dim=-1).indices
+    return x.gather(-1, idx), idx
 
 
 def _dense_candidates(emb: torch.Tensor, queries: torch.Tensor, k: int,
@@ -119,3 +148,264 @@ def hybrid_topk(
                        n_docs=n_docs, dense_k=dense_k,
                        sparse_weight=sparse_weight,
                        materialize_bytes=materialize_bytes)
+
+
+# ------------------------------------------------------------ dense search
+MAX_K = 1024                # the streaming kernel's largest k (csrc kMaxK)
+
+
+def _sort_topk(vals: torch.Tensor, idx: torch.Tensor, k: int):
+    sv, order = top_k(vals, k)
+    return sv, idx.gather(1, order)
+
+
+def _pad_k(vals: torch.Tensor, idx: torch.Tensor, k: int, k_eff: int):
+    if k_eff < k:
+        vals = torch.nn.functional.pad(vals, (0, k - k_eff), value=NEG_INF)
+        idx = torch.nn.functional.pad(idx, (0, k - k_eff), value=-1)
+    return vals, idx
+
+
+def _chunked_topk(score_chunk, n: int, k: int, chunk: int):
+    """Exact top-k by (score descending, lower row first) of
+    score_chunk(lo, hi) -> (B, hi - lo) f32, over row chunks of the corpus:
+    each chunk's own top-k is merged into the running one (running rows are
+    lower and come first in the merge, so top_k keeps them first among
+    ties). Returns (B, k)
+    values and int64 rows."""
+    best_v = best_i = None
+    for lo in range(0, n, chunk):
+        hi = min(lo + chunk, n)
+        v, i = top_k(score_chunk(lo, hi), min(k, hi - lo))
+        i = i + lo
+        if best_v is not None:
+            v, order = top_k(torch.cat([best_v, v], dim=1), k)
+            i = torch.cat([best_i, i], dim=1).gather(1, order)
+        best_v, best_i = v, i
+    return best_v, best_i
+
+
+def _bias_scores(q32: torch.Tensor, emb: torch.Tensor, lo: int, hi: int,
+                 bias: Optional[torch.Tensor], bias_weight: float):
+    """f32 scores of rows [lo, hi), plus bias_weight * bias (multiplied,
+    then added, as the reference and the kernel round it)."""
+    s = torch.matmul(q32, emb[lo:hi].float().T)
+    if bias is not None:
+        s = s + bias_weight * bias[:, lo:hi]
+    return s
+
+
+def dense_topk_xla(emb: torch.Tensor, queries: torch.Tensor, k: int,
+                   chunk: int = SCAN_CHUNK, bias: Optional[torch.Tensor] = None,
+                   bias_weight: float = 1.0):
+    """Chunked matmul (+ bias_weight * bias) + exact top-k merge: queries
+    in the corpus dtype, f32 scores, bounded O(B * chunk) memory; (B,
+    min(k, N)) f32 values and int64 rows. (The reference's approx=True
+    takes approx_max_k per chunk on the TPU; the port's chunks are always
+    exact, so it has no such argument.)"""
+    n = emb.shape[0]
+    q32 = queries.to(emb.dtype).float()
+    return _chunked_topk(
+        lambda lo, hi: _bias_scores(q32, emb, lo, hi, bias, bias_weight),
+        n, min(k, n), chunk)
+
+
+def dense_topk_ref(emb: torch.Tensor, queries: torch.Tensor, k: int,
+                   bias: Optional[torch.Tensor] = None, bias_weight: float = 1.0,
+                   chunk: int = SCAN_CHUNK):
+    """Plain version of dense_topk_kernel: dense_topk_xla, ranked by (score
+    descending, lower row first), with int32 rows and -1 where only masked
+    rows are left."""
+    vals, idx = dense_topk_xla(emb, queries, k, chunk, bias, bias_weight)
+    return vals, torch.where(vals > NEG_INF / 2, idx, -1).int()
+
+
+_topk_lib = None
+
+
+def _load_topk() -> ctypes.CDLL:
+    """csrc/streaming_topk.cu's library, built on first use, its C
+    signatures set once."""
+    global _topk_lib
+    if _topk_lib is None:
+        from anorag_tpu_torch import _build
+
+        lib = _build.load("streaming_topk")
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.anorag_topk_splits.argtypes = [ll, ll, i]
+        lib.anorag_topk_splits.restype = i
+        lib.anorag_dense_topk.argtypes = [p, p, p, ctypes.c_float, i, ll, ll, i,
+                                          i, i, i, p, p, p, p, i, p]
+        lib.anorag_dense_topk.restype = i
+        lib.anorag_ivf_topk.argtypes = [p, p, p, p, i, p, ll, i, i, ll, ll, i,
+                                        i, i, i, p, p, p, p, i, p]
+        lib.anorag_ivf_topk.restype = i
+        _topk_lib = lib
+    return _topk_lib
+
+
+def kernel_dtype_code(t: torch.Tensor) -> int:
+    """The kernel's dtype code: 0 bf16, 1 f32; TypeError for any other."""
+    if t.dtype == torch.bfloat16:
+        return 0
+    if t.dtype == torch.float32:
+        return 1
+    raise TypeError(f"the streaming top-k kernel takes bf16 or f32 rows, got {t.dtype}")
+
+
+def check_kernel_operands(what: str, k: int, *tensors: torch.Tensor) -> bool:
+    """Raise on operands the kernel does not take; True when all lie on the
+    CPU (the plain version runs), False when all lie on one CUDA device."""
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"{what}: k {k} outside [1, {MAX_K}], the streaming "
+                         f"top-k kernel's limit")
+    if all(t.device.type == "cpu" for t in tensors):
+        return True
+    dev = tensors[0].device
+    if not all(t.is_cuda and t.device == dev for t in tensors):
+        raise ValueError(f"{what}: every operand must lie on one CUDA device "
+                         f"(or all on the CPU)")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what}: operands must be contiguous")
+    return False
+
+
+def vec_ok(d: int, *tensors: torch.Tensor) -> int:
+    """1 when rows of width d can be read 16 bytes at a time."""
+    item = tensors[0].element_size()
+    return int(d % (16 // item) == 0
+               and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def dense_topk_kernel(emb: torch.Tensor, queries: torch.Tensor, k: int,
+                      bias: Optional[torch.Tensor] = None,
+                      bias_weight: float = 1.0):
+    """Exact streaming top-k of queries @ emb.T (+ bias_weight * bias):
+    (B, min(k, N)) f32 values and int32 rows, sorted by (score descending,
+    lower row first). emb (N, D) bf16 or f32, queries (B, D) in emb's dtype,
+    bias (B, N) f32. CUDA tensors launch csrc/streaming_topk.cu and count
+    one launch in dense_topk_kernel.launches; CPU tensors run
+    dense_topk_ref. k above MAX_K raises ValueError."""
+    if emb.dim() != 2 or queries.dim() != 2 or queries.shape[1] != emb.shape[1]:
+        raise ValueError(f"dense_topk_kernel: emb (N, D) and queries (B, D), "
+                         f"got {tuple(emb.shape)} and {tuple(queries.shape)}")
+    code = kernel_dtype_code(emb)
+    if queries.dtype != emb.dtype:
+        raise TypeError(f"dense_topk_kernel: queries {queries.dtype} must be in "
+                        f"the corpus dtype {emb.dtype}")
+    (b, d), n = queries.shape, emb.shape[0]
+    operands = [emb, queries]
+    if bias is not None:
+        if bias.dtype != torch.float32:
+            raise TypeError(f"dense_topk_kernel: bias must be f32, got {bias.dtype}")
+        if tuple(bias.shape) != (b, n):
+            raise ValueError(f"dense_topk_kernel: bias of shape {tuple(bias.shape)}, "
+                             f"expected {(b, n)}")
+        operands.append(bias)
+    k_eff = min(k, n)
+    if check_kernel_operands("dense_topk_kernel", k_eff, *operands):
+        return dense_topk_ref(emb, queries, k_eff, bias, bias_weight)
+    lib = _load_topk()
+    dev = emb.device
+    splits = lib.anorag_topk_splits(b, -(-n // 64), dev.index)
+    part_v = torch.empty((b, splits, k_eff), dtype=torch.float32, device=dev)
+    part_i = torch.empty((b, splits, k_eff), dtype=torch.int32, device=dev)
+    vals = torch.empty((b, k_eff), dtype=torch.float32, device=dev)
+    idx = torch.empty((b, k_eff), dtype=torch.int32, device=dev)
+    err = lib.anorag_dense_topk(
+        queries.data_ptr(), emb.data_ptr(),
+        None if bias is None else bias.data_ptr(), float(bias_weight), code,
+        b, n, d, k_eff, vec_ok(d, emb, queries), splits, part_v.data_ptr(),
+        part_i.data_ptr(), vals.data_ptr(), idx.data_ptr(), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"dense_topk kernel launch failed: CUDA error {err}")
+    dense_topk_kernel.launches += 1
+    return vals, idx
+
+
+dense_topk_kernel.launches = 0
+
+METHODS = ("auto", "approx", "exact", "scan", "approx_scan", "exact_smalln",
+           "kernel")
+
+
+def dense_topk(emb, queries, k: int, *, method: str = "auto",
+               recall_target: float = 0.95, use_kernel: Optional[bool] = None,
+               bias=None, bias_weight: float = 1.0):
+    """Top-k inner-product search: (scores (B, k) f32, rows (B, k) int64),
+    sorted; k > N pads with (NEG_INF, -1). emb may be bf16; scores are f32.
+    bias (B, N), when given, is fused in: score = q.e + bias_weight * bias.
+
+    method, as the reference's, with "on the TPU" read as "emb on cuda":
+      auto        -- approx when the (B, N) f32 scores take at most 2 GiB on
+                     the card, else approx_scan (kernel with a bias); scan
+                     (exact_smalln with a bias) on the CPU;
+      approx, exact -- matmul + exact top-k (the reference's approx_max_k
+                     is exact on its CPU backend), per SCAN_CHUNK corpus
+                     rows with an exact merge, so no (B, N) scores and no
+                     f32 copy of the corpus form;
+      scan, approx_scan -- the same chunked scan without the bias, as in
+                     the reference;
+      exact_smalln -- f32 queries and corpus, matmul + top-k;
+      kernel      -- the streaming top-k kernel (dense_topk_kernel), the
+                     counterpart of method="pallas": no (B, N) scores in
+                     device memory, k at most MAX_K.
+    use_kernel=True/False, the counterpart of use_pallas, means "kernel" /
+    "scan" ("exact_smalln" with a bias). Ties: lower row first.
+    recall_target is accepted for the reference's signature and unused:
+    every route of the port is exact."""
+    emb = torch.as_tensor(emb)
+    queries = torch.as_tensor(queries, device=emb.device)
+    n, b = emb.shape[0], queries.shape[0]
+    k_eff = min(k, n)
+    if use_kernel is True:
+        method = "kernel"
+    elif use_kernel is False:
+        method = "scan" if bias is None else "exact_smalln"
+    if method == "auto":
+        if emb.is_cuda and 4 * b * n <= 2 * 1024**3:
+            method = "approx"
+        elif emb.is_cuda:
+            method = "approx_scan" if bias is None else "kernel"
+        else:
+            method = "scan" if bias is None else "exact_smalln"
+    if method not in METHODS:
+        raise ValueError(f"unknown dense_topk method {method!r}; one of {METHODS}")
+    if bias is not None:
+        bias = torch.as_tensor(bias, dtype=torch.float32, device=emb.device)
+
+    if method in ("approx", "exact", "scan", "approx_scan"):
+        # one exact chunked scan; the reference's scan leaves the bias out
+        vals, idx = dense_topk_xla(
+            emb, queries, k_eff, SCAN_CHUNK,
+            bias if method in ("approx", "exact") else None, bias_weight)
+    elif method == "exact_smalln":
+        scores = torch.matmul(queries.float(), emb.float().T)
+        if bias is not None:
+            scores = scores + bias_weight * bias
+        vals, idx = top_k(scores, k_eff)
+    else:
+        vals, idx = dense_topk_kernel(emb, queries.to(emb.dtype).contiguous(),
+                                      k_eff, bias=bias, bias_weight=bias_weight)
+    return _pad_k(vals, idx.long(), k, k_eff)
+
+
+def dense_topk_np(emb: np.ndarray, queries: np.ndarray, k: int,
+                  chunk: int = 2048):
+    """Pure-numpy exact top-k (the reference's oracle, ops/topk.py:838),
+    query-chunked so the working set stays in cache."""
+    emb32 = emb.astype(np.float32, copy=False)
+    q32 = np.atleast_2d(queries).astype(np.float32, copy=False)
+    k = min(k, emb.shape[0])
+    out_v = np.empty((len(q32), k), np.float32)
+    out_i = np.empty((len(q32), k), np.int64)
+    for lo in range(0, len(q32), chunk):
+        hi = min(lo + chunk, len(q32))
+        scores = q32[lo:hi] @ emb32.T
+        part = np.argpartition(-scores, k - 1, axis=1)[:, :k]
+        part_scores = np.take_along_axis(scores, part, axis=1)
+        order = np.argsort(-part_scores, axis=1, kind="stable")
+        out_v[lo:hi] = np.take_along_axis(part_scores, order, axis=1)
+        out_i[lo:hi] = np.take_along_axis(part, order, axis=1)
+    return out_v, out_i

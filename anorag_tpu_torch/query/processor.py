@@ -6,6 +6,12 @@ returns, per query, the retrieval rows of hybrid_search_finalize. The
 answer stages the reference runs on those rows (_assemble_batch :357:
 evidence rerank, EFSA, context packing, answer selection) and the
 per-query process() pipeline are not ported yet (ROADMAP, queue 1).
+The retriever is built with the reference's dense-search settings
+(index type, nlist, nprobe, threshold 0; the recall target is left
+out, since every search route of the port is exact), so
+qp.retriever.retrieve is what the reference's HTTP /search endpoint calls.
+The options of the index types not ported (pq_*, lsh_bits, hnsw_m, ef_*)
+are not passed on.
 """
 from __future__ import annotations
 
@@ -35,10 +41,15 @@ class QueryProcessor:
                 "the sharded branch)")
         self.notes = [normalize_note(n) for n in atomic_notes]
         self.em = embedding_manager or EmbeddingManager(self.cfg, self.device)
+        vs = self.cfg.get("vector_store", {}) or {}
         self.retriever = VectorRetriever(
             embedding_manager=self.em,
-            index_type=self.cfg.get("vector_store.index_type", "IVFFlat"),
-            top_k=self.cfg.get("vector_store.top_k", 20),
+            index_type=vs.get("index_type", "IVFFlat"),
+            similarity_threshold=0.0,
+            top_k=vs.get("top_k", 20),
+            nlist=self.cfg.get("vector_store.nlist",
+                               self.cfg.get("tpu.ivf.nlist", 20)),
+            nprobe=self.cfg.get("tpu.ivf.nprobe", 4),
         )
         self.retriever.build_index(self.notes, embeddings)
 

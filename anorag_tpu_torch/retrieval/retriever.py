@@ -1,9 +1,14 @@
-"""VectorRetriever: batched hybrid dense + BM25 search over notes.
+"""VectorRetriever: dense search and batched hybrid dense + BM25 search
+over notes.
 
-Counterpart of anorag_tpu/retrieval/retriever.py: __init__, build_index
-(:64), hybrid_search (:181), hybrid_search_dispatch (:196) and
-hybrid_search_finalize (:259), with the same dense_k / sparse_m rule, the
-same max_seg rule and the same sparse routing (ops/topk.hybrid_topk).
+Counterpart of anorag_tpu/retrieval/retriever.py: MISS_PENALTY,
+ENTITY_BOOST, PREDICATE_BOOST and OVERFETCH (:27-30), __init__ (:34),
+build_index (:64), search (:84), retrieve (:116), hybrid_search (:181),
+hybrid_search_dispatch (:196) and hybrid_search_finalize (:259), with the
+same dense_k / sparse_m rule, the same max_seg rule and the same sparse
+routing (ops/topk.hybrid_topk). search and retrieve go through
+VectorIndex.search_arrays: Flat (the streaming top-k kernel with
+use_kernel=True) or IVFFlat (the IVF scan kernel).
 Dispatch only enqueues device work; finalize waits for it and builds the
 note rows, so a caller can overlap one batch's host work with the next
 batch's device work.
@@ -11,8 +16,9 @@ batch's device work.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from anorag_tpu_torch.index.bm25_index import BM25Index
@@ -21,6 +27,10 @@ from anorag_tpu_torch.models.embedding_manager import EmbeddingManager
 from anorag_tpu_torch.ops.bm25 import MAX_SEG, gather_plan_sorted
 from anorag_tpu_torch.ops.topk import hybrid_topk
 
+MISS_PENALTY = 0.6
+ENTITY_BOOST = 1.2
+PREDICATE_BOOST = 1.15
+OVERFETCH = 3
 
 @dataclass
 class HybridBatch:
@@ -49,12 +59,23 @@ class VectorRetriever:
         self,
         embedding_manager: EmbeddingManager,
         index_type: str = "IVFFlat",
+        similarity_threshold: float = 0.5,
         top_k: int = 20,
+        nlist: int = 20,
+        nprobe: int = 4,
+        use_kernel: Optional[bool] = None,
+        recall_target: float = 0.95,
+        index_params: Optional[Dict[str, Any]] = None,
     ):
         self.em = embedding_manager
         self.device = embedding_manager.device
         self.index_type = index_type
+        self.similarity_threshold = similarity_threshold
         self.top_k = top_k
+        # recall_target is accepted for the reference's signature and
+        # unused: every search route of the port is exact.
+        self._index_kw = dict(nlist=nlist, nprobe=nprobe, use_kernel=use_kernel,
+                              **(index_params or {}))
         self.notes: List[Dict[str, Any]] = []
         self.index: Optional[VectorIndex] = None
         self._lexical: Optional[BM25Index] = None
@@ -69,12 +90,106 @@ class VectorRetriever:
                else embeddings)
         self.index = VectorIndex(dimension=emb.shape[1],
                                  index_type=self.index_type,
-                                 device=self.device)
+                                 device=self.device, **self._index_kw)
         if self.notes:
             self.index.add(emb)
         self._lexical = BM25Index(self.notes) if self.notes else None
 
     # ------------------------------------------------------------- search
+    def search(self, queries: Sequence[str], top_k: Optional[int] = None,
+               threshold: Optional[float] = None) -> List[List[Dict[str, Any]]]:
+        """Per query: notes with retrieval_info, filtered by threshold."""
+        if not self.notes:
+            return [[] for _ in queries]
+        top_k = top_k or self.top_k
+        threshold = self.similarity_threshold if threshold is None else threshold
+        q_emb = self.em.encode_queries(list(queries))
+        scores, idx = self.index.search_arrays(q_emb, top_k)
+        out: List[List[Dict[str, Any]]] = []
+        for qi, query in enumerate(queries):
+            rows = []
+            for rank in range(scores.shape[1]):
+                i = int(idx[qi, rank])
+                s = float(scores[qi, rank])
+                if i < 0 or s < threshold:
+                    continue
+                note = dict(self.notes[i])
+                note["retrieval_info"] = {
+                    "similarity": s, "rank": rank, "query": query, "method": "dense",
+                }
+                note["similarity"] = s
+                note["final_score"] = s
+                rows.append(note)
+            out.append(rows)
+        return out
+
+    def retrieve(
+        self,
+        query: str,
+        top_k: Optional[int] = None,
+        filter_fn: Optional[Callable[[Dict[str, Any]], bool]] = None,
+        must_have_terms: Sequence[str] = (),
+        boost_entities: Sequence[str] = (),
+        boost_predicates: Sequence[str] = (),
+        threshold: Optional[float] = None,
+    ) -> List[Dict[str, Any]]:
+        """4-stage enhanced retrieval: over-fetch, filter, adjust, cut."""
+        if not self.notes:
+            return []
+        top_k = top_k or self.top_k
+        threshold = self.similarity_threshold if threshold is None else threshold
+
+        # stage 1: over-fetch
+        q_emb = self.em.encode_queries([query])
+        fetch = min(top_k * OVERFETCH, len(self.notes))
+        scores, idx = self.index.search_arrays(q_emb, fetch)
+        cands: List[Dict[str, Any]] = []
+        for rank in range(scores.shape[1]):
+            i = int(idx[0, rank])
+            if i < 0:
+                continue
+            note = dict(self.notes[i])
+            note["similarity"] = float(scores[0, rank])
+            cands.append(note)
+
+        # stage 2: filter
+        if filter_fn:
+            cands = [c for c in cands if filter_fn(c)]
+
+        # stage 3: score adjustments (vectorized over the pool)
+        if cands:
+            sims = np.array([c["similarity"] for c in cands], np.float32)
+            if must_have_terms:
+                terms = [t.lower() for t in must_have_terms]
+                has = np.array([
+                    all(t in f"{c.get('title','')} {c.get('content','')}".lower()
+                        for t in terms)
+                    for c in cands
+                ])
+                sims = np.where(has, sims, sims * MISS_PENALTY)
+            if boost_entities:
+                be = set(e.lower() for e in boost_entities)
+                hit = np.array([
+                    bool(be & set(str(e).lower() for e in (c.get("entities") or [])))
+                    for c in cands
+                ])
+                sims = np.where(hit, sims * ENTITY_BOOST, sims)
+            if boost_predicates:
+                bp = [p.lower() for p in boost_predicates]
+                hit = np.array([
+                    any(p in (c.get("content") or "").lower() for p in bp)
+                    for c in cands
+                ])
+                sims = np.where(hit, sims * PREDICATE_BOOST, sims)
+            for c, s in zip(cands, sims):
+                c["adjusted_score"] = float(s)
+                c["final_score"] = float(s)
+
+        # stage 4: threshold + sort + cut
+        cands = [c for c in cands if c.get("adjusted_score", 0.0) >= threshold]
+        cands.sort(key=lambda c: -c["adjusted_score"])
+        return cands[:top_k]
+
     def query_terms(self, queries: Sequence[str]) -> List[List[int]]:
         return [self._lexical.query_terms(q) for q in queries]
 

@@ -42,3 +42,104 @@ def sorted_plan(rng: np.random.Generator, n_docs: int, b: int, l: int,
     w = np.where(a < n_docs, rng.random((b, l)).astype(np.float32) + 0.01,
                  0.0).astype(np.float32)
     return a, w
+
+
+# Odd shapes for the streaming top-k kernel: (N, D, B, k, bias). k > N pads;
+# D 72 and 100 are not multiples of 128 (100 also not of 8: the kernel's
+# scalar loads); B 17 crosses a 16-query tile; k 1024 is the kernel's limit.
+TOPK_CASES = (
+    (7, 64, 3, 10, False),
+    (300, 64, 5, 10, True),
+    (1500, 72, 5, 33, False),
+    (1021, 100, 9, 128, True),
+    (2000, 64, 17, 1024, False),
+)
+
+# Odd shapes for the IVF scan: (N, D, nlist, B, nprobe, k). k 150 over one
+# probed cluster leaves slots unfilled; B 17 crosses a 16-query tile.
+IVF_CASES = (
+    (600, 32, 6, 4, 1, 10),
+    (600, 32, 6, 4, 3, 10),
+    (600, 32, 6, 4, 6, 10),
+    (1000, 72, 8, 17, 1, 150),
+    (1000, 100, 8, 3, 2, 30),
+)
+
+
+def unit_rows(rng: np.random.Generator, n: int, d: int) -> np.ndarray:
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+def clustered_corpus(rng: np.random.Generator, n: int, d: int,
+                     n_clusters: int) -> np.ndarray:
+    """(N, D) f32 unit rows around n_clusters random centres."""
+    centers = rng.standard_normal((n_clusters, d)) * 4
+    x = centers[rng.integers(0, n_clusters, n)] + rng.standard_normal((n, d)) * 0.3
+    return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+
+
+def check_topk(got, want, score_of, atol: float = 1e-5) -> float:
+    """Hold a top-k result (values (B, k), ids (B, k), -1 unfilled) against
+    its plain version's: the same slots filled; values to atol; every id
+    distinct in its row and scoring its value by score_of(ids) -> (B, k)
+    to atol; ids equal wherever the gap to the neighbouring scores exceeds
+    atol, and equal as sets within each group of scores closer than that,
+    except the last group, which may tie with rows outside the top k.
+    Returns the largest value error; raises AssertionError."""
+    import torch
+
+    (gv, gi), (wv, wi) = got, want
+    gi, wi = gi.long(), wi.long()
+    filled = wi >= 0
+    if not torch.equal(gi >= 0, filled):
+        raise AssertionError("filled slots differ from the plain version")
+    err = (gv - wv).abs().where(filled, torch.zeros_like(gv))
+    max_err = float(err.max()) if err.numel() else 0.0
+    if max_err > atol:
+        raise AssertionError(f"values differ by {max_err:.3g} > {atol}")
+    rescored = score_of(gi.clamp_min(0))
+    bad = ((rescored - gv).abs() > atol) & filled
+    if bool(bad.any()) or bool(torch.isnan(rescored).where(filled, False).any()):
+        raise AssertionError(f"{int(bad.sum())} ids do not score their value")
+    srt = torch.sort(gi.where(filled, -1 - torch.arange(gi.shape[1],
+                                                        device=gi.device)), dim=1)[0]
+    if bool((srt[:, 1:] == srt[:, :-1]).any()):
+        raise AssertionError("an id repeats within a row")
+    # groups of scores closer than atol, numbered along each row
+    gap = (wv[:, :-1] - wv[:, 1:]) > atol
+    group = torch.nn.functional.pad(gap.long().cumsum(dim=1), (1, 0))
+    last = group[:, -1:]
+    keep = filled & (group != last)
+    key_g = torch.sort(group * (1 << 40) + gi.where(keep, -1), dim=1)[0]
+    key_w = torch.sort(group * (1 << 40) + wi.where(keep, -1), dim=1)[0]
+    if not torch.equal(key_g, key_w):
+        raise AssertionError("ids differ from the plain version outside ties")
+    return max_err
+
+
+def flat_scores(emb, q, bias=None, bias_weight: float = 1.0):
+    """For check_topk: ids (B, k) -> their f32 scores against queries q in
+    emb's dtype (+ bias_weight * bias), recomputed row by row."""
+    q32 = q.to(emb.dtype).float()
+
+    def score_of(ids):
+        s = (emb[ids].float() * q32[:, None, :]).sum(-1)
+        if bias is not None:
+            s = s + bias_weight * bias.gather(1, ids)
+        return s
+    return score_of
+
+
+def ivf_scores(sorted_emb, q, cluster_ids, sel):
+    """For check_topk: sorted-corpus rows (B, k) -> their f32 scores, NaN
+    where a row's cluster is not among its query's sel."""
+    import torch
+
+    q32 = q.to(sorted_emb.dtype).float()
+
+    def score_of(pos):
+        hit = (cluster_ids[pos][..., None] == sel[:, None, :]).any(-1)
+        s = (sorted_emb[pos].float() * q32[:, None, :]).sum(-1)
+        return torch.where(hit, s, float("nan"))
+    return score_of

@@ -5,18 +5,22 @@
 
 Phases, each printing its seconds:
   1. device  -- nvidia-smi's name and power limit, torch's device name;
-  2. build   -- nvcc builds the path's CUDA kernel (plain C interface,
-                ctypes);
+  2. build   -- nvcc builds the CUDA sources (window_winners,
+                streaming_topk) in parallel (plain C interface, ctypes);
   3. setup   -- a 200,000-note corpus drawn from a 30,000-word Zipf
                 vocabulary (40 terms a note), 1024-wide unit embeddings
                 and the full-width encoder (24 layers, hidden 1024, bf16),
                 all from --seed, data and weights made on the card;
-  4. kernels -- each kernel against its plain PyTorch version on the card:
-                the odd shapes of the CPU tests and the main path's real
-                batch; ids equal, values to rtol 1e-6; at the real shape
-                the kernel's and the plain version's device time (20 calls
-                back to back, CUDA events), the wrapper's host time per
-                call, and the bound;
+  4. kernels -- each kernel against its plain PyTorch version on the card,
+                at the odd shapes of the CPU tests and at the main path's
+                real shapes: window-winners ids equal and values to rtol
+                1e-6; the streaming top-k (512 x 200,000 x 1024 bf16 at k
+                20 and 128, with a bias, 1 query at k 30) and top-k values
+                to atol 1e-5, ids equal outside score ties (testing.
+                check_topk); the kernels' and plain versions' device times
+                (CUDA events around launches back to back), the wrappers'
+                host time, the bound, and torch.matmul + torch.topk as the
+                library yardstick;
   5. serve   -- a ServingEngine answers 4 requests of 512 queries (8
                 content-band terms each); every response has
                 top_k rows of valid note ids; the kernels' launch counts,
@@ -27,7 +31,25 @@ Phases, each printing its seconds:
                 upload, sparse, dense + fusion, finalize), synchronised;
   7. trace   -- one request through a ServingEngine under torch.profiler:
                 the device's busy time and idle share, the window-winners
-                kernels' own time, and the largest device kernels.
+                kernels' own time, and the largest device kernels;
+  8. search  -- a VectorRetriever with use_kernel=True over the same notes
+                and embeddings: search for one 512-query request at top_k
+                20 and retrieve for 32 single queries at top_k 10 (fetch 30,
+                the /search endpoint's traffic); the top-k kernel's
+                launches, reset just before, equal the calls; latency, QPS;
+                then the same traffic through the default route
+                (use_kernel None: chunked matmul + exact top-k, what
+                QueryProcessor's retriever takes below 5,000,000 notes),
+                its scores equal to the kernel route's to 1e-5;
+  9. ivf     -- a default VectorIndex(index_type="IVFFlat") (nlist 20,
+                nprobe 4, 15 k-means rounds) over 5,000,000 x 1024 rows
+                drawn on the card around 1,000 centres: build time, 4
+                batches of 512 queries at top_k 20 and 64 single queries at
+                top_k 30 through search_arrays (the IVF kernel's launches
+                equal the searches), one batch against the plain version,
+                the kernel's, plain version's and library yardstick's
+                times, recall@10 against exact search (printed, not
+                gated), peak device memory and the host's peak RSS.
 Then one JSON line of kernel numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure prints its traceback and exits
 non-zero without that last line; so does a machine without CUDA.
@@ -36,6 +58,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import resource
 import subprocess
 import sys
 import time
@@ -43,8 +66,11 @@ import traceback
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 on the tensor cores
 VOCAB, DOC_LEN, Q_LEN, MIN_RANK = 30_000, 40, 8, 100
 N_NOTES, N_REQUESTS, BATCH = 200_000, 4, 512
+N_IVF, IVF_CENTRES, IVF_BATCHES, IVF_SINGLES = 5_000_000, 1000, 4, 64
+N_RETRIEVE = 32
 
 
 def _phase(name: str, t0: float) -> float:
@@ -74,8 +100,8 @@ def _query_terms(rng, b: int):
     return [rng.choice(ranks, size=Q_LEN, p=p) for _ in range(b)]
 
 
-def _time_ms(fn, n: int = 20, reps: int = 21):
-    """(device ms, host ms) per call of fn(), after 3 warm-ups. Device: n
+def _time_ms(fn, n: int = 20, reps: int = 21, warm: int = 3):
+    """(device ms, host ms) per call of fn(), after `warm` calls. Device: n
     calls back to back between two CUDA events, over n, median of `reps`.
     A sleep kernel queued first holds the card until all n calls are
     enqueued, so the host path between launches opens no gaps. Host: the
@@ -85,7 +111,7 @@ def _time_ms(fn, n: int = 20, reps: int = 21):
     def event():
         return torch.cuda.Event(enable_timing=True)
 
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -139,6 +165,317 @@ def _check_winners(got, want, what: str) -> float:
     return float(max(err, (mx - rm).abs().max()))
 
 
+def _topk_bound(b: int, rows: int, d: int, k: int, item: int, extra_bytes: int = 0,
+                extra_ops: int = 0):
+    """(bound ms, bound_by) of a top-k over `rows` corpus rows of width d
+    (item bytes each, read once) for b queries: bytes read and written once
+    over the memory rate, against 2*b*rows*d operations over the peak rate
+    of the inputs' type (bf16 on the tensor cores, f32 outside them)."""
+    moved = rows * d * item + b * d * item + b * k * 8 + extra_bytes
+    ops = 2 * b * rows * d + extra_ops
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = ops / (BF16_OPS_PER_S if item == 2 else F32_OPS_PER_S)
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _check_topk_odd_shapes(dev):
+    """The streaming top-k and IVF scan kernels against their plain
+    versions at the CPU tests' odd shapes, bf16 and f32; max abs errors."""
+    import numpy as np
+    import torch
+
+    from anorag_tpu_torch.ops import ivf
+    from anorag_tpu_torch.ops.topk import dense_topk_kernel, dense_topk_ref
+    from anorag_tpu_torch.testing import (IVF_CASES, TOPK_CASES, check_topk,
+                                          clustered_corpus, flat_scores,
+                                          ivf_scores, unit_rows)
+
+    dense, scan = [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        for n, d, b, k, has_bias in TOPK_CASES:
+            rng = np.random.default_rng(n)
+            emb = torch.from_numpy(unit_rows(rng, n, d)).to(dev, dtype)
+            q = torch.from_numpy(unit_rows(rng, b, d)).to(dev, dtype)
+            bias = (torch.from_numpy(rng.standard_normal((b, n)).astype(np.float32))
+                    .to(dev) if has_bias else None)
+            dense.append(check_topk(dense_topk_kernel(emb, q, k, bias, 0.7),
+                                    dense_topk_ref(emb, q, k, bias, 0.7),
+                                    flat_scores(emb, q, bias, 0.7)))
+        for n, d, nlist, b, nprobe, k in IVF_CASES:
+            rng = np.random.default_rng(n + nprobe)
+            layout, sorted_emb = ivf.build_ivf(
+                torch.from_numpy(clustered_corpus(rng, n, d, nlist)), nlist=nlist,
+                block_rows=128)
+            q = torch.from_numpy(unit_rows(rng, b, d))
+            sel = ivf.ivf_probe(layout, q, nprobe)
+            blk = ivf.select_blocks(layout, sel.numpy())
+            e, qd, seld = sorted_emb.to(dev, dtype), q.to(dev, dtype), sel.to(dev)
+            cid = layout.device_array("cluster_ids", dev)
+            args = (qd, e, cid, seld, torch.from_numpy(blk).to(dev),
+                    int((blk >= 0).sum()), min(k, n), layout.block_rows)
+            scan.append(check_topk(ivf.ivf_scan(*args), ivf.ivf_scan_ref(*args),
+                                   ivf_scores(e, qd, cid, seld)))
+    torch.cuda.synchronize()
+    return dense, scan
+
+
+def _dense_real_shapes(dev, emb, queries, seed: int, smi_line: str):
+    """The streaming top-k kernel at the main path's shapes: checked against
+    its plain version and timed beside it and beside torch.matmul +
+    torch.topk. Returns (max abs errors, numbers of the 512-query k 20
+    case)."""
+    import torch
+
+    from anorag_tpu_torch.ops.topk import dense_topk_kernel, dense_topk_ref
+    from anorag_tpu_torch.testing import check_topk, flat_scores
+
+    b, n, d = queries.shape[0], emb.shape[0], emb.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    bias = torch.randn((b, n), generator=gen, device=dev)
+    one = queries[:1].contiguous()
+    cases = [(f"{b} x {n} x {d} k 20", queries, 20, None),
+             (f"{b} x {n} x {d} k 128", queries, 128, None),
+             (f"{b} x {n} x {d} k 20 + bias", queries, 20, bias),
+             (f"1 x {n} x {d} k 30", one, 30, None)]
+    errs, main = [], None
+    for name, q, k, bs in cases:
+        errs.append(check_topk(dense_topk_kernel(emb, q, k, bs, 0.6),
+                               dense_topk_ref(emb, q, k, bs, 0.6),
+                               flat_scores(emb, q, bs, 0.6)))
+        ms, host_ms = _time_ms(lambda: dense_topk_kernel(emb, q, k, bs, 0.6),
+                               n=3, reps=5)
+        plain_ms, _ = _time_ms(lambda: dense_topk_ref(emb, q, k, bs, 0.6),
+                               n=1, reps=3, warm=1)
+        if bs is None:
+            lib_ms, _ = _time_ms(lambda: torch.topk(torch.matmul(q, emb.T), k),
+                                 n=3, reps=5)
+        else:
+            lib_ms, _ = _time_ms(lambda: torch.topk(
+                torch.matmul(q, emb.T) + 0.6 * bs, k), n=3, reps=5)
+        bound_ms, bound_by = _topk_bound(
+            q.shape[0], n, d, k, emb.element_size(),
+            extra_bytes=4 * q.shape[0] * n if bs is not None else 0,
+            extra_ops=2 * q.shape[0] * n if bs is not None else 0)
+        print(f"dense_topk {name}: kernel {ms:.4f} ms a launch, wrapper's host path "
+              f"{host_ms:.4f} ms a call, plain {plain_ms:.4f} ms, torch.matmul + "
+              f"torch.topk (two library calls) {lib_ms:.4f} ms, bound {bound_ms:.4f} "
+              f"ms ({bound_by}) | {smi_line}", flush=True)
+        if main is None:
+            main = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, library_ms=lib_ms)
+    del bias
+    return errs, main
+
+
+def _search_phase(dev, em, notes, emb, requests, smi_line: str):
+    """VectorRetriever.search and .retrieve through the streaming top-k
+    kernel (use_kernel=True); returns the kernel's launches in the phase."""
+    import torch
+
+    from anorag_tpu_torch.ops.topk import dense_topk_kernel
+    from anorag_tpu_torch.retrieval.retriever import VectorRetriever
+
+    vr = VectorRetriever(em, use_kernel=True, top_k=20)
+    vr.build_index(notes, embeddings=emb)
+    vr.retrieve("warm the encoder", top_k=10)
+    torch.cuda.synchronize(dev)
+    dense_topk_kernel.launches = 0
+    t0 = time.perf_counter()
+    rows = vr.search(requests[0], top_k=20, threshold=-1.0)
+    t_search = time.perf_counter() - t0
+    singles, lat = requests[1][:N_RETRIEVE], []
+    picked = []
+    for query in singles:
+        t1 = time.perf_counter()
+        picked.append(vr.retrieve(query, top_k=10, threshold=-1.0))
+        lat.append(time.perf_counter() - t1)
+    launches = dense_topk_kernel.launches
+    calls = 1 + len(singles)
+    for got, want in [(rows, 20)] + [([r], 10) for r in picked]:
+        for row in got:
+            if len(row) != want:
+                raise AssertionError(f"search returned {len(row)} rows, not {want}")
+            for r in row:
+                i = int(r["note_id"][1:])
+                if not (0 <= i < len(notes) and notes[i]["note_id"] == r["note_id"]):
+                    raise AssertionError(f"invalid note {r['note_id']}")
+    if launches != calls:
+        raise AssertionError(f"dense_topk kernel launched {launches} times for "
+                             f"{calls} searches")
+    print(f"search: {len(requests[0])} queries at top_k 20 in {t_search:.4f} s "
+          f"({len(requests[0]) / t_search:.1f} queries/s); retrieve: {len(singles)} "
+          f"single queries at top_k 10 (fetch 30), latency mean "
+          f"{sum(lat) / len(lat):.4f} s, max {max(lat):.4f} s, "
+          f"{len(singles) / sum(lat):.1f} queries/s; dense_topk launches {launches} "
+          f"of {calls} calls | {smi_line}", flush=True)
+
+    # The default route (use_kernel None: chunked matmul + exact top-k), the
+    # one QueryProcessor's retriever and so /search take below ivf_min_corpus.
+    vd = VectorRetriever(em, top_k=20)
+    vd.build_index(notes, embeddings=emb)
+    vd.search(requests[0], top_k=20, threshold=-1.0)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    rows_d = vd.search(requests[0], top_k=20, threshold=-1.0)
+    t_default = time.perf_counter() - t0
+    lat_d = []
+    for query in singles:
+        t1 = time.perf_counter()
+        vd.retrieve(query, top_k=10, threshold=-1.0)
+        lat_d.append(time.perf_counter() - t1)
+    if dense_topk_kernel.launches != launches:
+        raise AssertionError("the default route launched the top-k kernel")
+    for got, want in zip(rows_d, rows):
+        gap = max(abs(g["similarity"] - w["similarity"]) for g, w in zip(got, want))
+        if len(got) != len(want) or gap > 1e-5:
+            raise AssertionError(f"default route's scores differ from the "
+                                 f"kernel route's by {gap}")
+    print(f"search, default route (chunked torch.matmul + exact top-k): "
+          f"{len(requests[0])} queries at top_k 20 in {t_default:.4f} s "
+          f"({len(requests[0]) / t_default:.1f} queries/s); retrieve: latency mean "
+          f"{sum(lat_d) / len(lat_d):.4f} s, max {max(lat_d):.4f} s, "
+          f"{len(singles) / sum(lat_d):.1f} queries/s; scores equal to the kernel "
+          f"route's to 1e-5 | {smi_line}", flush=True)
+    del vd
+    return launches
+
+
+def _ivf_phase(dev, seed: int, smi_line: str):
+    """The default IVFFlat index at 5,000,000 rows: build, traffic, checks
+    and timings. Returns (launches, max abs error, timing numbers)."""
+    import torch
+
+    from anorag_tpu_torch.index.vector_index import VectorIndex
+    from anorag_tpu_torch.ops.ivf import (ivf_probe, ivf_scan, ivf_scan_ref,
+                                          select_blocks)
+    from anorag_tpu_torch.ops.topk import dense_topk_kernel
+    from anorag_tpu_torch.testing import check_topk, ivf_scores
+
+    d = 1024
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    centres = torch.randn((IVF_CENTRES, d), generator=gen, device=dev)
+    x = torch.empty((N_IVF, d), device=dev)
+    step = 1 << 18
+    for lo in range(0, N_IVF, step):
+        hi = min(lo + step, N_IVF)
+        label = torch.randint(0, IVF_CENTRES, (hi - lo,), generator=gen, device=dev)
+        x[lo:hi] = centres[label] + 0.5 * torch.randn((hi - lo, d), generator=gen,
+                                                      device=dev)
+    torch.cuda.synchronize(dev)
+    t_data = time.perf_counter() - t
+    index = VectorIndex(dimension=d, index_type="IVFFlat", device=dev)
+    t = time.perf_counter()
+    index.add(x)
+    del x, centres
+    torch.cuda.empty_cache()
+    t_add = time.perf_counter() - t
+    t = time.perf_counter()
+    index._materialize()
+    torch.cuda.synchronize(dev)
+    t_build = time.perf_counter() - t
+    peak_build = torch.cuda.max_memory_allocated(dev) / 1e9
+    layout, sorted_emb = index._layout, index._device_emb
+    sizes = torch.bincount(torch.from_numpy(layout.cluster_ids[:layout.n]).long(),
+                           minlength=layout.nlist)
+    print(f"ivf build: data {t_data:.2f} s, add (normalize, host copy) {t_add:.2f} s, "
+          f"k-means + cluster sort {t_build:.2f} s; nlist {layout.nlist}, "
+          f"block_rows {layout.block_rows}, {layout.num_blocks} blocks, cluster "
+          f"sizes {sizes.min().item()}-{sizes.max().item()}; peak device memory "
+          f"{peak_build:.2f} GB", flush=True)
+
+    # traffic: noisy copies of random corpus rows
+    cpu_gen = torch.Generator().manual_seed(seed + 3)
+    n_q = IVF_BATCHES * BATCH + IVF_SINGLES
+    rows = torch.randint(0, N_IVF, (n_q,), generator=cpu_gen)
+    queries = (index._emb_f32[rows]
+               + 0.01 * torch.randn((n_q, d), generator=cpu_gen)).to(dev)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ivf_scan.launches = 0
+    lat_b, lat_1, single_ids = [], [], []
+    for i in range(IVF_BATCHES):
+        t = time.perf_counter()
+        vals, ids = index.search_arrays(queries[i * BATCH:(i + 1) * BATCH], 20)
+        lat_b.append(time.perf_counter() - t)
+        if ids.shape != (BATCH, 20) or ids.min() < -1 or ids.max() >= N_IVF:
+            raise AssertionError("IVF batch returned invalid ids")
+    for j in range(IVF_BATCHES * BATCH, n_q):
+        t = time.perf_counter()
+        vals, ids = index.search_arrays(queries[j:j + 1], 30)
+        lat_1.append(time.perf_counter() - t)
+        if ids.shape != (1, 30) or ids.min() < -1 or ids.max() >= N_IVF:
+            raise AssertionError("IVF single query returned invalid ids")
+        single_ids.append(ids[0, :10])
+    launches = ivf_scan.launches
+    peak_search = torch.cuda.max_memory_allocated(dev) / 1e9
+    if launches != IVF_BATCHES + IVF_SINGLES:
+        raise AssertionError(f"ivf_scan launched {launches} times for "
+                             f"{IVF_BATCHES + IVF_SINGLES} searches")
+    n_b = IVF_BATCHES * BATCH
+    print(f"ivf traffic: {IVF_BATCHES} x {BATCH} queries at top_k 20, latency "
+          f"{', '.join(f'{x:.4f}' for x in lat_b)} s ({n_b / sum(lat_b):.1f} "
+          f"queries/s); {IVF_SINGLES} single queries at top_k 30, latency mean "
+          f"{sum(lat_1) / len(lat_1):.4f} s, max {max(lat_1):.4f} s "
+          f"({IVF_SINGLES / sum(lat_1):.1f} queries/s); ivf_scan launches "
+          f"{launches}; peak device memory {peak_search:.2f} GB; host peak RSS "
+          f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6:.2f} GB "
+          f"| {smi_line}", flush=True)
+
+    # the kernel against its plain version, and timings, at the real shapes
+    cid = layout.device_array("cluster_ids", dev)
+
+    def scan_args(q, k):
+        qn = index._preprocess(q)
+        sel = ivf_probe(layout, qn, index.nprobe).contiguous()
+        blk = select_blocks(layout, sel.cpu().numpy())
+        return (qn.to(sorted_emb.dtype).contiguous(), sorted_emb, cid, sel,
+                torch.from_numpy(blk).to(dev), int((blk >= 0).sum()), k,
+                layout.block_rows)
+
+    scanned = [scan_args(queries[i * BATCH:(i + 1) * BATCH], 20)[5]
+               for i in range(IVF_BATCHES)]
+    print(f"ivf blocks scanned per batch: {scanned} of {layout.num_blocks}")
+    numbers = {}
+    err = 0.0
+    for name, q, k in ((f"{BATCH} x {N_IVF} x {d} k 20", queries[:BATCH], 20),
+                       (f"1 x {N_IVF} x {d} k 30", queries[n_b:n_b + 1], 30)):
+        args = scan_args(q, k)
+        err = max(err, check_topk(ivf_scan(*args), ivf_scan_ref(*args),
+                                  ivf_scores(sorted_emb, args[0], cid, args[3])))
+        ms, host_ms = _time_ms(lambda: ivf_scan(*args), n=3, reps=5)
+        plain_ms, _ = _time_ms(lambda: ivf_scan_ref(*args), n=1, reps=2, warm=1)
+        lib_ms, _ = _time_ms(lambda: torch.topk(torch.matmul(args[0], sorted_emb.T), k),
+                             n=1, reps=3, warm=1)
+        sel, n_scan, b = args[3], args[5], args[0].shape[0]
+        needed = int(sizes.to(dev)[sel.long()].sum())        # rows each query must score
+        moved = (n_scan * layout.block_rows * (d * 2 + 4) + b * d * 2 + sel.numel() * 4
+                 + b * k * 8)
+        t_bytes, t_ops = moved / HBM_BYTES_PER_S, 2 * needed * d / BF16_OPS_PER_S
+        bound_ms = 1e3 * max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        print(f"ivf_scan {name}: {n_scan} blocks scanned, kernel {ms:.4f} ms a launch, "
+              f"wrapper's host path {host_ms:.4f} ms a call, plain {plain_ms:.4f} ms, "
+              f"torch.matmul + torch.topk over every row (two library calls, no "
+              f"cluster mask) {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{moved / 1e9:.3f} GB, {2 * needed * d / 1e12:.3f} TFLOP) | {smi_line}",
+              flush=True)
+        numbers.setdefault("main", dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                        bound_by=bound_by, library_ms=lib_ms))
+
+    # recall@10 of the single queries against exact search of the same rows
+    qn = index._preprocess(queries[n_b:]).to(sorted_emb.dtype).contiguous()
+    _, exact = dense_topk_kernel(sorted_emb, qn, 10)
+    exact = layout.device_array("perm", dev)[exact.long()].cpu().numpy()
+    recall = sum(len(set(a.tolist()) & set(b.tolist())) / 10
+                 for a, b in zip(single_ids, exact)) / len(exact)
+    print(f"ivf recall@10 of {len(exact)} single queries against exact search: "
+          f"{recall:.4f} (nprobe {index.nprobe} of {layout.nlist}; not gated)")
+    return launches, err, numbers["main"]
+
+
 def run(dev, seed: int = 0):
     """All phases on device `dev`; returns (kernel numbers, nvidia-smi
     line, device name)."""
@@ -169,12 +506,17 @@ def run(dev, seed: int = 0):
           flush=True)
     t = _phase("device", t)
 
-    # 2. build
-    log = _build.build("window_winners")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            print(f"nvcc window_winners: {line.strip()}")
-    print("built: window_winners" if log else "window_winners: cached")
+    # 2. build: one nvcc for each source, all started together
+    from concurrent.futures import ThreadPoolExecutor
+
+    sources = ("window_winners", "streaming_topk")
+    with ThreadPoolExecutor(len(sources)) as pool:
+        logs = dict(zip(sources, pool.map(_build.build, sources)))
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                print(f"nvcc {name}: {line.strip()}")
+        print(f"built: {name}" if log else f"{name}: cached")
     t = _phase("build", t)
 
     # 3. setup: corpus, embeddings and encoder weights from --seed
@@ -235,6 +577,12 @@ def run(dev, seed: int = 0):
           f"a launch (20 back to back), wrapper's host path {wrapper_host_ms:.4f} ms "
           f"a call, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
           f"{moved / 1e6:.1f} MB, {ops / 1e6:.1f} M ops) | {smi_line}")
+    dense_errs, scan_errs = _check_topk_odd_shapes(dev)
+    print(f"streaming top-k check: {len(dense_errs)} dense and {len(scan_errs)} IVF "
+          f"odd-shape comparisons agree, max abs err {max(dense_errs + scan_errs):.3g}")
+    real_errs, dense_main = _dense_real_shapes(
+        dev, retriever.index.flat_device_emb(), batch.q_emb, seed, smi_line)
+    dense_errs += real_errs
     t = _phase("kernels", t)
 
     # 5. serve: the main path, launch counts reset just before
@@ -346,6 +694,16 @@ def run(dev, seed: int = 0):
         print("trace: no device events recorded; idle share not measured")
     t = _phase("trace", t)
 
+    # 8. search: VectorRetriever.search / retrieve through the top-k kernel
+    dense_launches = _search_phase(dev, em, notes, retriever.index.flat_device_emb(),
+                                   requests[1:3], smi_line)
+    t = _phase("search", t)
+
+    # 9. ivf: the default IVFFlat index at 5,000,000 rows
+    ivf_launches, ivf_err, ivf_main = _ivf_phase(dev, seed, smi_line)
+    scan_errs.append(ivf_err)
+    t = _phase("ivf", t)
+
     return {"kernels": [{
         "name": "bm25_window_winners", "route": "cuda",
         "source": "anorag_tpu_torch/csrc/window_winners.cu",
@@ -353,6 +711,16 @@ def run(dev, seed: int = 0):
         "launches": launches, "max_abs_err": max(errs),
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
+    }, {
+        "name": "dense_topk", "route": "cuda",
+        "source": "anorag_tpu_torch/csrc/streaming_topk.cu",
+        "replaces": "anorag_tpu/ops/topk.py:40",
+        "launches": dense_launches, "max_abs_err": max(dense_errs), **dense_main,
+    }, {
+        "name": "ivf_scan", "route": "cuda",
+        "source": "anorag_tpu_torch/csrc/streaming_topk.cu",
+        "replaces": "anorag_tpu/ops/ivf.py:119",
+        "launches": ivf_launches, "max_abs_err": max(scan_errs), **ivf_main,
     }]}, smi_line, kind
 
 

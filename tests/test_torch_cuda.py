@@ -8,8 +8,12 @@ import numpy as np
 import pytest
 import torch
 
-from anorag_tpu_torch.ops import bm25
-from anorag_tpu_torch.testing import WINDOW_CASES, sorted_plan
+from anorag_tpu_torch.ops import bm25, ivf, topk
+from anorag_tpu_torch.testing import (IVF_CASES, TOPK_CASES, WINDOW_CASES,
+                                      check_topk, clustered_corpus, flat_scores,
+                                      ivf_scores, sorted_plan, unit_rows)
+
+DTYPES = [torch.bfloat16, torch.float32]
 
 
 @pytest.fixture
@@ -48,3 +52,94 @@ def test_window_winners_rejects_what_the_kernel_does_not_take(cuda_device):
         bm25.window_winners(a.t().contiguous().t(), w.t().contiguous().t(), 10, 8)
     with pytest.raises(ValueError):
         bm25.window_winners(a, w.cpu(), 10, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_dense_topk_kernel_matches_ref(cuda_device, dtype):
+    for n, d, b, k, has_bias in TOPK_CASES:
+        rng = np.random.default_rng(n)
+        emb = torch.from_numpy(unit_rows(rng, n, d)).to(cuda_device, dtype)
+        q = torch.from_numpy(unit_rows(rng, b, d)).to(cuda_device, dtype)
+        bias = (torch.from_numpy(rng.standard_normal((b, n)).astype(np.float32))
+                .to(cuda_device) if has_bias else None)
+        before = topk.dense_topk_kernel.launches
+        got = topk.dense_topk_kernel(emb, q, k, bias=bias, bias_weight=0.7)
+        assert topk.dense_topk_kernel.launches == before + 1
+        want = topk.dense_topk_ref(emb, q, k, bias=bias, bias_weight=0.7)
+        torch.cuda.synchronize()
+        assert got[0].shape == (b, min(k, n))
+        check_topk(got, want, flat_scores(emb, q, bias, 0.7))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_ivf_scan_kernel_matches_ref(cuda_device, dtype):
+    for n, d, nlist, b, nprobe, k in IVF_CASES:
+        rng = np.random.default_rng(n + nprobe)
+        layout, sorted_emb = ivf.build_ivf(
+            torch.from_numpy(clustered_corpus(rng, n, d, nlist)), nlist=nlist,
+            block_rows=128)
+        q = torch.from_numpy(unit_rows(rng, b, d))
+        sel = ivf.ivf_probe(layout, q, nprobe)
+        blk = ivf.select_blocks(layout, sel.numpy())
+        n_scan = int((blk >= 0).sum())
+        e = sorted_emb.to(cuda_device, dtype)
+        qd = q.to(cuda_device, dtype)
+        cid = layout.device_array("cluster_ids", cuda_device)
+        seld = sel.to(cuda_device)
+        blkd = torch.from_numpy(blk).to(cuda_device)
+        args = (qd, e, cid, seld, blkd, n_scan, min(k, n), layout.block_rows)
+        before = ivf.ivf_scan.launches
+        got = ivf.ivf_scan(*args)
+        assert ivf.ivf_scan.launches == before + 1
+        want = ivf.ivf_scan_ref(*args)
+        torch.cuda.synchronize()
+        check_topk(got, want, ivf_scores(e, qd, cid, seld))
+
+
+@pytest.mark.cuda
+def test_topk_wrappers_reject_what_the_kernel_does_not_take(cuda_device):
+    emb = torch.zeros((2000, 64), dtype=torch.bfloat16, device=cuda_device)
+    q = torch.zeros((3, 64), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(TypeError):
+        topk.dense_topk_kernel(emb.half(), q.half(), 5)
+    with pytest.raises(TypeError):
+        topk.dense_topk_kernel(emb, q.float(), 5)
+    with pytest.raises(ValueError):
+        topk.dense_topk_kernel(emb.t().contiguous().t(), q, 5)
+    with pytest.raises(ValueError):
+        topk.dense_topk_kernel(emb, q.cpu(), 5)
+    with pytest.raises(ValueError, match="1024"):
+        topk.dense_topk_kernel(emb, q, 1025)
+    cid = torch.zeros(2000, dtype=torch.int32, device=cuda_device)
+    sel = torch.zeros((3, 2), dtype=torch.int32, device=cuda_device)
+    blk = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError):
+        ivf.ivf_scan(q, emb, cid.long(), sel, blk, 2, 5, 128)
+    with pytest.raises(ValueError):
+        ivf.ivf_scan(q, emb, cid, sel.t().contiguous().t(), blk, 2, 5, 128)
+    with pytest.raises(ValueError):
+        ivf.ivf_scan(q, emb, cid.cpu(), sel, blk, 2, 5, 128)
+    with pytest.raises(ValueError, match="1024"):
+        ivf.ivf_scan(q, emb, cid, sel, blk, 2, 1025, 128)
+
+
+@pytest.mark.cuda
+def test_ivf_search_on_the_card_always_scans_with_the_kernel(cuda_device):
+    from anorag_tpu_torch.index.vector_index import VectorIndex
+
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(clustered_corpus(rng, 600, 32, 6))
+    layout, sorted_emb = ivf.build_ivf(x.to(cuda_device), nlist=6, block_rows=128,
+                                       dtype=torch.bfloat16)
+    q = unit_rows(rng, 4, 32)
+    before = ivf.ivf_scan.launches
+    vals, idx = ivf.ivf_search(layout, sorted_emb, q, 10, nprobe=2)
+    assert ivf.ivf_scan.launches == before + 1
+    assert vals.shape == idx.shape == (4, 10) and (idx >= 0).all()
+    with pytest.raises(ValueError, match="use_kernel=False"):
+        ivf.ivf_search(layout, sorted_emb, q, 10, nprobe=2, use_kernel=False)
+    with pytest.raises(ValueError, match="use_kernel=False"):
+        VectorIndex(dimension=32, index_type="IVFFlat", use_kernel=False,
+                    device=cuda_device)
