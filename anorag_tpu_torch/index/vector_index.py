@@ -6,8 +6,9 @@ Flat and IVFFlat branches of _materialize (:164, :214-217), search (:221),
 the Flat and IVFFlat branches of search_arrays (:238, :256-259, :309-313),
 reconstruct (:344), flat_device_emb (:347), optimize_search_params (:359)
 and measure_recall (:373). IVFFlat below ivf_min_corpus rows searches
-Flat, as in the reference. IVFPQ, LSH, HNSW, the mesh branch and save /
-load are not ported yet (ROADMAP, alternative indexes) and raise
+Flat, as in the reference. The constructor takes every option of the
+reference's; IVFPQ, LSH, HNSW, a mesh and save / load are not ported yet
+(ROADMAP: alternative indexes, the sharded branch) and raise
 NotImplementedError.
 
 The normalized f32 rows stay on the host, where the reference keeps
@@ -48,10 +49,22 @@ class VectorIndex:
         use_kernel: Optional[bool] = None,
         ivf_min_corpus: int = 5_000_000,
         recall_target: float = 0.95,
+        mesh=None,
+        pq_m: int = 0,
+        pq_rerank: int = 0,
+        pq_impl: str = "sketch",
+        lsh_bits: int = 0,
+        hnsw_m: int = 16,
+        ef_construction: int = 200,
+        ef_search: int = 0,
         device: DeviceLike = None,
     ):
         if index_type not in ("Flat", "IVFFlat"):
             raise _not_ported(f"index type {index_type!r}")
+        if mesh is not None:
+            raise NotImplementedError(
+                "a mesh (corpus rows sharded over devices) is not ported yet "
+                "(ROADMAP: the sharded branch)")
         if storage_dtype not in _DTYPES:
             raise ValueError(f"storage_dtype {storage_dtype!r}; one of {tuple(_DTYPES)}")
         self.dimension = dimension
@@ -70,6 +83,16 @@ class VectorIndex:
         self.use_kernel = use_kernel
         # recall_target is accepted for the reference's signature and
         # unused: every search route of the port is exact.
+        self.mesh = mesh
+        # The options of IVFPQ, LSH and HNSW: stored and unused by Flat and
+        # IVFFlat, as in the reference.
+        self.pq_m = pq_m
+        self.pq_rerank = pq_rerank
+        self.pq_impl = pq_impl
+        self.lsh_bits = lsh_bits
+        self.hnsw_m = hnsw_m
+        self.ef_construction = ef_construction
+        self.ef_search = ef_search
         self.device = resolve_device(device)
         if index_type == "IVFFlat" and use_kernel is False and self.device.type != "cpu":
             raise ValueError("IVFFlat with use_kernel=False: the numpy IVF "

@@ -2,7 +2,10 @@
 
 Counterpart of anorag_tpu/ops/topk.py: NEG_INF and POS_INF (:32), _round_up
 (:36), dense_topk_xla (:369), _sort_topk (:410), dense_topk (:432), _pad_k
-(:550), hybrid_topk (:562), hybrid_fuse (:750) and dense_topk_np (:838).
+(:550), hybrid_topk (:562), hybrid_topk_bucketed_tiled (:625),
+BucketedSparsePlan and make_bucketed_plan (:662, :669), hybrid_topk_bucketed
+(:705), hybrid_fuse (:750) and dense_topk_np (:838). bucket_topk (:297) and
+its kernel _bucket_kernel (:172) are not ported yet (ROADMAP).
 
 The TPU kernel _topk_kernel (:40) is csrc/streaming_topk.cu, reached through
 dense_topk_kernel (method="kernel" / use_kernel=True, the counterpart of
@@ -18,7 +21,7 @@ them to XLA.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -42,8 +45,10 @@ def top_k(x: torch.Tensor, k: int):
     if x.dtype != torch.float32:
         vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
         return vals[..., :k], idx[..., :k]
-    bits = (x + 0.0).view(torch.int32).long()
-    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits) * (1 << 32)
+    bits = (x + 0.0).view(torch.int32)
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).long()
+    del bits                            # one int64 copy at a time
+    key *= 1 << 32
     key += 0xFFFFFFFF - torch.arange(x.shape[-1], device=x.device)
     idx = torch.topk(key, k, dim=-1).indices
     return x.gather(-1, idx), idx
@@ -51,46 +56,44 @@ def top_k(x: torch.Tensor, k: int):
 
 def _dense_candidates(emb: torch.Tensor, queries: torch.Tensor, k: int,
                       chunk_rows: int):
-    """Exact top-k of queries @ emb.T, in f32 (bf16 inputs are widened, so
-    products are exact and sums f32, as preferred_element_type=f32 gives),
-    over corpus chunks of at most chunk_rows rows. torch.topk picks the
-    members; ties inside the result are then ordered by index."""
-    n = emb.shape[0]
+    """Exact top-k of queries @ emb.T by (score descending, lower row
+    first), in f32 (bf16 rows are widened, so products are exact and sums
+    f32, as preferred_element_type=f32 gives), over corpus chunks of at most
+    chunk_rows rows: only one chunk is widened at a time. Returns (B, k)
+    values and int64 rows."""
     q = queries.float()
-    vals, idx = [], []
-    for lo in range(0, n, chunk_rows):
-        scores = torch.matmul(q, emb[lo:lo + chunk_rows].float().T)
-        v, i = torch.topk(scores, min(k, scores.shape[1]), dim=1)
-        vals.append(v)
-        idx.append(i + lo)
-    v, i = torch.cat(vals, dim=1), torch.cat(idx, dim=1)
-    i, order = torch.sort(i, dim=1)                  # ties -> lower index
-    v = v.gather(1, order)
-    v, order = top_k(v, k)
-    return v, i.gather(1, order)
+    n = emb.shape[0]
+    return _chunked_topk(lambda lo, hi: torch.matmul(q, emb[lo:hi].float().T),
+                         n, min(k, n), chunk_rows)
 
 
 def hybrid_fuse(
     emb: torch.Tensor,          # (N, D)
     queries: torch.Tensor,      # (B, D)
-    sp_vals: torch.Tensor,      # (B, M) BM25 top-m values (0 for invalid)
-    sp_docs: torch.Tensor,      # (B, M) doc ids (-1 invalid)
+    sp_vals_all: torch.Tensor,  # (B, M) BM25 top-m values (0 for invalid)
+    sp_docs_all: torch.Tensor,  # (B, M) doc ids (-1 invalid)
     sp_max: torch.Tensor,       # (B, 1) per-query max BM25
     k: int,
     n_docs: int,
     dense_k: int = 128,
     sparse_weight: float = 0.6,
+    recall_target: float = 0.95,
     materialize_bytes: int = 8 * 1024**3,
 ):
     """Dense candidates + candidate-union fusion given the sparse top-m
     tables: final = dense + sparse_weight * bm25 / max_bm25 over the union
     of the dense top-dense_k and the sparse top-m. A dense candidate outside
     the sparse top-m scores 0 on the sparse side (the reference's documented
-    approximation, ops/topk.py:596-598). Returns (scores (B, k), ids (B, k))
-    sorted descending; id -1 pads."""
+    approximation, ops/topk.py:596-598). The dense candidates are exact and
+    scanned SCAN_CHUNK rows at a time (fewer when materialize_bytes, the
+    reference's bound on a (B, rows) f32 score block, allows fewer), so no
+    f32 copy of the corpus forms. recall_target is accepted for the
+    reference's signature and has no effect: every route is exact. Returns
+    (scores (B, k), ids (B, k)) sorted descending; id -1 pads."""
+    sp_vals, sp_docs = sp_vals_all, sp_docs_all
     b = queries.shape[0]
     inv_max = torch.where(sp_max > 0, 1.0 / sp_max.clamp_min(1e-30), 0.0)
-    chunk_rows = max(1, min(n_docs, materialize_bytes // max(4 * b, 1)))
+    chunk_rows = max(1, min(SCAN_CHUNK, materialize_bytes // max(4 * b, 1)))
     d_vals, d_idx = _dense_candidates(emb, queries, dense_k, chunk_rows)
     # sparse candidates' dense scores: row gather + einsum, f32
     sp_emb = emb[sp_docs.clamp_min(0).long()]                    # (B, M, D)
@@ -123,27 +126,134 @@ def hybrid_topk(
     dense_k: int = 128,
     sparse_m: int = 64,
     sparse_weight: float = 0.6,
+    recall_target: float = 0.95,
     materialize_bytes: int = 8 * 1024**3,
     max_seg: int = 0,           # max term instances per query
+    select_approx: bool = False,
 ):
     """Hybrid top-k: sparse top-m table, then hybrid_fuse.
 
     Sparse stage routing, as the reference routes it with "on the TPU" read
     as "tensors on cuda": a tiled 3-D plan, or a plan on cuda at least 2048
-    wide with 0 < max_seg <= 32, goes to the window-winners kernel; any
-    other plan to the sparse_topm_from_sorted chain. (The 2048 threshold is
-    the reference's TPU tuning.)"""
-    from anorag_tpu_torch.ops.bm25 import (MAX_SEG, sparse_topm_from_sorted,
+    wide, goes to sparse_topm_winners (the window-winners kernel for
+    0 < max_seg <= 32, else the segment-winners kernel); any other plan to
+    the sparse_topm_from_sorted chain. (The 2048 threshold is the
+    reference's TPU tuning.) recall_target and select_approx are accepted
+    for the reference's signature and have no effect: every route of the
+    port is exact."""
+    from anorag_tpu_torch.ops.bm25 import (sparse_topm_from_sorted,
                                            sparse_topm_winners)
 
-    if doc_rows.ndim == 3 or (doc_rows.is_cuda and doc_rows.shape[1] >= 2048
-                              and 0 < max_seg <= MAX_SEG):
+    if doc_rows.ndim == 3 or (doc_rows.is_cuda and doc_rows.shape[1] >= 2048):
         sp_vals, sp_docs, sp_max = sparse_topm_winners(
             doc_rows, weight_rows, sparse_m, n_docs, max_seg=max_seg,
             b_valid=queries.shape[0])
     else:
         _, sp_vals, sp_docs, sp_max = sparse_topm_from_sorted(
-            doc_rows, weight_rows, sparse_m, n_docs)
+            doc_rows, weight_rows, sparse_m, n_docs, impl="chain")
+    return hybrid_fuse(emb, queries, sp_vals, sp_docs, sp_max, k,
+                       n_docs=n_docs, dense_k=dense_k,
+                       sparse_weight=sparse_weight,
+                       materialize_bytes=materialize_bytes)
+
+
+def hybrid_topk_bucketed_tiled(
+    emb: torch.Tensor,
+    queries: torch.Tensor,
+    plan_arrays,                # ((a3, w3), ...) tiled plans per length bucket
+    inv,                        # (B,) permutation back to input order
+    k: int,
+    n_docs: int,
+    b_valids,                   # per-bucket true batch sizes
+    dense_k: int = 128,
+    sparse_m: int = 64,
+    sparse_weight: float = 0.6,
+    recall_target: float = 0.95,
+    max_seg: int = 8,
+):
+    """hybrid_topk with a length-bucketed tiled sparse stage
+    (bm25.plan_tiles_bucketed + sparse_topm_winners_bucketed): the same
+    window-winners kernel per bucket, so the same results as hybrid_topk
+    over the unbucketed tiled plan. recall_target has no effect."""
+    from anorag_tpu_torch.ops.bm25 import sparse_topm_winners_bucketed
+
+    sp_vals, sp_docs, sp_max = sparse_topm_winners_bucketed(
+        plan_arrays, inv, sparse_m, n_docs, max_seg, b_valids)
+    return hybrid_fuse(emb, queries, sp_vals, sp_docs, sp_max, k,
+                       n_docs=n_docs, dense_k=dense_k,
+                       sparse_weight=sparse_weight)
+
+
+class BucketedSparsePlan(NamedTuple):
+    """Length-bucketed posting plan on the device (make_bucketed_plan)."""
+    buckets: tuple          # ((n_valid, doc_rows (Bg, Lg), weight_rows), ...)
+    inv: torch.Tensor       # (B,) permutation back to input order
+    n_rows: int
+
+
+def make_bucketed_plan(doc_rows, weight_rows, lens, n_docs: int,
+                       groups: int = 4, device=None) -> BucketedSparsePlan:
+    """Host prep of the length-bucketed sparse stage: queries sorted by plan
+    length and split into `groups` contiguous buckets, each cut to its own
+    power-of-two width (at least 128) and padded to the largest bucket's
+    row count with all-pad rows, then uploaded once to `device` (the card
+    unless the CPU is asked for), so a plan reused across calls is not
+    uploaded again."""
+    from anorag_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    doc_rows = np.asarray(doc_rows)
+    weight_rows = np.asarray(weight_rows)
+    lens = np.asarray(lens)
+    b = doc_rows.shape[0]
+    groups = max(1, min(groups, b))
+    order = np.argsort(lens, kind="stable")
+    splits = [s for s in np.array_split(order, groups) if len(s)]
+    bg = max(len(s) for s in splits)
+    buckets = []
+    for rows in splits:
+        li = max(int(lens[rows].max()), 1)
+        li = min(max(128, 1 << (li - 1).bit_length()), doc_rows.shape[1])
+        dr = np.full((bg, li), n_docs, doc_rows.dtype)
+        wr = np.zeros((bg, li), weight_rows.dtype)
+        dr[:len(rows)] = doc_rows[rows, :li]
+        wr[:len(rows)] = weight_rows[rows, :li]
+        buckets.append((len(rows), torch.from_numpy(dr).to(dev),
+                        torch.from_numpy(wr).to(dev)))
+    inv = np.empty(b, np.int64)
+    inv[np.concatenate(splits)] = np.arange(b)
+    return BucketedSparsePlan(tuple(buckets), torch.from_numpy(inv).to(dev), b)
+
+
+def hybrid_topk_bucketed(
+    emb: torch.Tensor,
+    queries: torch.Tensor,
+    plan: BucketedSparsePlan,
+    k: int,
+    n_docs: int,
+    dense_k: int = 128,
+    sparse_m: int = 64,
+    sparse_weight: float = 0.6,
+    recall_target: float = 0.95,
+    materialize_bytes: int = 8 * 1024**3,
+):
+    """hybrid_topk with a length-bucketed sparse stage: each bucket of
+    make_bucketed_plan runs sparse_topm_from_sorted (impl "auto": the
+    segment-totals kernel for buckets on the card at least 2048 wide with at
+    least 8 rows, the chain otherwise), the (B, m) tables go back to input
+    order, and one hybrid_fuse over the whole batch follows. recall_target
+    has no effect."""
+    from anorag_tpu_torch.ops.bm25 import sparse_topm_from_sorted
+
+    tvs, tds, mxs = [], [], []
+    for n_valid, dr, wr in plan.buckets:
+        _, tv, td, mx = sparse_topm_from_sorted(dr, wr, sparse_m, n_docs)
+        tvs.append(tv[:n_valid])
+        tds.append(td[:n_valid])
+        mxs.append(mx[:n_valid])
+    sp_vals = torch.cat(tvs)[plan.inv]
+    sp_docs = torch.cat(tds)[plan.inv]
+    sp_max = torch.cat(mxs)[plan.inv]
     return hybrid_fuse(emb, queries, sp_vals, sp_docs, sp_max, k,
                        n_docs=n_docs, dense_k=dense_k,
                        sparse_weight=sparse_weight,

@@ -43,6 +43,7 @@ class HybridBatch:
     dense_k: int
     sparse_m: int
     max_seg: int
+    lens: np.ndarray             # (B,) real plan lengths (make_bucketed_plan)
 
 
 def max_seg_for(q_terms: Sequence[Sequence[int]]) -> int:
@@ -58,6 +59,7 @@ class VectorRetriever:
     def __init__(
         self,
         embedding_manager: EmbeddingManager,
+        dimension: int = 1024,
         index_type: str = "IVFFlat",
         similarity_threshold: float = 0.5,
         top_k: int = 20,
@@ -65,17 +67,21 @@ class VectorRetriever:
         nprobe: int = 4,
         use_kernel: Optional[bool] = None,
         recall_target: float = 0.95,
+        mesh=None,
         index_params: Optional[Dict[str, Any]] = None,
     ):
         self.em = embedding_manager
         self.device = embedding_manager.device
+        self.dimension = dimension          # the width of an empty index
         self.index_type = index_type
         self.similarity_threshold = similarity_threshold
         self.top_k = top_k
         # recall_target is accepted for the reference's signature and
-        # unused: every search route of the port is exact.
+        # unused: every search route of the port is exact. index_params
+        # (pq_*, lsh_bits, hnsw_m, ef_*) and mesh go to VectorIndex, which
+        # takes them as the reference's does.
         self._index_kw = dict(nlist=nlist, nprobe=nprobe, use_kernel=use_kernel,
-                              **(index_params or {}))
+                              mesh=mesh, **(index_params or {}))
         self.notes: List[Dict[str, Any]] = []
         self.index: Optional[VectorIndex] = None
         self._lexical: Optional[BM25Index] = None
@@ -88,12 +94,13 @@ class VectorRetriever:
         self.notes = list(notes)
         emb = (self.em.encode_atomic_notes(self.notes) if embeddings is None
                else embeddings)
-        self.index = VectorIndex(dimension=emb.shape[1],
-                                 index_type=self.index_type,
-                                 device=self.device, **self._index_kw)
+        self.index = VectorIndex(
+            dimension=emb.shape[1] if self.notes else self.dimension,
+            index_type=self.index_type, device=self.device, **self._index_kw)
         if self.notes:
             self.index.add(emb)
-        self._lexical = BM25Index(self.notes) if self.notes else None
+        self._lexical = (BM25Index(self.notes, device=self.device)
+                         if self.notes else None)
 
     # ------------------------------------------------------------- search
     def search(self, queries: Sequence[str], top_k: Optional[int] = None,
@@ -201,8 +208,8 @@ class VectorRetriever:
         n = len(self.notes)
         q_emb = self.em.encode_queries(queries)
         q_terms = self.query_terms(queries)
-        doc_rows, weight_rows, _ = gather_plan_sorted(self._lexical.postings,
-                                                      q_terms)
+        doc_rows, weight_rows, lens = gather_plan_sorted(self._lexical.postings,
+                                                         q_terms)
         emb = self.index.flat_device_emb()
         k_eff = min(top_k, n)
         return HybridBatch(
@@ -214,7 +221,8 @@ class VectorRetriever:
             dense_k=min(max(4 * k_eff, 32), n),
             # sparse depth matches dense (the reference's operating point)
             sparse_m=min(max(4 * k_eff, 32), n),
-            max_seg=max_seg_for(q_terms))
+            max_seg=max_seg_for(q_terms),
+            lens=lens)
 
     def search_batch(self, batch: HybridBatch, sparse_weight: float = 0.6):
         """Enqueue hybrid_topk for a prepared batch: (scores, ids) (B, k)."""
@@ -225,17 +233,21 @@ class VectorRetriever:
             sparse_weight=sparse_weight, max_seg=batch.max_seg)
 
     def hybrid_search(self, queries: Sequence[str], top_k: Optional[int] = None,
-                      sparse_weight: float = 0.6) -> List[List[Dict[str, Any]]]:
+                      sparse_weight: float = 0.6,
+                      recall_target: float = 0.95) -> List[List[Dict[str, Any]]]:
         """Batched dense + BM25 hybrid search: per query, the fused top-k
         notes with final_score and retrieval_info."""
         return self.hybrid_search_finalize(self.hybrid_search_dispatch(
-            queries, top_k=top_k, sparse_weight=sparse_weight))
+            queries, top_k=top_k, sparse_weight=sparse_weight,
+            recall_target=recall_target))
 
     def hybrid_search_dispatch(self, queries: Sequence[str],
                                top_k: Optional[int] = None,
-                               sparse_weight: float = 0.6):
+                               sparse_weight: float = 0.6,
+                               recall_target: float = 0.95):
         """Enqueue the device pass without waiting; returns a handle for
-        hybrid_search_finalize."""
+        hybrid_search_finalize. recall_target is accepted for the
+        reference's signature and has no effect: every route is exact."""
         if not self.notes:
             return ("empty", list(queries))
         batch = self.prepare(queries, top_k)

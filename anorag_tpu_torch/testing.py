@@ -1,5 +1,6 @@
 """Inputs shared by the CPU parity tests and chip_smoke.py: sorted BM25
-posting plans at odd shapes for the window-winners kernel."""
+posting plans at odd shapes for the window-winners and segment-scan
+kernels, corpora and queries for the top-k kernels, and check_topk."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -38,6 +39,49 @@ def sorted_plan(rng: np.random.Generator, n_docs: int, b: int, l: int,
             ids = np.repeat(v, np.minimum(c, max_seg))
         ids = np.concatenate([ids, np.full(max(l - len(ids), 0), n_docs)])
         rows.append(ids[:l].astype(np.int32))
+    a = np.stack(rows)
+    w = np.where(a < n_docs, rng.random((b, l)).astype(np.float32) + 0.01,
+                 0.0).astype(np.float32)
+    return a, w
+
+
+# Odd shapes for the segment-scan kernels: (kind, n_docs, B, L, block_l).
+# "odd" is tests/test_ops.py:274's plan (an empty row, a one-segment row,
+# L 700 not a multiple of the block) at block_l 128 and the default; "bench"
+# is bench.py's segment-winners check (4,000 docs, B 8, L 4,096); "straddle"
+# has a segment across the 1024-wide block edge in every row; "tiny" and
+# "single" are a one-row plan of 19 and a plan one position wide.
+SEGMENT_CASES = (
+    ("odd", 500, 9, 700, 128),
+    ("odd", 500, 9, 700, 1024),
+    ("bench", 4000, 8, 4096, 1024),
+    ("tiny", 29, 1, 19, 1024),
+    ("single", 5, 2, 1, 1024),
+    ("straddle", 300, 3, 2311, 1024),
+)
+
+
+def segment_plan(kind: str, n_docs: int, b: int, l: int
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """(doc_rows (B, L) int32 sorted per row, pad n_docs; weight_rows (B, L)
+    f32 in [0.01, 1.01), 0 on pads) of a SEGMENT_CASES kind, from a seed."""
+    rng = np.random.default_rng({"odd": 11, "bench": 7}.get(kind, l))
+    rows = []
+    for bi in range(b):
+        if kind == "odd" and bi == 0:
+            ids = np.full(l, n_docs)                          # empty row
+        elif kind == "odd" and bi == 1:
+            ids = np.concatenate([np.zeros(l - 3), np.full(3, n_docs)])
+        elif kind == "straddle":
+            docs = np.sort(rng.choice(n_docs, n_docs // 2, replace=False))
+            ids = np.repeat(docs, rng.integers(1, 41, len(docs)))
+            ids = ids[:int(rng.integers(1100, l + 1))]
+            ids[1000:1050] = ids[1000]                      # across 1024
+        else:
+            lo = l // 2 if kind == "bench" else 1
+            ids = np.sort(rng.integers(0, n_docs, int(rng.integers(lo, l + 1))))
+        ids = np.concatenate([ids, np.full(l - len(ids), n_docs)])
+        rows.append(ids.astype(np.int32))
     a = np.stack(rows)
     w = np.where(a < n_docs, rng.random((b, l)).astype(np.float32) + 0.01,
                  0.0).astype(np.float32)

@@ -6,7 +6,8 @@
 Phases, each printing its seconds:
   1. device  -- nvidia-smi's name and power limit, torch's device name;
   2. build   -- nvcc builds the CUDA sources (window_winners,
-                streaming_topk) in parallel (plain C interface, ctypes);
+                streaming_topk, segment_scan) in parallel (plain C
+                interface, ctypes);
   3. setup   -- a 200,000-note corpus drawn from a 30,000-word Zipf
                 vocabulary (40 terms a note), 1024-wide unit embeddings
                 and the full-width encoder (24 layers, hidden 1024, bf16),
@@ -21,18 +22,30 @@ Phases, each printing its seconds:
                 (CUDA events around launches back to back), the wrappers'
                 host time, the bound, and torch.matmul + torch.topk as the
                 library yardstick;
-  5. serve   -- a ServingEngine answers 4 requests of 512 queries (8
+  5. segment -- the segment-totals and segment-winners kernels exactly equal
+                to their plain versions (values, ids, row max) at the odd
+                shapes and at the first served batch's (512, 32,768) plan,
+                their times, plain times and bounds; the length-bucketed
+                hybrid query (make_bucketed_plan, 4 groups, and
+                hybrid_topk_bucketed) over the 4 served batches, its
+                segment-totals launches counted and its results equal to
+                the chain's outside score ties (scores to rtol 1e-4);
+                hybrid_topk with max_seg 0 through the segment-winners
+                kernel, its sparse top-m held against the chain (row max and
+                shared scores to rtol 1e-4, recall at least 0.9); the
+                bucketed tiled path equal to the unbucketed tiled one;
+  6. serve   -- a ServingEngine answers 4 requests of 512 queries (8
                 content-band terms each); every response has
                 top_k rows of valid note ids; the kernels' launch counts,
                 reset just before, match the batches routed to them; one
                 batch again with the plain sparse stage gives the same
                 top-10 ids; latency, QPS and peak memory;
-  6. breakdown -- one batch again, stage by stage (encode, host plan,
+  7. breakdown -- one batch again, stage by stage (encode, host plan,
                 upload, sparse, dense + fusion, finalize), synchronised;
-  7. trace   -- one request through a ServingEngine under torch.profiler:
+  8. trace   -- one request through a ServingEngine under torch.profiler:
                 the device's busy time and idle share, the window-winners
                 kernels' own time, and the largest device kernels;
-  8. search  -- a VectorRetriever with use_kernel=True over the same notes
+  9. search  -- a VectorRetriever with use_kernel=True over the same notes
                 and embeddings: search for one 512-query request at top_k
                 20 and retrieve for 32 single queries at top_k 10 (fetch 30,
                 the /search endpoint's traffic); the top-k kernel's
@@ -41,7 +54,7 @@ Phases, each printing its seconds:
                 (use_kernel None: chunked matmul + exact top-k, what
                 QueryProcessor's retriever takes below 5,000,000 notes),
                 its scores equal to the kernel route's to 1e-5;
-  9. ivf     -- a default VectorIndex(index_type="IVFFlat") (nlist 20,
+  10. ivf    -- a default VectorIndex(index_type="IVFFlat") (nlist 20,
                 nprobe 4, 15 k-means rounds) over 5,000,000 x 1024 rows
                 drawn on the card around 1,000 centres: build time, 4
                 batches of 512 queries at top_k 20 and 64 single queries at
@@ -49,7 +62,11 @@ Phases, each printing its seconds:
                 equal the searches), one batch against the plain version,
                 the kernel's, plain version's and library yardstick's
                 times, recall@10 against exact search (printed, not
-                gated), peak device memory and the host's peak RSS.
+                gated), peak device memory and the host's peak RSS; then
+                hybrid_topk over the same rows at B 64 and 512 with a
+                seeded BM25 plan, which must allocate under 1 GiB above the
+                resident index, its dense candidates held against the
+                streaming top-k kernel.
 Then one JSON line of kernel numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure prints its traceback and exits
 non-zero without that last line; so does a machine without CUDA.
@@ -340,6 +357,201 @@ def _search_phase(dev, em, notes, emb, requests, smi_line: str):
     return launches
 
 
+def _scan_bound(b: int, l: int, bl: int, winners: bool):
+    """(bound ms, bound_by, bytes, ops) of a segment kernel over a (b, l)
+    plan: ids and weights read once, the masked totals or the winners table
+    and the row max written once, against the log-step adds and maxes plus
+    about six compares and selects a position over the f32 rate."""
+    lp = -(-l // bl) * bl
+    moved = 8 * b * l + (8 * b * bl if winners else 4 * b * l) + 4 * b
+    ops = b * lp * (2 * max(bl - 1, 0).bit_length() + 6)
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            moved, ops)
+
+
+def _sparse_against_chain(got, chain, tol, what: str) -> float:
+    """Hold a sparse top-m table (vals, ids, row max) against the chain's:
+    row max and the totals of docs in both to tol (B, 1); returns the mean
+    recall of the chain's docs, printed beside the recall that also counts a
+    missing doc tied (within tol) with the chain's m-th total."""
+    import numpy as np
+    import torch
+
+    (gv, gd, gm), (cv, cd, cm) = got, chain
+    if bool(((gm - cm).abs() > tol).any()):
+        raise AssertionError(f"{what}: row max off the chain's by more than 8 u S")
+    gv, gd, cv, cd, tol = (x.cpu().numpy() for x in (gv, gd, cv, cd, tol))
+    recs, tied = [], []
+    for r in range(len(cv)):
+        gold = {d: v for d, v in zip(cd[r], cv[r]) if d >= 0}
+        mine = {d: v for d, v in zip(gd[r], gv[r]) if d >= 0}
+        shared = sorted(set(gold) & set(mine))
+        gap = max((abs(mine[d] - gold[d]) for d in shared), default=0.0)
+        if gap > tol[r, 0]:
+            raise AssertionError(f"{what}: row {r} total off the chain's by {gap:.3g} "
+                                 f"> 8 u S = {tol[r, 0]:.3g}")
+        recs.append(len(shared) / max(len(gold), 1))
+        last = min(gold.values(), default=0.0)
+        tied.append(np.mean([d in mine or gold[d] - last <= tol[r, 0] for d in gold])
+                    if gold else 1.0)
+    recall = float(np.mean(recs))
+    print(f"{what} against the chain: row max and shared totals within 8 u S "
+          f"(largest {tol.max():.3g}); recall of the chain's top-{cv.shape[1]} "
+          f"{recall:.4f} (min {min(recs):.4f}), counting ties at the cut "
+          f"{float(np.mean(tied)):.4f}", flush=True)
+    return recall
+
+
+def _segment_phase(dev, retriever, requests, top_k: int, smi_line: str):
+    """The segment-scan kernels against their plain versions (exact) at the
+    odd shapes and the served plan, their times and bounds; then the
+    length-bucketed hybrid query over every served batch (segment totals)
+    against the same routes over the unbucketed plan, both segment routes'
+    sparse tables against the chain, hybrid_topk with max_seg 0 (segment
+    winners), and the bucketed tiled path against the unbucketed one.
+    Returns the two kernels' numbers for the JSON line."""
+    import torch
+
+    from anorag_tpu_torch.ops import bm25
+    from anorag_tpu_torch.ops.topk import (hybrid_fuse, hybrid_topk,
+                                           hybrid_topk_bucketed,
+                                           hybrid_topk_bucketed_tiled,
+                                           make_bucketed_plan)
+    from anorag_tpu_torch.testing import SEGMENT_CASES, segment_plan
+
+    kernels = (("bm25_segment_totals", bm25.segment_totals, bm25.segment_totals_ref),
+               ("bm25_segment_winners", bm25.segment_winners, bm25.segment_winners_ref))
+
+    def exact(got, want, what):
+        for x, y in zip(got, want):
+            if not torch.equal(x, y):
+                bad = int((x != y).sum())
+                raise AssertionError(f"{what}: {bad} outputs differ from the plain version")
+
+    n = 0
+    for kind, n_docs, b, l, block_l in SEGMENT_CASES:
+        a, w = (torch.from_numpy(x).to(dev) for x in segment_plan(kind, n_docs, b, l))
+        for name, kernel, ref in kernels:
+            exact(kernel(a, w, n_docs, block_l=block_l),
+                  ref(a, w, n_docs, block_l=block_l), f"{name} {kind} ({b}, {l})")
+            n += 1
+    n_docs = len(retriever.notes)
+    batches = [retriever.prepare(req, top_k=top_k) for req in requests]
+    emb = retriever.index.flat_device_emb()
+    batch = batches[0]
+    dr, wr = batch.doc_rows, batch.weight_rows
+    b, l = dr.shape
+    numbers = {}
+    for name, kernel, ref in kernels:
+        exact(kernel(dr, wr, n_docs), ref(dr, wr, n_docs), f"{name} main path ({b}, {l})")
+        n += 1
+        ms, host_ms = _time_ms(lambda: kernel(dr, wr, n_docs))
+        plain_ms, _ = _time_ms(lambda: ref(dr, wr, n_docs), n=2, reps=5, warm=1)
+        bound_ms, bound_by, moved, ops = _scan_bound(b, l, min(1024, l),
+                                                     name.endswith("winners"))
+        print(f"{name} at ({b}, {l}): kernel {ms:.4f} ms a launch (20 back to back), "
+              f"wrapper's host path {host_ms:.4f} ms a call, plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}: {moved / 1e6:.1f} MB, "
+              f"{ops / 1e6:.1f} M ops) | {smi_line}", flush=True)
+        numbers[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=None)
+    torch.cuda.synchronize()
+    print(f"segment kernel check: {n} comparisons exactly equal (values, ids, row max)")
+
+    # the length-bucketed hybrid query: segment totals in its sparse stage
+    plans = [make_bucketed_plan(x.doc_rows.cpu().numpy(), x.weight_rows.cpu().numpy(),
+                                x.lens, n_docs, groups=4, device=dev) for x in batches]
+    torch.cuda.synchronize()
+    bm25.segment_totals.launches = 0
+    t0 = time.perf_counter()
+    outs = [hybrid_topk_bucketed(emb, x.q_emb, plan, x.k, n_docs, dense_k=x.dense_k,
+                                 sparse_m=x.sparse_m) for x, plan in zip(batches, plans)]
+    torch.cuda.synchronize()
+    t_bucketed = time.perf_counter() - t0
+    totals_launches = bm25.segment_totals.launches
+    routed = sum(int(dr_.is_cuda and dr_.shape[1] >= 2048 and dr_.shape[0] >= 8)
+                 for plan in plans for _, dr_, _ in plan.buckets)
+    if totals_launches != routed or totals_launches < 1:
+        raise AssertionError(f"segment_totals launched {totals_launches} times; "
+                             f"{routed} buckets were routed to it")
+    # Expected: each row through the route its bucket took (segment totals
+    # for buckets on the card at least 2048 wide, the chain otherwise) over
+    # the unbucketed plan. Both scans run from each row's start in fixed
+    # blocks (1024 for the kernel, 16 for the chain), so a row cut to its
+    # bucket's width gives the same totals bit for bit.
+    for x, plan, (vals, ids) in zip(batches, plans, outs):
+        use_kernel = torch.zeros(x.doc_rows.shape[0], dtype=torch.bool, device=dev)
+        order = torch.argsort(plan.inv)                 # bucket slot -> row
+        lo = 0
+        for n_valid, dr_, _ in plan.buckets:
+            use_kernel[order[lo:lo + n_valid]] = dr_.shape[1] >= 2048 and dr_.shape[0] >= 8
+            lo += n_valid
+        tables = [bm25.sparse_topm_from_sorted(x.doc_rows, x.weight_rows, x.sparse_m,
+                                               n_docs, impl=impl)[1:]
+                  for impl in ("kernel", "chain")]
+        sv, sd, sm = (torch.where(use_kernel[:, None], k_, c_)
+                      for k_, c_ in zip(*tables))
+        want = hybrid_fuse(emb, x.q_emb, sv, sd, sm, x.k, n_docs, dense_k=x.dense_k)
+        if not (torch.equal(vals, want[0]) and torch.equal(ids, want[1])):
+            raise AssertionError("bucketed hybrid differs from the same routes over "
+                                 "the unbucketed plan")
+    widths = [[int(dr_.shape[1]) for _, dr_, _ in plan.buckets] for plan in plans]
+    print(f"bucketed hybrid: {len(batches)} x {b} queries, bucket widths {widths}, "
+          f"{t_bucketed:.4f} s; segment_totals launches {totals_launches} (routed "
+          f"{routed}); scores and ids equal to the same routes over the unbucketed "
+          f"plan | {smi_line}", flush=True)
+
+    # Against the chain: both routes take totals as differences of f32
+    # running sums, so each is off the exact total by a few units of
+    # u * S (u = 2^-24, S the row's weight sum); they are held to 8 u S.
+    _, cv, cd, cm = bm25.sparse_topm_from_sorted(dr, wr, batch.sparse_m, n_docs,
+                                                 impl="chain")
+    tol = 8 * 2.0 ** -24 * wr.sum(dim=1, keepdim=True)
+    _, kv, kd, km = bm25.sparse_topm_from_sorted(dr, wr, batch.sparse_m, n_docs,
+                                                 impl="kernel")
+    _sparse_against_chain((kv, kd, km), (cv, cd, cm), tol, "segment totals")
+
+    # max_seg 0: hybrid_topk takes the segment-winners kernel
+    bm25.segment_winners.launches = 0
+    hybrid_topk(emb, batch.q_emb, dr, wr, batch.k, n_docs, dense_k=batch.dense_k,
+                sparse_m=batch.sparse_m, max_seg=0)
+    torch.cuda.synchronize()
+    winners_launches = bm25.segment_winners.launches
+    if winners_launches != 1:
+        raise AssertionError(f"hybrid_topk(max_seg=0) launched segment_winners "
+                             f"{winners_launches} times, not once")
+    recall = _sparse_against_chain(
+        bm25.sparse_topm_winners(dr, wr, batch.sparse_m, n_docs, max_seg=0),
+        (cv, cd, cm), tol, "segment winners")
+    if recall < 0.9:
+        raise AssertionError(f"segment winners' sparse top-m recall {recall:.4f} < 0.9")
+    print(f"hybrid_topk max_seg 0: segment_winners launches {winners_launches}",
+          flush=True)
+
+    # the bucketed tiled path equals the unbucketed tiled one exactly
+    for x in batches:
+        a_np, w_np = x.doc_rows.cpu().numpy(), x.weight_rows.cpu().numpy()
+        a3, w3 = (torch.from_numpy(t).to(dev) for t in bm25.plan_tiles(a_np, w_np, n_docs))
+        want = hybrid_topk(emb, x.q_emb, a3, w3, x.k, n_docs, dense_k=x.dense_k,
+                           sparse_m=x.sparse_m, max_seg=x.max_seg)
+        tiles, inv = bm25.plan_tiles_bucketed(a_np, w_np, x.lens, n_docs, groups=2)
+        got = hybrid_topk_bucketed_tiled(
+            emb, x.q_emb, [(torch.from_numpy(a).to(dev), torch.from_numpy(w).to(dev))
+                           for a, w, _ in tiles],
+            torch.from_numpy(inv).to(dev), x.k, n_docs, [bv for _, _, bv in tiles],
+            dense_k=x.dense_k, sparse_m=x.sparse_m, max_seg=x.max_seg)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError("bucketed tiled hybrid differs from the unbucketed one")
+    print(f"bucketed tiled hybrid: {len(batches)} batches equal to the unbucketed "
+          f"tiled path", flush=True)
+    return [dict(name=name, route="cuda", source="anorag_tpu_torch/csrc/segment_scan.cu",
+                 replaces=replaces, launches=launches, max_abs_err=0.0, **numbers[name])
+            for name, replaces, launches in (
+                ("bm25_segment_totals", "anorag_tpu/ops/bm25.py:184", totals_launches),
+                ("bm25_segment_winners", "anorag_tpu/ops/bm25.py:287", winners_launches))]
+
+
 def _ivf_phase(dev, seed: int, smi_line: str):
     """The default IVFFlat index at 5,000,000 rows: build, traffic, checks
     and timings. Returns (launches, max abs error, timing numbers)."""
@@ -473,7 +685,55 @@ def _ivf_phase(dev, seed: int, smi_line: str):
                  for a, b in zip(single_ids, exact)) / len(exact)
     print(f"ivf recall@10 of {len(exact)} single queries against exact search: "
           f"{recall:.4f} (nprobe {index.nprobe} of {layout.nlist}; not gated)")
+    _hybrid_memory_check(dev, index, queries, seed, smi_line)
     return launches, err, numbers["main"]
+
+
+def _hybrid_memory_check(dev, index, queries, seed: int, smi_line: str):
+    """hybrid_topk over the 5,000,000-row index's original-order rows at B
+    64 and 512 with a seeded sorted BM25 plan: the device memory it
+    allocates above what was resident must stay below 1 GiB (the dense
+    candidates scan SCAN_CHUNK rows at a time, so no f32 copy of the corpus
+    forms), and its dense candidates must agree with the streaming top-k
+    kernel at k = dense_k."""
+    import numpy as np
+    import torch
+
+    from anorag_tpu_torch.ops.topk import (SCAN_CHUNK, _dense_candidates,
+                                           dense_topk_kernel, hybrid_topk)
+    from anorag_tpu_torch.testing import check_topk, flat_scores
+
+    emb = index.flat_device_emb()
+    rng = np.random.default_rng(seed + 4)
+    l, dense_k = 4096, 128
+    for bq in (64, BATCH):
+        ids = np.sort(rng.integers(0, N_IVF, (bq, l)), axis=1)
+        ids[np.arange(l)[None, :] >= rng.integers(l // 2, l + 1, (bq, 1))] = N_IVF
+        w = np.where(ids < N_IVF, rng.random((bq, l)) + 0.01, 0.0).astype(np.float32)
+        dr = torch.from_numpy(ids.astype(np.int32)).to(dev)
+        wr = torch.from_numpy(w).to(dev)
+        q = index._preprocess(queries[:bq]).to(emb.dtype).contiguous()
+        torch.cuda.synchronize(dev)
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        vals, hid = hybrid_topk(emb, q, dr, wr, 20, N_IVF, dense_k=dense_k,
+                                sparse_m=dense_k)
+        torch.cuda.synchronize(dev)
+        t_h = time.perf_counter() - t
+        extra = torch.cuda.max_memory_allocated(dev) - before
+        if hid.shape != (bq, 20) or hid.min() < 0 or hid.max() >= N_IVF:
+            raise AssertionError("hybrid_topk over the IVF corpus returned invalid ids")
+        if extra >= 1 << 30:
+            raise AssertionError(f"hybrid_topk at B {bq} allocated {extra / 1e9:.3f} GB "
+                                 f"above the resident index, not below 1 GiB")
+        err = check_topk(_dense_candidates(emb, q, dense_k, SCAN_CHUNK),
+                         dense_topk_kernel(emb, q, dense_k), flat_scores(emb, q))
+        print(f"hybrid_topk over {N_IVF} x {emb.shape[1]} {emb.dtype} rows at B {bq}: "
+              f"{t_h:.4f} s, {extra / 1e9:.4f} GB allocated above the resident "
+              f"{before / 1e9:.2f} GB (limit 1 GiB); dense candidates agree with "
+              f"dense_topk_kernel at k {dense_k} (max abs err {err:.3g}) | {smi_line}",
+              flush=True)
 
 
 def run(dev, seed: int = 0):
@@ -509,7 +769,7 @@ def run(dev, seed: int = 0):
     # 2. build: one nvcc for each source, all started together
     from concurrent.futures import ThreadPoolExecutor
 
-    sources = ("window_winners", "streaming_topk")
+    sources = ("window_winners", "streaming_topk", "segment_scan")
     with ThreadPoolExecutor(len(sources)) as pool:
         logs = dict(zip(sources, pool.map(_build.build, sources)))
     for name, log in logs.items():
@@ -585,7 +845,11 @@ def run(dev, seed: int = 0):
     dense_errs += real_errs
     t = _phase("kernels", t)
 
-    # 5. serve: the main path, launch counts reset just before
+    # 5. segment: the segment-scan kernels and the paths that run them
+    segment_kernels = _segment_phase(dev, retriever, requests, top_k, smi_line)
+    t = _phase("segment", t)
+
+    # 6. serve: the main path, launch counts reset just before
     routed = 0
     for req in requests:
         q_terms = retriever.query_terms(req)
@@ -635,7 +899,7 @@ def run(dev, seed: int = 0):
     print("plain sparse stage: top-10 ids equal on the first batch")
     t = _phase("serve", t)
 
-    # 6. one batch stage by stage, each stage synchronised
+    # 7. one batch stage by stage, each stage synchronised
     stages = {}
 
     def stage(name, fn):
@@ -666,7 +930,7 @@ def run(dev, seed: int = 0):
           + f"; sum {sum(stages.values()):.4f} | {smi_line}")
     t = _phase("breakdown", t)
 
-    # 7. trace: one request through the engine under torch.profiler
+    # 8. trace: one request through the engine under torch.profiler
     from torch.profiler import ProfilerActivity, profile
 
     with ServingEngine(qp, sub_batch=BATCH, depth=2) as engine:
@@ -694,12 +958,12 @@ def run(dev, seed: int = 0):
         print("trace: no device events recorded; idle share not measured")
     t = _phase("trace", t)
 
-    # 8. search: VectorRetriever.search / retrieve through the top-k kernel
+    # 9. search: VectorRetriever.search / retrieve through the top-k kernel
     dense_launches = _search_phase(dev, em, notes, retriever.index.flat_device_emb(),
                                    requests[1:3], smi_line)
     t = _phase("search", t)
 
-    # 9. ivf: the default IVFFlat index at 5,000,000 rows
+    # 10. ivf: the default IVFFlat index at 5,000,000 rows
     ivf_launches, ivf_err, ivf_main = _ivf_phase(dev, seed, smi_line)
     scan_errs.append(ivf_err)
     t = _phase("ivf", t)
@@ -721,7 +985,7 @@ def run(dev, seed: int = 0):
         "source": "anorag_tpu_torch/csrc/streaming_topk.cu",
         "replaces": "anorag_tpu/ops/ivf.py:119",
         "launches": ivf_launches, "max_abs_err": max(scan_errs), **ivf_main,
-    }]}, smi_line, kind
+    }, *segment_kernels]}, smi_line, kind
 
 
 def main(argv=None) -> int:

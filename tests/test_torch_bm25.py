@@ -72,8 +72,13 @@ def test_window_winners_rejects_bad_input():
             tbm25.window_winners(a, w, 10, bad)
     with pytest.raises(ValueError):
         tbm25.window_winners(a, w[:, :200], 10, 8)
-    with pytest.raises(NotImplementedError):
-        tbm25.sparse_topm_winners(a, w, 8, 10, max_seg=0)
+    # max_seg 0 is not refused: it takes the segment-winners route, as in
+    # the reference
+    got = tbm25.sparse_topm_winners(a, w, 8, 10, max_seg=0)
+    want = jbm25.sparse_topm_winners(jnp.asarray(a.numpy()), jnp.asarray(w.numpy()),
+                                     8, 10, max_seg=0)
+    for x, y in zip(got, want):
+        np.testing.assert_array_equal(x.numpy(), _np(y))
 
 
 def test_build_postings_bitwise_equal():

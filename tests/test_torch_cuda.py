@@ -9,9 +9,10 @@ import pytest
 import torch
 
 from anorag_tpu_torch.ops import bm25, ivf, topk
-from anorag_tpu_torch.testing import (IVF_CASES, TOPK_CASES, WINDOW_CASES,
-                                      check_topk, clustered_corpus, flat_scores,
-                                      ivf_scores, sorted_plan, unit_rows)
+from anorag_tpu_torch.testing import (IVF_CASES, SEGMENT_CASES, TOPK_CASES,
+                                      WINDOW_CASES, check_topk, clustered_corpus,
+                                      flat_scores, ivf_scores, segment_plan,
+                                      sorted_plan, unit_rows)
 
 DTYPES = [torch.bfloat16, torch.float32]
 
@@ -52,6 +53,64 @@ def test_window_winners_rejects_what_the_kernel_does_not_take(cuda_device):
         bm25.window_winners(a.t().contiguous().t(), w.t().contiguous().t(), 10, 8)
     with pytest.raises(ValueError):
         bm25.window_winners(a, w.cpu(), 10, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["totals", "winners"])
+def test_segment_kernels_match_ref_exactly(cuda_device, kind):
+    """The segment kernels add in the plain version's log-step order, so
+    every value, id and row max must be equal, not just close."""
+    kernel = bm25.segment_totals if kind == "totals" else bm25.segment_winners
+    ref = bm25.segment_totals_ref if kind == "totals" else bm25.segment_winners_ref
+    for name, n_docs, b, l, block_l in SEGMENT_CASES:
+        a, w = segment_plan(name, n_docs, b, l)
+        at = torch.from_numpy(a).to(cuda_device)
+        wt = torch.from_numpy(w).to(cuda_device)
+        before = kernel.launches
+        got = kernel(at, wt, n_docs, block_l=block_l)
+        assert kernel.launches == before + 1
+        want = ref(at, wt, n_docs, block_l=block_l)
+        torch.cuda.synchronize()
+        for x, y in zip(got, want):
+            assert torch.equal(x, y), (kind, name, b, l, block_l)
+
+
+@pytest.mark.cuda
+def test_segment_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    a = torch.zeros((2, 300), dtype=torch.int32, device=cuda_device)
+    w = torch.zeros((2, 300), device=cuda_device)
+    for fn in (bm25.segment_totals, bm25.segment_winners):
+        with pytest.raises(TypeError):
+            fn(a.long(), w, 10)
+        with pytest.raises(TypeError):
+            fn(a, w.double(), 10)
+        with pytest.raises(ValueError):
+            fn(a.t().contiguous().t(), w.t().contiguous().t(), 10)
+        with pytest.raises(ValueError):
+            fn(a, w.cpu(), 10)
+        with pytest.raises(ValueError):
+            fn(a, w[:, :200], 10)
+        with pytest.raises(ValueError):
+            fn(a, w, 10, block_l=2048)
+
+
+@pytest.mark.cuda
+def test_segment_routes_on_the_card_launch_the_kernels(cuda_device):
+    n_docs, b, l = 4000, 8, 4096
+    a, w = segment_plan("bench", n_docs, b, l)
+    at, wt = torch.from_numpy(a).to(cuda_device), torch.from_numpy(w).to(cuda_device)
+    before = bm25.segment_totals.launches
+    got = bm25.sparse_topm_from_sorted(at, wt, 16, n_docs)          # auto
+    assert bm25.segment_totals.launches == before + 1
+    want = bm25.sparse_topm_from_sorted(at.cpu(), wt.cpu(), 16, n_docs, impl="kernel")
+    for x, y in zip(got, want):
+        assert torch.equal(x.cpu(), y)
+    before = bm25.segment_winners.launches
+    got = bm25.sparse_topm_winners(at, wt, 16, n_docs, max_seg=0)
+    assert bm25.segment_winners.launches == before + 1
+    want = bm25.sparse_topm_winners(at.cpu(), wt.cpu(), 16, n_docs, max_seg=0)
+    for x, y in zip(got, want):
+        assert torch.equal(x.cpu(), y)
 
 
 @pytest.mark.cuda
