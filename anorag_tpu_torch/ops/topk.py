@@ -4,12 +4,15 @@ Counterpart of anorag_tpu/ops/topk.py: NEG_INF and POS_INF (:32), _round_up
 (:36), dense_topk_xla (:369), _sort_topk (:410), dense_topk (:432), _pad_k
 (:550), hybrid_topk (:562), hybrid_topk_bucketed_tiled (:625),
 BucketedSparsePlan and make_bucketed_plan (:662, :669), hybrid_topk_bucketed
-(:705), hybrid_fuse (:750) and dense_topk_np (:838). bucket_topk (:297) and
-its kernel _bucket_kernel (:172) are not ported yet (ROADMAP).
+(:705), hybrid_fuse (:750), bucket_topk (:297), _bucket_finish (:361) and
+dense_topk_np (:838).
 
 The TPU kernel _topk_kernel (:40) is csrc/streaming_topk.cu, reached through
 dense_topk_kernel (method="kernel" / use_kernel=True, the counterpart of
 method="pallas" / use_pallas=True); dense_topk_ref is its plain version.
+The TPU kernel _bucket_kernel (:172) is csrc/bucket_winners.cu, reached
+through bucket_winners; bucket_winners_ref is its plain version, the
+counterpart of the oracle _bucket_winners_xla (:273).
 
 Tie rule: every route returns the exact top-k by (score descending, lower
 row first), lax.top_k's rule, as the reference's "exact" and "scan" methods
@@ -360,7 +363,7 @@ def kernel_dtype_code(t: torch.Tensor) -> int:
         return 0
     if t.dtype == torch.float32:
         return 1
-    raise TypeError(f"the streaming top-k kernel takes bf16 or f32 rows, got {t.dtype}")
+    raise TypeError(f"the top-k kernels take bf16 or f32 rows, got {t.dtype}")
 
 
 def check_kernel_operands(what: str, k: int, *tensors: torch.Tensor) -> bool:
@@ -499,6 +502,180 @@ def dense_topk(emb, queries, k: int, *, method: str = "auto",
         vals, idx = dense_topk_kernel(emb, queries.to(emb.dtype).contiguous(),
                                       k_eff, bias=bias, bias_weight=bias_weight)
     return _pad_k(vals, idx.long(), k, k_eff)
+
+
+# ------------------------------------------------------- bucketed winners
+BUCKET_BUDGET = 12 * 1024 * 1024     # the reference's VMEM guard, bytes
+
+
+def bucket_width(b: int, d: int, itemsize: int, w: int, tiles: int, k_eff: int):
+    """The reference's width rule (bucket_topk :324-342): w doubles until it
+    holds k_eff, then its 12 MiB VMEM guard on the padded shapes (d to 128,
+    b to 8, the corpus itemsize) halves `tiles`, then `w` while w > 128 and
+    w / 2 still holds k_eff. A TPU budget, kept because W decides which
+    bucket each column lands in, so it decides the result. Returns (w,
+    tiles)."""
+    while w < k_eff:
+        w *= 2
+    d_pad = _round_up(d, 128)
+    b_pad = _round_up(max(b, 8), 8)
+
+    def vmem(w_, t_):
+        return (b_pad * d_pad * itemsize + 7 * b_pad * w_ * 4
+                + 2 * t_ * w_ * d_pad * itemsize)
+    while tiles > 1 and vmem(w, tiles) > BUCKET_BUDGET:
+        tiles //= 2
+    while w > 128 and w // 2 >= k_eff and vmem(w, tiles) > BUCKET_BUDGET:
+        w //= 2
+    return w, tiles
+
+
+def _corpus_rows(emb: torch.Tensor, transposed: bool) -> torch.Tensor:
+    """The (N, D) view of a corpus given as (N, D) or, transposed, (D, N):
+    a view, never a copy."""
+    if emb.dim() != 2:
+        raise ValueError(f"the corpus must be 2-D, got {tuple(emb.shape)}")
+    return emb.T if transposed else emb
+
+
+def bucket_winners_ref(emb: torch.Tensor, queries: torch.Tensor, n: int, w: int,
+                       transposed: bool = False):
+    """Plain version of bucket_winners, the counterpart of the oracle
+    _bucket_winners_xla (:273): tile by tile in increasing order, s =
+    q . e_tile^T in f32 (bf16 rows widened: the products are exact), columns
+    at or past n masked to NEG_INF, then upd = s > winners (strict, so the
+    earlier tile keeps a tie), winners = where(upd, s, winners), ids =
+    where(upd, base + col, ids); the initial state is (NEG_INF, 0). Returns
+    ((B, w) f32, (B, w) int32)."""
+    e = _corpus_rows(emb, transposed)
+    q32 = queries.to(e.dtype).float()
+    b, dev = q32.shape[0], e.device
+    wv = torch.full((b, w), NEG_INF, dtype=torch.float32, device=dev)
+    wi = torch.zeros((b, w), dtype=torch.int32, device=dev)
+    col = torch.arange(w, dtype=torch.int32, device=dev)
+    for base in range(0, n, w):
+        rows = e[base:min(base + w, n)].float()
+        s = torch.full((b, w), NEG_INF, dtype=torch.float32, device=dev)
+        s[:, :rows.shape[0]] = torch.matmul(q32, rows.T)
+        upd = s > wv
+        wv = torch.where(upd, s, wv)
+        wi = torch.where(upd, base + col, wi)
+    return wv, wi
+
+
+_bucket_lib = None
+
+
+def _load_bucket() -> ctypes.CDLL:
+    """csrc/bucket_winners.cu's library, built on first use, its C signature
+    set once."""
+    global _bucket_lib
+    if _bucket_lib is None:
+        from anorag_tpu_torch import _build
+
+        lib = _build.load("bucket_winners")
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.anorag_bucket_winners.argtypes = [p, p, ll, ll, i, i, i, ll, ll, i, i,
+                                              p, p, i, p]
+        lib.anorag_bucket_winners.restype = i
+        _bucket_lib = lib
+    return _bucket_lib
+
+
+def staging_mode(t: torch.Tensor) -> int:
+    """How the bucket kernel stages an (rows, D) operand: 0, 16-byte
+    cp.async (rows contiguous, D, the row stride and the address 16-byte
+    multiples); 1, plain loads along the rows; 2, plain loads down the
+    columns (column stride 1 and row stride not: the transposed corpus)."""
+    vec = 16 // t.element_size()
+    sr, sc = t.stride()
+    d = t.shape[1]
+    if sc == 1 and d % vec == 0 and sr % vec == 0 and t.data_ptr() % 16 == 0:
+        return 0
+    return 2 if sr == 1 and sc != 1 else 1
+
+
+def bucket_winners(emb: torch.Tensor, queries: torch.Tensor, n: int, w: int,
+                   transposed: bool = False):
+    """Bucketed winners of queries @ emb[:n].T: for each query and bucket c
+    in [0, w), the largest f32 score among corpus rows r < n with r mod w ==
+    c and that row (the earliest among exact ties); (NEG_INF, 0) where no
+    row falls. emb is (N, D), or (D, N) with transposed, bf16 or f32, any
+    strides (read in place, never copied); queries (B, D) contiguous in
+    emb's dtype. CUDA tensors launch csrc/bucket_winners.cu and count one
+    launch in bucket_winners.launches; CPU tensors run bucket_winners_ref.
+    Returns ((B, w) f32, (B, w) int32)."""
+    e = _corpus_rows(emb, transposed)
+    if queries.dim() != 2 or queries.shape[1] != e.shape[1]:
+        raise ValueError(f"bucket_winners: queries (B, D) with D = {e.shape[1]}, "
+                         f"got {tuple(queries.shape)}")
+    code = kernel_dtype_code(e)
+    if queries.dtype != e.dtype:
+        raise TypeError(f"bucket_winners: queries {queries.dtype} must be in the "
+                        f"corpus dtype {e.dtype}")
+    if not 0 <= n <= e.shape[0] or n >= 2**31 or w < 1:
+        raise ValueError(f"bucket_winners: need 0 <= n <= {e.shape[0]} rows, "
+                         f"n < 2^31 and w >= 1; got n {n}, w {w}")
+    if e.device.type == "cpu" and queries.device.type == "cpu":
+        return bucket_winners_ref(e, queries, n, w)
+    if not (e.is_cuda and queries.device == e.device):
+        raise ValueError("bucket_winners: corpus and queries must lie on one "
+                         "CUDA device (or both on the CPU)")
+    if not queries.is_contiguous():
+        raise ValueError("bucket_winners: queries must be contiguous")
+    lib = _load_bucket()
+    b, d = queries.shape
+    dev = e.device
+    vals = torch.empty((b, w), dtype=torch.float32, device=dev)
+    idx = torch.empty((b, w), dtype=torch.int32, device=dev)
+    err = lib.anorag_bucket_winners(
+        queries.data_ptr(), e.data_ptr(), e.stride(0), e.stride(1),
+        staging_mode(e), staging_mode(queries), code, b, n, d, w,
+        vals.data_ptr(), idx.data_ptr(), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"bucket_winners kernel launch failed: CUDA error {err}")
+    bucket_winners.launches += 1
+    return vals, idx
+
+
+bucket_winners.launches = 0
+
+
+def _bucket_finish(wv: torch.Tensor, wi: torch.Tensor, b: int, k: int, k_eff: int):
+    """Exact top-k_eff over the winners (lax.top_k's tie rule), their ids,
+    -1 where only NEG_INF was left, padded to k with (NEG_INF, -1)."""
+    tv, tp = top_k(wv[:b], k_eff)
+    ti = wi[:b].gather(1, tp)
+    ti = torch.where(tv > NEG_INF / 2, ti, -1)
+    return _pad_k(tv, ti, k, k_eff)
+
+
+def bucket_topk(emb, queries, k: int, w: int = 1024, tiles: int = 1,
+                interpret: Optional[bool] = None, use_xla: bool = False,
+                transposed: bool = False):
+    """Bucketed-winners dense top-k: corpus column c competes in bucket
+    c mod W (bucket_winners), then one exact top-k over the W winners; the
+    (B, N) scores never form. Approximate by design: two of the true top-k
+    share a bucket with probability 1/W per pair, so E[recall@k] ~
+    1 - (k-1)/(2W); exact when N <= W. W comes from bucket_width, the
+    reference's rule. Queries are cast to the corpus dtype before the
+    product. tiles enters only the width rule and interpret nothing: the
+    kernel fixes its own tiling. use_xla=True runs the plain version
+    bucket_winners_ref (the reference's XLA oracle) wherever the tensors
+    lie; otherwise CUDA tensors always launch the kernel. transposed=True
+    takes a (D, N) corpus. Returns (values (B, k) f32, ids (B, k) int32),
+    sorted; k > N pads with (NEG_INF, -1)."""
+    emb = torch.as_tensor(emb)
+    queries = torch.as_tensor(queries, device=emb.device)
+    n, d = _corpus_rows(emb, transposed).shape
+    b = queries.shape[0]
+    k_eff = min(k, n)
+    w, tiles = bucket_width(b, d, emb.element_size(), w, tiles, k_eff)
+    q = queries.to(emb.dtype).contiguous()
+    winners = bucket_winners_ref if use_xla else bucket_winners
+    wv, wi = winners(emb, q, n, w, transposed=transposed)
+    return _bucket_finish(wv, wi, b, k, k_eff)
 
 
 def dense_topk_np(emb: np.ndarray, queries: np.ndarray, k: int,

@@ -1,6 +1,7 @@
 """Inputs shared by the CPU parity tests and chip_smoke.py: sorted BM25
 posting plans at odd shapes for the window-winners and segment-scan
-kernels, corpora and queries for the top-k kernels, and check_topk."""
+kernels, corpora and queries for the top-k and bucket kernels,
+check_topk and check_bucket_winners."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -108,6 +109,60 @@ IVF_CASES = (
     (1000, 72, 8, 17, 1, 150),
     (1000, 100, 8, 3, 2, 30),
 )
+
+
+# Bucketed top-k shapes: (N, D, B, w, tiles, k). tests/test_ops.py:380 and
+# :594's cases (N <= w, exact; tiles 1 to 3; N prime; D 33, 48 and 100; B
+# 1; k > N pads with -1), k > w (w doubles to 512), w 100 (not a multiple
+# of the kernel's 64-column tiles) with B 70 (past one 64-query tile), and
+# the width rule biting (B 512, D 1024, w 1024: W 256 in f32, 512 in bf16).
+BUCKET_CASES = (
+    (500, 96, 7, 1024, 1, 10),
+    (6000, 128, 16, 512, 1, 10),
+    (6000, 128, 16, 512, 2, 10),
+    (37, 48, 1, 64, 1, 10),
+    (1009, 100, 3, 256, 2, 10),
+    (513, 64, 2, 1024, 1, 10),
+    (130, 33, 4, 128, 3, 10),
+    (5, 128, 16, 1024, 1, 10),
+    (2000, 64, 5, 128, 1, 300),
+    (700, 72, 70, 100, 1, 10),
+    (3000, 1024, 512, 1024, 1, 100),
+)
+
+
+def check_bucket_winners(got, want, rows, q, atol: float = 1e-5) -> float:
+    """Hold a bucket-winners table (values (B, W) f32, ids (B, W)) against
+    its plain version's: values to atol; the same buckets empty (NEG_INF,
+    id 0); every id in its bucket (id mod W = column); where the ids differ,
+    both score the plain value to atol against rows (N, D) and queries q,
+    which only a near tie allows. Returns the largest value error; raises
+    AssertionError."""
+    import torch
+
+    (gv, gi), (wv, wi) = got, want
+    if gv.shape != wv.shape or gi.shape != wi.shape:
+        raise AssertionError(f"shapes {tuple(gv.shape)} vs {tuple(wv.shape)}")
+    empty = wv < -1e38
+    if not torch.equal(gv < -1e38, empty):
+        raise AssertionError("empty buckets differ from the plain version")
+    if not torch.equal(gi.long().where(empty, 0), torch.zeros_like(gi.long())):
+        raise AssertionError("an empty bucket's id is not 0")
+    err = (gv - wv).abs().where(~empty, torch.zeros_like(gv))
+    max_err = float(err.max()) if err.numel() else 0.0
+    if max_err > atol:
+        raise AssertionError(f"values differ by {max_err:.3g} > {atol}")
+    col = torch.arange(gv.shape[1], device=gi.device)
+    if bool(((gi.long() % gv.shape[1] != col) & ~empty).any()):
+        raise AssertionError("an id lies outside its bucket")
+    r, c = torch.nonzero(gi != wi, as_tuple=True)
+    if len(r):
+        q32 = q.to(rows.dtype).float()[r]
+        for ids in (gi[r, c], wi[r, c]):
+            s = (rows[ids.long()].float() * q32).sum(-1)
+            if bool(((s - wv[r, c]).abs() > atol).any()):
+                raise AssertionError(f"{len(r)} ids differ outside near ties")
+    return max_err
 
 
 def unit_rows(rng: np.random.Generator, n: int, d: int) -> np.ndarray:

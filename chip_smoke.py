@@ -6,8 +6,8 @@
 Phases, each printing its seconds:
   1. device  -- nvidia-smi's name and power limit, torch's device name;
   2. build   -- nvcc builds the CUDA sources (window_winners,
-                streaming_topk, segment_scan) in parallel (plain C
-                interface, ctypes);
+                streaming_topk, segment_scan, bucket_winners) in parallel
+                (plain C interface, ctypes);
   3. setup   -- a 200,000-note corpus drawn from a 30,000-word Zipf
                 vocabulary (40 terms a note), 1024-wide unit embeddings
                 and the full-width encoder (24 layers, hidden 1024, bf16),
@@ -22,7 +22,18 @@ Phases, each printing its seconds:
                 (CUDA events around launches back to back), the wrappers'
                 host time, the bound, and torch.matmul + torch.topk as the
                 library yardstick;
-  5. segment -- the segment-totals and segment-winners kernels exactly equal
+  5. bucket  -- the bucket-winners kernel against its plain version at the
+                CPU tests' odd shapes (bf16 and f32, the (N, D) and the
+                transposed (D, N) corpus): values to atol 1e-5, ids equal
+                outside near ties (testing.check_bucket_winners); then at
+                the bench shape, the served 200,000 x 1024 bf16 corpus and
+                512 encoder queries, k 100, w 512, tiles 1 and 2 (W 512):
+                checked the same way, timed beside its bound, its plain
+                version and the library chain (torch.mm with f32 output, a
+                pad to whole tiles, max over the (B, N/W, W) view,
+                torch.topk), and bucket_topk's recall@10 against exact f32
+                on 64 queries, with its launches counted;
+  6. segment -- the segment-totals and segment-winners kernels exactly equal
                 to their plain versions (values, ids, row max) at the odd
                 shapes and at the first served batch's (512, 32,768) plan,
                 their times, plain times and bounds; the length-bucketed
@@ -34,18 +45,18 @@ Phases, each printing its seconds:
                 kernel, its sparse top-m held against the chain (row max and
                 shared scores to rtol 1e-4, recall at least 0.9); the
                 bucketed tiled path equal to the unbucketed tiled one;
-  6. serve   -- a ServingEngine answers 4 requests of 512 queries (8
+  7. serve   -- a ServingEngine answers 4 requests of 512 queries (8
                 content-band terms each); every response has
                 top_k rows of valid note ids; the kernels' launch counts,
                 reset just before, match the batches routed to them; one
                 batch again with the plain sparse stage gives the same
                 top-10 ids; latency, QPS and peak memory;
-  7. breakdown -- one batch again, stage by stage (encode, host plan,
+  8. breakdown -- one batch again, stage by stage (encode, host plan,
                 upload, sparse, dense + fusion, finalize), synchronised;
-  8. trace   -- one request through a ServingEngine under torch.profiler:
+  9. trace   -- one request through a ServingEngine under torch.profiler:
                 the device's busy time and idle share, the window-winners
                 kernels' own time, and the largest device kernels;
-  9. search  -- a VectorRetriever with use_kernel=True over the same notes
+  10. search -- a VectorRetriever with use_kernel=True over the same notes
                 and embeddings: search for one 512-query request at top_k
                 20 and retrieve for 32 single queries at top_k 10 (fetch 30,
                 the /search endpoint's traffic); the top-k kernel's
@@ -54,7 +65,12 @@ Phases, each printing its seconds:
                 (use_kernel None: chunked matmul + exact top-k, what
                 QueryProcessor's retriever takes below 5,000,000 notes),
                 its scores equal to the kernel route's to 1e-5;
-  10. ivf    -- a default VectorIndex(index_type="IVFFlat") (nlist 20,
+  11. bench  -- the port's benchmark entry point in-process
+                (anorag_tpu_torch/bench.py): kernel_parity, bench_hybrid at
+                200,000 docs with its recall gate (recall@10 against exact
+                f32 at least 0.985) and bench_encoder, their JSON on one
+                line; every kernel they reach, counted from 0, launched;
+  12. ivf    -- a default VectorIndex(index_type="IVFFlat") (nlist 20,
                 nprobe 4, 15 k-means rounds) over 5,000,000 x 1024 rows
                 drawn on the card around 1,000 centres: build time, 4
                 batches of 512 queries at top_k 20 and 64 single queries at
@@ -76,7 +92,6 @@ from __future__ import annotations
 import argparse
 import json
 import resource
-import subprocess
 import sys
 import time
 import traceback
@@ -282,6 +297,135 @@ def _dense_real_shapes(dev, emb, queries, seed: int, smi_line: str):
                         bound_by=bound_by, library_ms=lib_ms)
     del bias
     return errs, main
+
+
+def _bucket_phase(dev, emb, queries, smi_line: str):
+    """The bucket-winners kernel against its plain version at the odd
+    shapes and at the bench shape (emb (N, D) bf16, queries (B, D)), timed
+    beside its bound, its plain version and the library chain; bucket_topk's
+    recall@10 against exact f32 on 64 queries. Returns (max abs error,
+    launches of the bench-shape bucket_topk calls, timing numbers)."""
+    import numpy as np
+    import torch
+
+    from anorag_tpu_torch.ops.topk import (NEG_INF, bucket_topk, bucket_width,
+                                           bucket_winners, bucket_winners_ref,
+                                           top_k)
+    from anorag_tpu_torch.testing import (BUCKET_CASES, check_bucket_winners,
+                                          check_topk, flat_scores, unit_rows)
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the plain versions need full f32 matmuls: "
+                             "torch.backends.cuda.matmul.allow_tf32 is on")
+    errs = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for n, d, b, w, tiles, k in BUCKET_CASES:
+            rng = np.random.default_rng(n + d)
+            e = torch.from_numpy(unit_rows(rng, n, d)).to(dev, dtype)
+            q = torch.from_numpy(unit_rows(rng, b, d)).to(dev, dtype)
+            width, _ = bucket_width(b, d, e.element_size(), w, tiles, min(k, n))
+            want = bucket_winners_ref(e, q, n, width)
+            errs.append(check_bucket_winners(bucket_winners(e, q, n, width), want, e, q))
+            errs.append(check_bucket_winners(
+                bucket_winners(e.T.contiguous(), q, n, width, transposed=True),
+                want, e, q))
+            errs.append(check_topk(bucket_topk(e, q, k, w=w, tiles=tiles),
+                                   bucket_topk(e, q, k, w=w, tiles=tiles, use_xla=True),
+                                   flat_scores(e, q)))
+    torch.cuda.synchronize()
+    print(f"bucket check: {len(errs)} odd-shape comparisons agree (both dtypes, both "
+          f"layouts, and bucket_topk), max abs err {max(errs):.3g}", flush=True)
+
+    queries = queries.contiguous()
+    (b, d), n, k = queries.shape, emb.shape[0], 100
+    widths = {tiles: bucket_width(b, d, emb.element_size(), 512, tiles, k)
+              for tiles in (1, 2)}
+    width = widths[1][0]
+    if any(wt[0] != 512 for wt in widths.values()):
+        raise AssertionError(f"the width rule gave {widths}, not W 512")
+    errs.append(check_bucket_winners(bucket_winners(emb, queries, n, width),
+                                     bucket_winners_ref(emb, queries, n, width),
+                                     emb, queries))
+    ms, host_ms = _time_ms(lambda: bucket_winners(emb, queries, n, width), n=5, reps=7)
+    plain_ms, _ = _time_ms(lambda: bucket_winners_ref(emb, queries, n, width),
+                           n=1, reps=3, warm=1)
+    n_pad = -(-n // width) * width
+
+    def library():
+        s = torch.mm(queries, emb.T, out_dtype=torch.float32)
+        s = torch.nn.functional.pad(s, (0, n_pad - n), value=NEG_INF)
+        v, t = s.view(b, -1, width).max(dim=1)
+        tv, tp = torch.topk(v, k)
+        return tv, t.gather(1, tp) * width + tp
+
+    # bucket_topk at the bench shape, tiles 1 and 2, launches counted from 0
+    torch.cuda.synchronize()
+    bucket_winners.launches = 0
+    runs = [bucket_topk(emb, queries, k, w=512, tiles=tiles) for tiles in (1, 2)]
+    torch.cuda.synchronize()
+    launches = bucket_winners.launches
+    if launches != 2 or not torch.equal(runs[0][1], runs[1][1]):
+        raise AssertionError(f"bucket_topk at tiles 1 and 2: {launches} launches, "
+                             f"ids equal {torch.equal(runs[0][1], runs[1][1])}")
+    lib_gap = float((library()[0] - runs[0][0]).abs().max())
+    if lib_gap > 1e-5:
+        raise AssertionError(f"the library chain's top-{k} values differ from "
+                             f"bucket_topk's by {lib_gap}")
+    lib_ms, _ = _time_ms(library, n=5, reps=7)
+    bound_ms, bound_by = _topk_bound(b, n, d, width, emb.element_size())
+    print(f"bucket_winners {b} x {n} x {d} {emb.dtype} W {width}: kernel {ms:.4f} ms "
+          f"a launch, wrapper's host path {host_ms:.4f} ms a call, plain {plain_ms:.4f} "
+          f"ms, library chain (torch.mm f32 out, pad, max over the (B, N/W, W) view, "
+          f"torch.topk k {k}: four calls) {lib_ms:.4f} ms, its values equal "
+          f"bucket_topk's to {lib_gap:.3g}; bound {bound_ms:.4f} ms ({bound_by}) "
+          f"| {smi_line}", flush=True)
+
+    # recall@10 of the tiles-1 run's first 64 queries against exact f32
+    nq = 64
+    exact = top_k(torch.matmul(queries[:nq].float(), emb.float().T), 10)[1].cpu()
+    got = runs[0][1][:nq, :10].cpu()
+    recall = float(np.mean([len(set(got[j].tolist()) & set(exact[j].tolist())) / 10
+                            for j in range(nq)]))
+    print(f"bucket_topk k {k}, w 512, tiles 1 and 2 (W {width}): launches {launches}, "
+          f"ids equal across tiles; recall@10 of {nq} queries against exact f32 "
+          f"{recall:.4f} (expected about 1 - 9/1024 = 0.9912)", flush=True)
+    return max(errs), launches, dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                     bound_by=bound_by, library_ms=lib_ms)
+
+
+def _bench_phase(dev, smi_line: str) -> int:
+    """anorag_tpu_torch.bench in-process: kernel_parity, the 200,000-doc
+    bench_hybrid with its recall gate, bench_encoder. Every kernel they
+    reach (counted from 0 just before) must launch. Returns the
+    bucket-winners kernel's launches."""
+    import torch
+
+    from anorag_tpu_torch import bench
+    from anorag_tpu_torch.ops import bm25, topk
+
+    counted = (topk.bucket_winners, bm25.window_winners, bm25.segment_winners)
+    torch.cuda.synchronize()
+    for fn in counted:
+        fn.launches = 0
+    parity = bench.kernel_parity(dev)
+    headline = bench.bench_hybrid(200_000, cpu_baseline=True, keep_ctx=True,
+                                  device=dev)
+    ctx = headline.pop("_ctx")
+    encoder = bench.bench_encoder(ctx)
+    del ctx
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counted}
+    print(json.dumps({"kernel_parity": parity, "hybrid_200k": headline,
+                      "encoder": encoder, "launches": launches,
+                      "card": smi_line}), flush=True)
+    rec = headline["recall_at_10_vs_exact_f32"]
+    if rec < bench.RECALL_GATE:
+        raise AssertionError(f"bench recall@10 vs exact f32 {rec:.4f} < the gate "
+                             f"{bench.RECALL_GATE}")
+    idle = [name for name, n in launches.items() if n < 1]
+    if idle:
+        raise AssertionError(f"the bench launched no {idle}")
+    return launches["bucket_winners"]
 
 
 def _search_phase(dev, em, notes, emb, requests, smi_line: str):
@@ -743,6 +887,7 @@ def run(dev, seed: int = 0):
     import torch
 
     from anorag_tpu_torch import _build
+    from anorag_tpu_torch.bench import card_line
     from anorag_tpu_torch.ops import bm25
     from anorag_tpu_torch.ops.bm25 import (_winners_select, gather_plan_sorted,
                                            plan_tiles, sparse_topm_winners,
@@ -756,10 +901,7 @@ def run(dev, seed: int = 0):
 
     t = time.perf_counter()
     # 1. device
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip().splitlines()
-    smi_line = smi[0].strip() if smi else "nvidia-smi gave no output"
+    smi_line = card_line() or "nvidia-smi gave no output"
     kind = torch.cuda.get_device_name(dev)
     print(f"card: {smi_line} | torch: {kind} | torch {torch.__version__} "
           f"cuda {torch.version.cuda} | devices {torch.cuda.device_count()}",
@@ -769,7 +911,7 @@ def run(dev, seed: int = 0):
     # 2. build: one nvcc for each source, all started together
     from concurrent.futures import ThreadPoolExecutor
 
-    sources = ("window_winners", "streaming_topk", "segment_scan")
+    sources = ("window_winners", "streaming_topk", "segment_scan", "bucket_winners")
     with ThreadPoolExecutor(len(sources)) as pool:
         logs = dict(zip(sources, pool.map(_build.build, sources)))
     for name, log in logs.items():
@@ -845,11 +987,16 @@ def run(dev, seed: int = 0):
     dense_errs += real_errs
     t = _phase("kernels", t)
 
-    # 5. segment: the segment-scan kernels and the paths that run them
+    # 5. bucket: the bucket-winners kernel, odd shapes and the bench shape
+    bucket_err, bucket_launches, bucket_main = _bucket_phase(
+        dev, retriever.index.flat_device_emb(), batch.q_emb, smi_line)
+    t = _phase("bucket", t)
+
+    # 6. segment: the segment-scan kernels and the paths that run them
     segment_kernels = _segment_phase(dev, retriever, requests, top_k, smi_line)
     t = _phase("segment", t)
 
-    # 6. serve: the main path, launch counts reset just before
+    # 7. serve: the main path, launch counts reset just before
     routed = 0
     for req in requests:
         q_terms = retriever.query_terms(req)
@@ -899,7 +1046,7 @@ def run(dev, seed: int = 0):
     print("plain sparse stage: top-10 ids equal on the first batch")
     t = _phase("serve", t)
 
-    # 7. one batch stage by stage, each stage synchronised
+    # 8. one batch stage by stage, each stage synchronised
     stages = {}
 
     def stage(name, fn):
@@ -930,7 +1077,7 @@ def run(dev, seed: int = 0):
           + f"; sum {sum(stages.values()):.4f} | {smi_line}")
     t = _phase("breakdown", t)
 
-    # 8. trace: one request through the engine under torch.profiler
+    # 9. trace: one request through the engine under torch.profiler
     from torch.profiler import ProfilerActivity, profile
 
     with ServingEngine(qp, sub_batch=BATCH, depth=2) as engine:
@@ -958,12 +1105,16 @@ def run(dev, seed: int = 0):
         print("trace: no device events recorded; idle share not measured")
     t = _phase("trace", t)
 
-    # 9. search: VectorRetriever.search / retrieve through the top-k kernel
+    # 10. search: VectorRetriever.search / retrieve through the top-k kernel
     dense_launches = _search_phase(dev, em, notes, retriever.index.flat_device_emb(),
                                    requests[1:3], smi_line)
     t = _phase("search", t)
 
-    # 10. ivf: the default IVFFlat index at 5,000,000 rows
+    # 11. bench: the port's benchmark entry point, in-process
+    bucket_launches += _bench_phase(dev, smi_line)
+    t = _phase("bench", t)
+
+    # 12. ivf: the default IVFFlat index at 5,000,000 rows
     ivf_launches, ivf_err, ivf_main = _ivf_phase(dev, seed, smi_line)
     scan_errs.append(ivf_err)
     t = _phase("ivf", t)
@@ -985,7 +1136,12 @@ def run(dev, seed: int = 0):
         "source": "anorag_tpu_torch/csrc/streaming_topk.cu",
         "replaces": "anorag_tpu/ops/ivf.py:119",
         "launches": ivf_launches, "max_abs_err": max(scan_errs), **ivf_main,
-    }, *segment_kernels]}, smi_line, kind
+    }, *segment_kernels, {
+        "name": "bucket_winners", "route": "cuda",
+        "source": "anorag_tpu_torch/csrc/bucket_winners.cu",
+        "replaces": "anorag_tpu/ops/topk.py:172",
+        "launches": bucket_launches, "max_abs_err": bucket_err, **bucket_main,
+    }]}, smi_line, kind
 
 
 def main(argv=None) -> int:

@@ -9,10 +9,11 @@ import pytest
 import torch
 
 from anorag_tpu_torch.ops import bm25, ivf, topk
-from anorag_tpu_torch.testing import (IVF_CASES, SEGMENT_CASES, TOPK_CASES,
-                                      WINDOW_CASES, check_topk, clustered_corpus,
-                                      flat_scores, ivf_scores, segment_plan,
-                                      sorted_plan, unit_rows)
+from anorag_tpu_torch.testing import (BUCKET_CASES, IVF_CASES, SEGMENT_CASES,
+                                      TOPK_CASES, WINDOW_CASES,
+                                      check_bucket_winners, check_topk,
+                                      clustered_corpus, flat_scores, ivf_scores,
+                                      segment_plan, sorted_plan, unit_rows)
 
 DTYPES = [torch.bfloat16, torch.float32]
 
@@ -202,3 +203,65 @@ def test_ivf_search_on_the_card_always_scans_with_the_kernel(cuda_device):
     with pytest.raises(ValueError, match="use_kernel=False"):
         VectorIndex(dimension=32, index_type="IVFFlat", use_kernel=False,
                     device=cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_bucket_winners_kernel_matches_ref(cuda_device, dtype):
+    """The kernel's (B, W) winners against bucket_winners_ref at every odd
+    shape, in both corpus layouts; the transposed layout is staged
+    differently but summed in the same order, so it equals the row layout
+    exactly."""
+    for n, d, b, w, tiles, k in BUCKET_CASES:
+        rng = np.random.default_rng(n + d)
+        emb = torch.from_numpy(unit_rows(rng, n, d)).to(cuda_device, dtype)
+        q = torch.from_numpy(unit_rows(rng, b, d)).to(cuda_device, dtype)
+        width, _ = topk.bucket_width(b, d, emb.element_size(), w, tiles, min(k, n))
+        before = topk.bucket_winners.launches
+        got = topk.bucket_winners(emb, q, n, width)
+        assert topk.bucket_winners.launches == before + 1
+        want = topk.bucket_winners_ref(emb, q, n, width)
+        torch.cuda.synchronize()
+        check_bucket_winners(got, want, emb, q)
+        got_t = topk.bucket_winners(emb.T.contiguous(), q, n, width, transposed=True)
+        assert all(torch.equal(x, y) for x, y in zip(got_t, got)), (n, d, b, w)
+        got_v = topk.bucket_winners(emb.T.contiguous().T, q, n, width)
+        assert all(torch.equal(x, y) for x, y in zip(got_v, got)), (n, d, b, w)
+
+
+@pytest.mark.cuda
+def test_bucket_topk_on_the_card_launches_the_kernel(cuda_device):
+    rng = np.random.default_rng(5)
+    emb = torch.from_numpy(unit_rows(rng, 500, 96)).to(cuda_device, torch.bfloat16)
+    q = torch.from_numpy(unit_rows(rng, 7, 96)).to(cuda_device)
+    before = topk.bucket_winners.launches
+    got = topk.bucket_topk(emb, q, 10, w=1024)            # exact: N <= W
+    assert topk.bucket_winners.launches == before + 1
+    want = topk.dense_topk_ref(emb, q.to(emb.dtype), 10)
+    check_topk(got, want, flat_scores(emb, q))
+    plain = topk.bucket_topk(emb, q, 10, w=1024, use_xla=True)
+    assert topk.bucket_winners.launches == before + 1
+    check_topk(got, plain, flat_scores(emb, q))
+    # a row copied W rows on: the tie stays with the earlier row
+    emb32 = torch.from_numpy(unit_rows(rng, 900, 64)).to(cuda_device)
+    q32 = torch.from_numpy(unit_rows(rng, 2, 64)).to(cuda_device)
+    emb32[37] = q32[0]
+    emb32[37 + 256] = q32[0]
+    _, ids = topk.bucket_topk(emb32, q32, 5, w=256)
+    assert int(ids[0, 0]) == 37 and 37 + 256 not in ids[0].tolist()
+
+
+@pytest.mark.cuda
+def test_bucket_winners_rejects_what_the_kernel_does_not_take(cuda_device):
+    emb = torch.zeros((300, 64), dtype=torch.bfloat16, device=cuda_device)
+    q = torch.zeros((3, 64), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(TypeError):
+        topk.bucket_winners(emb.half(), q.half(), 300, 64)
+    with pytest.raises(TypeError):
+        topk.bucket_winners(emb, q.float(), 300, 64)
+    with pytest.raises(ValueError):
+        topk.bucket_winners(emb, q.cpu(), 300, 64)
+    with pytest.raises(ValueError):
+        topk.bucket_winners(emb, q.t().contiguous().t(), 300, 64)
+    with pytest.raises(ValueError):
+        topk.bucket_winners(emb, q, 301, 64)

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import bench as jbench
 from anorag_tpu.index import bm25_index as jindex
 from anorag_tpu.index import vector_index as jvi
 from anorag_tpu.ops import bm25 as jbm25
@@ -19,6 +20,7 @@ from anorag_tpu.ops import ivf as jivf
 from anorag_tpu.ops import topk as jtopk
 from anorag_tpu.query import processor as jproc
 from anorag_tpu.retrieval import retriever as jret
+from anorag_tpu_torch import bench as tbench
 from anorag_tpu_torch.index import bm25_index as tindex
 from anorag_tpu_torch.index import vector_index as tvi
 from anorag_tpu_torch.ops import bm25 as tbm25
@@ -66,7 +68,8 @@ PAIRS = [
     *[(name, getattr(jtopk, name), getattr(ttopk, name))
       for name in ("dense_topk", "dense_topk_np", "hybrid_topk",
                    "hybrid_fuse", "hybrid_topk_bucketed",
-                   "hybrid_topk_bucketed_tiled", "make_bucketed_plan")],
+                   "hybrid_topk_bucketed_tiled", "make_bucketed_plan",
+                   "bucket_topk")],
     ("ivf_search", jivf.ivf_search, tivf.ivf_search),
     *[(name, getattr(jbm25, name), getattr(tbm25, name))
       for name in ("build_postings", "gather_plan", "gather_plan_sorted",
@@ -85,6 +88,10 @@ PAIRS = [
     *[(f"Vocab.{m}", getattr(jindex.Vocab, m), getattr(tindex.Vocab, m))
       for m in ("add", "get", "encode")],
     ("note_text", jindex.note_text, tindex.note_text),
+    *[(f"bench.{name}", getattr(jbench, name), getattr(tbench, name))
+      for name in ("peak_tflops", "make_doc_terms", "make_query_terms",
+                   "kernel_parity", "bench_hybrid", "bench_true_device",
+                   "bench_encoder", "main")],
 ]
 
 
