@@ -1,14 +1,10 @@
-// Exact streaming top-k of q . e^T for Hopper (sm_90a), flat and IVF, with a
-// plain C interface for ctypes.
+// Exact streaming top-k of q . e^T for Hopper (sm_90a), with a plain C
+// interface for ctypes.
 //
-// Replaces two TPU kernels:
-//   anorag_tpu/ops/topk.py::_topk_kernel (:40), via _dense_topk_pallas (:124):
-//     for each query row, the exact top-k of q . e^T (+ bias_weight * bias),
-//     rows >= n_valid masked;
-//   anorag_tpu/ops/ivf.py::_ivf_kernel (:119), via _ivf_search_pallas (:185):
-//     the same top-k over the corpus blocks blk_ids[0:n_scan] chosen on the
-//     host, a row valid for a query only when its cluster id is in that
-//     query's nprobe set (pad rows have cluster id -1, pad sel entries -2).
+// Replaces anorag_tpu/ops/topk.py::_topk_kernel (:40), via
+// _dense_topk_pallas (:124): for each query row, the exact top-k of
+// q . e^T (+ bias_weight * bias), rows >= n_valid masked. (The IVF kernel,
+// once a branch of this one, is csrc/ivf_scan.cu.)
 // Function: q (B, D) and e (rows, D) in one dtype (bf16 or f32), products
 // summed in f32; for each query the k best valid rows by (score descending,
 // row ascending) -- lax.top_k's rule, not the Pallas kernel's slot history;
@@ -28,8 +24,7 @@
 //   ops/topk.py:81-83); insertion counts its place and shifts the tail with
 //   the whole warp. Each (query, split) list goes to a (B, splits, k)
 //   partial. Phase 2: one warp per query merges the sorted partials by the
-//   same rule. The IVF kernel is the same body: a split walks its share of
-//   blk_ids and tests a row's cluster only for scores that beat the tail.
+//   same rule.
 //
 // Bound: the function needs 2 * B * rows * D operations on bf16 inputs and
 // reads the corpus once (512 x 200,000 x 1024: 209.7 GFLOP, 409.6 MB), so
@@ -206,18 +201,10 @@ __device__ void tile_scores(const float* __restrict__ q, const float* __restrict
 
 // Merge (s, row) of each lane into the sorted list (V, I) of nf entries, at
 // most k; `ok` marks lanes whose row is valid for this query. Warp-wide.
-template <bool kIvf>
 __device__ void merge_scores(float s, int row, bool ok, float* V, int32_t* I,
-                             int& nf, int k, const int32_t* __restrict__ cid,
-                             const int32_t* __restrict__ sel_q, int nprobe) {
+                             int& nf, int k) {
   const int lane = threadIdx.x & 31;
-  bool cand = ok && (nf < k || beats(s, row, V[k - 1], I[k - 1]));
-  if (kIvf && cand) {
-    const int32_t c = cid[row];
-    bool hit = false;
-    for (int p = 0; p < nprobe; ++p) hit |= (sel_q[p] == c);
-    cand = hit;
-  }
+  const bool cand = ok && (nf < k || beats(s, row, V[k - 1], I[k - 1]));
   unsigned mask = __ballot_sync(kFull, cand);
   while (mask) {
     const int src = __ffs(mask) - 1;
@@ -255,15 +242,11 @@ __device__ void merge_scores(float s, int row, bool ok, float* V, int32_t* I,
   }
 }
 
-// Phase 1. Flat: units are 64-row tiles of e (n_rows = N, the valid rows).
-// IVF: units are entries of blk_ids[0:units], each block_rows rows of the
-// sorted corpus (n_rows = N_pad).
-template <typename T, bool kIvf>
+// Phase 1: units are 64-row tiles of e (n_rows = N, the valid rows).
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 topk_partial_kernel(const T* __restrict__ q, const T* __restrict__ e,
                     const float* __restrict__ bias, float bias_weight,
-                    const int32_t* __restrict__ cid, const int32_t* __restrict__ sel,
-                    int nprobe, const int32_t* __restrict__ blk_ids, int block_rows,
                     int64_t B, int64_t n_rows, int D, int k, int vec_ok,
                     int64_t units, float* __restrict__ part_v,
                     int32_t* __restrict__ part_i) {
@@ -277,17 +260,11 @@ topk_partial_kernel(const T* __restrict__ q, const T* __restrict__ e,
   const int64_t per = (units + splits - 1) / splits;
   const int64_t u_lo = split * per;
   const int64_t u_hi = u_lo + per < units ? u_lo + per : units;
-  const int sub = kIvf ? block_rows / kRows : 1;
-  const int64_t n_tiles = (u_hi > u_lo ? u_hi - u_lo : 0) * sub;
+  const int64_t n_tiles = u_hi > u_lo ? u_hi - u_lo : 0;
   int nf[2] = {0, 0};
 
   for (int64_t t = 0; t < n_tiles; ++t) {
-    int64_t row0;
-    if (kIvf) {
-      row0 = (int64_t)blk_ids[u_lo + t / sub] * block_rows + (t % sub) * kRows;
-    } else {
-      row0 = (u_lo + t) * kRows;
-    }
+    const int64_t row0 = (u_lo + t) * kRows;
     float acc[2][2];
     tile_scores(q, e, row0, n_rows, q0, B, D, vec_ok, smem, acc);
 #pragma unroll
@@ -301,10 +278,9 @@ topk_partial_kernel(const T* __restrict__ q, const T* __restrict__ e,
         const int64_t row = row0 + lane + 32 * r;
         const bool ok = row < n_rows;
         float s = acc[j][r];
-        if (!kIvf && bias != nullptr && ok)
+        if (bias != nullptr && ok)
           s = __fadd_rn(s, __fmul_rn(bias_weight, bias[qi * n_rows + row]));
-        merge_scores<kIvf>(s, (int)row, ok, V, I, nf[j], k, cid,
-                           kIvf ? sel + qi * nprobe : nullptr, nprobe);
+        merge_scores(s, (int)row, ok, V, I, nf[j], k);
       }
     }
   }
@@ -379,21 +355,20 @@ size_t smem_bytes(int k) {
   return (size_t)kTileBytes + (size_t)kQ * k * 8;
 }
 
-template <typename T, bool kIvf>
+template <typename T>
 int launch(const void* q, const void* e, const float* bias, float bias_weight,
-           const int32_t* cid, const int32_t* sel, int nprobe,
-           const int32_t* blk_ids, int block_rows, long long B, long long n_rows,
-           int D, int k, int vec_ok, long long units, int splits, void* part_v,
-           void* part_i, void* out_v, void* out_i, cudaStream_t s) {
+           long long B, long long n_rows, int D, int k, int vec_ok,
+           long long units, int splits, void* part_v, void* part_i, void* out_v,
+           void* out_i, cudaStream_t s) {
   const size_t smem = smem_bytes(k);
-  auto kern = topk_partial_kernel<T, kIvf>;
+  auto kern = topk_partial_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((unsigned)((B + kQ - 1) / kQ), (unsigned)splits);
   kern<<<grid, kThreads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(e), bias, bias_weight, cid,
-      sel, nprobe, blk_ids, block_rows, B, n_rows, D, k, vec_ok, units,
+      static_cast<const T*>(q), static_cast<const T*>(e), bias, bias_weight, B,
+      n_rows, D, k, vec_ok, units,
       static_cast<float*>(part_v), static_cast<int32_t*>(part_i));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -404,18 +379,16 @@ int launch(const void* q, const void* e, const float* bias, float bias_weight,
   return (int)cudaGetLastError();
 }
 
-int check(long long B, int D, int k, int splits, int block_rows, bool ivf) {
+int check(long long B, int D, int k, int splits) {
   if (k < 1 || k > kMaxK || splits < 1 || splits > kMaxSplits || D < 1)
     return (int)cudaErrorInvalidValue;
   if (B > 65535LL * kQ) return (int)cudaErrorInvalidValue;
-  if (ivf && (block_rows < kRows || block_rows % kRows != 0))
-    return (int)cudaErrorInvalidValue;
   return 0;
 }
 
 }  // namespace
 
-// Corpus splits for B queries over `units` tiles or IVF blocks: about four
+// Corpus splits for B queries over `units` tiles: about four
 // blocks for each SM, at most kMaxSplits, at most one split per unit.
 extern "C" int anorag_topk_splits(long long B, long long units, int device) {
   int sms = 132;
@@ -436,7 +409,7 @@ extern "C" int anorag_dense_topk(const void* q, const void* e, const void* bias,
                                  void* out_v, void* out_i, int device,
                                  void* stream) {
   if (B <= 0) return 0;
-  int err = check(B, D, k, splits, kRows, false);
+  int err = check(B, D, k, splits);
   if (err) return err;
   err = (int)cudaSetDevice(device);
   if (err) return err;
@@ -444,39 +417,8 @@ extern "C" int anorag_dense_topk(const void* q, const void* e, const void* bias,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* b = static_cast<const float*>(bias);
   if (dtype == 0)
-    return launch<__nv_bfloat16, false>(q, e, b, bias_weight, nullptr, nullptr, 0,
-                                        nullptr, kRows, B, N, D, k, vec_ok, units,
-                                        splits, part_v, part_i, out_v, out_i, s);
-  return launch<float, false>(q, e, b, bias_weight, nullptr, nullptr, 0, nullptr,
-                              kRows, B, N, D, k, vec_ok, units, splits, part_v,
-                              part_i, out_v, out_i, s);
-}
-
-// IVF scan: e is the cluster-sorted (n_rows, D) corpus, cid (n_rows,) its
-// cluster ids, sel (B, nprobe) each query's clusters, blk_ids[0:n_scan] the
-// blocks of block_rows rows to scan. Output ids are sorted-corpus rows.
-extern "C" int anorag_ivf_topk(const void* q, const void* e, const void* cid,
-                               const void* sel, int nprobe, const void* blk_ids,
-                               long long n_scan, int block_rows, int dtype,
-                               long long B, long long n_rows, int D, int k,
-                               int vec_ok, int splits, void* part_v,
-                               void* part_i, void* out_v, void* out_i,
-                               int device, void* stream) {
-  if (B <= 0) return 0;
-  int err = check(B, D, k, splits, block_rows, true);
-  if (err) return err;
-  err = (int)cudaSetDevice(device);
-  if (err) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int32_t* c = static_cast<const int32_t*>(cid);
-  const int32_t* sl = static_cast<const int32_t*>(sel);
-  const int32_t* bl = static_cast<const int32_t*>(blk_ids);
-  if (dtype == 0)
-    return launch<__nv_bfloat16, true>(q, e, nullptr, 1.0f, c, sl, nprobe, bl,
-                                       block_rows, B, n_rows, D, k, vec_ok,
-                                       n_scan, splits, part_v, part_i, out_v,
-                                       out_i, s);
-  return launch<float, true>(q, e, nullptr, 1.0f, c, sl, nprobe, bl, block_rows,
-                             B, n_rows, D, k, vec_ok, n_scan, splits, part_v,
-                             part_i, out_v, out_i, s);
+    return launch<__nv_bfloat16>(q, e, b, bias_weight, B, N, D, k, vec_ok, units,
+                                 splits, part_v, part_i, out_v, out_i, s);
+  return launch<float>(q, e, b, bias_weight, B, N, D, k, vec_ok, units, splits,
+                       part_v, part_i, out_v, out_i, s);
 }

@@ -350,9 +350,6 @@ def _load_topk() -> ctypes.CDLL:
         lib.anorag_dense_topk.argtypes = [p, p, p, ctypes.c_float, i, ll, ll, i,
                                           i, i, i, p, p, p, p, i, p]
         lib.anorag_dense_topk.restype = i
-        lib.anorag_ivf_topk.argtypes = [p, p, p, p, i, p, ll, i, i, ll, ll, i,
-                                        i, i, i, p, p, p, p, i, p]
-        lib.anorag_ivf_topk.restype = i
         _topk_lib = lib
     return _topk_lib
 

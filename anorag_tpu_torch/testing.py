@@ -110,6 +110,71 @@ IVF_CASES = (
     (1000, 100, 8, 3, 2, 30),
 )
 
+# The IVF kernel's grouped walk beyond IVF_CASES: (kind, N, D, nlist, B,
+# nprobe, k). "skewed": one cluster holds 80% of the rows and most probes
+# (64-query tiles, several to that cluster); "part_full": B 130 at nprobe 3,
+# so 64-query tiles end part-full (D 100: bf16 rows take plain loads);
+# "pads": sel rows with -2 pads, repeated clusters and an id past nlist;
+# "subset": blk_ids a strict subset of select_blocks' output; "k1024": the
+# kernel's largest k (16-query tiles); "one": B 1; "lists": nprobe 260 of
+# nlist 300, more sorted partials than one merge level takes.
+IVF_PLAN_CASES = (
+    ("skewed", 4000, 64, 6, 200, 2, 20),
+    ("part_full", 2000, 100, 8, 130, 3, 10),
+    ("pads", 1000, 72, 8, 33, 4, 10),
+    ("subset", 2000, 64, 8, 20, 3, 10),
+    ("k1024", 3000, 64, 8, 5, 3, 1024),
+    ("one", 2000, 64, 8, 1, 4, 30),
+    ("lists", 3000, 32, 300, 4, 260, 10),
+)
+
+# every IVF case, IVF_CASES as kind "plain"
+ALL_IVF_CASES = tuple(("plain", *c) for c in IVF_CASES) + IVF_PLAN_CASES
+
+
+def ivf_case(kind: str, n: int, d: int, nlist: int, b: int, nprobe: int, k: int):
+    """(queries (B, D) f32, layout, sorted rows (N_pad, D) f32, sel (B,
+    nprobe) int32, blk_ids int32, n_scan, k) on the CPU for an
+    ALL_IVF_CASES entry, from a seed; block_rows 128, k at most N."""
+    import torch
+
+    from anorag_tpu_torch.ops import ivf
+
+    rng = np.random.default_rng(n + nprobe)
+    if kind == "skewed":
+        centers = rng.standard_normal((nlist, d)) * 4
+        labels = np.where(rng.random(n) < 0.8, 0, rng.integers(1, nlist, n))
+        x = centers[labels] + rng.standard_normal((n, d)) * 0.3
+        x = (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+        q = x[rng.integers(0, n, b)] + 0.1 * rng.standard_normal((b, d))
+        q = (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32)
+        layout, rows = ivf.ivf_layout_from_assign(
+            torch.from_numpy(x), centers / np.linalg.norm(centers, axis=1,
+                                                          keepdims=True),
+            labels, block_rows=128)
+    else:
+        x = clustered_corpus(rng, n, d, nlist)
+        q = unit_rows(rng, b, d)
+        layout, rows = ivf.build_ivf(torch.from_numpy(x), nlist=nlist,
+                                     block_rows=128)
+    q = torch.from_numpy(q)
+    sel = ivf.ivf_probe(layout, q, nprobe)
+    if kind == "pads":
+        s = sel.numpy().copy()
+        s[0::3, -1] = -2                        # the reference's pad
+        s[1::3, 1] = s[1::3, 0]                 # a repeated cluster
+        s[2::3, 0] = layout.nlist + 3           # past nlist
+        sel = torch.from_numpy(s)
+    blk = ivf.select_blocks(layout, sel.numpy())
+    n_scan = int((blk >= 0).sum())
+    if kind == "subset":
+        keep = blk[:n_scan][::2].copy()
+        blk = np.full_like(blk, -1)
+        blk[:len(keep)] = keep
+        n_scan = len(keep)
+    return q, layout, rows, sel, torch.from_numpy(blk), n_scan, min(k, n)
+
+
 
 # Bucketed top-k shapes: (N, D, B, w, tiles, k). tests/test_ops.py:380 and
 # :594's cases (N <= w, exact; tiles 1 to 3; N prime; D 33, 48 and 100; B

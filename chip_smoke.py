@@ -6,8 +6,8 @@
 Phases, each printing its seconds:
   1. device  -- nvidia-smi's name and power limit, torch's device name;
   2. build   -- nvcc builds the CUDA sources (window_winners,
-                streaming_topk, segment_scan, bucket_winners) in parallel
-                (plain C interface, ctypes);
+                streaming_topk, ivf_scan, segment_scan, bucket_winners) in
+                parallel (plain C interface, ctypes);
   3. setup   -- a 200,000-note corpus drawn from a 30,000-word Zipf
                 vocabulary (40 terms a note), 1024-wide unit embeddings
                 and the full-width encoder (24 layers, hidden 1024, bf16),
@@ -18,7 +18,11 @@ Phases, each printing its seconds:
                 1e-6; the streaming top-k (512 x 200,000 x 1024 bf16 at k
                 20 and 128, with a bias, 1 query at k 30) and top-k values
                 to atol 1e-5, ids equal outside score ties (testing.
-                check_topk); the kernels' and plain versions' device times
+                check_topk); the IVF scan at every case of testing.
+                ALL_IVF_CASES (skewed clusters, part-full tiles, pads and
+                repeats in sel, a subset of the blocks, k 1024, B 1, two
+                merge levels), with the layout's cluster offsets and
+                without; the kernels' and plain versions' device times
                 (CUDA events around launches back to back), the wrappers'
                 host time, the bound, and torch.matmul + torch.topk as the
                 library yardstick;
@@ -75,9 +79,12 @@ Phases, each printing its seconds:
                 drawn on the card around 1,000 centres: build time, 4
                 batches of 512 queries at top_k 20 and 64 single queries at
                 top_k 30 through search_arrays (the IVF kernel's launches
-                equal the searches), one batch against the plain version,
-                the kernel's, plain version's and library yardstick's
-                times, recall@10 against exact search (printed, not
+                and the work plan kernel's equal the searches), one batch
+                and one single query against the plain version, each with
+                its work plan (tiles, splits, units, CTAs, partial bytes;
+                the plan kernel equal to ivf_work_plan_ref and timed), the
+                kernel's, plain version's and library yardstick's times,
+                recall@10 against exact search (printed, not
                 gated), peak device memory and the host's peak RSS; then
                 hybrid_topk over the same rows at B 64 and 512 with a
                 seeded BM25 plan, which must allocate under 1 GiB above the
@@ -210,19 +217,33 @@ def _topk_bound(b: int, rows: int, d: int, k: int, item: int, extra_bytes: int =
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def _check_plan(got, want, what: str):
+    """The IVF work plan kernel's plan equal to its plain version's: the
+    tiles and the kept pairs."""
+    import torch
+
+    kept = int(want.tile_count.sum())
+    if not (torch.equal(got.tiles, want.tiles) and got.grid == want.grid
+            and torch.equal(got.pairs[:kept], want.pairs[:kept])):
+        raise AssertionError(f"ivf_work_plan {what}: the kernel's plan differs "
+                             f"from ivf_work_plan_ref's")
+
+
 def _check_topk_odd_shapes(dev):
     """The streaming top-k and IVF scan kernels against their plain
-    versions at the CPU tests' odd shapes, bf16 and f32; max abs errors."""
+    versions at the CPU tests' odd shapes, bf16 and f32, and the IVF work
+    plan kernel against its plain version (both tile sizes); max abs
+    errors and the number of plans compared."""
     import numpy as np
     import torch
 
     from anorag_tpu_torch.ops import ivf
     from anorag_tpu_torch.ops.topk import dense_topk_kernel, dense_topk_ref
-    from anorag_tpu_torch.testing import (IVF_CASES, TOPK_CASES, check_topk,
-                                          clustered_corpus, flat_scores,
-                                          ivf_scores, unit_rows)
+    from anorag_tpu_torch.testing import (ALL_IVF_CASES, TOPK_CASES, check_topk,
+                                          flat_scores, ivf_case, ivf_scores,
+                                          unit_rows)
 
-    dense, scan = [], []
+    dense, scan, plans = [], [], 0
     for dtype in (torch.bfloat16, torch.float32):
         for n, d, b, k, has_bias in TOPK_CASES:
             rng = np.random.default_rng(n)
@@ -233,22 +254,24 @@ def _check_topk_odd_shapes(dev):
             dense.append(check_topk(dense_topk_kernel(emb, q, k, bias, 0.7),
                                     dense_topk_ref(emb, q, k, bias, 0.7),
                                     flat_scores(emb, q, bias, 0.7)))
-        for n, d, nlist, b, nprobe, k in IVF_CASES:
-            rng = np.random.default_rng(n + nprobe)
-            layout, sorted_emb = ivf.build_ivf(
-                torch.from_numpy(clustered_corpus(rng, n, d, nlist)), nlist=nlist,
-                block_rows=128)
-            q = torch.from_numpy(unit_rows(rng, b, d))
-            sel = ivf.ivf_probe(layout, q, nprobe)
-            blk = ivf.select_blocks(layout, sel.numpy())
-            e, qd, seld = sorted_emb.to(dev, dtype), q.to(dev, dtype), sel.to(dev)
+        for case in ALL_IVF_CASES:
+            q, layout, rows, sel, blk, n_scan, k = ivf_case(*case)
+            e, qd, seld = rows.to(dev, dtype), q.to(dev, dtype), sel.to(dev)
             cid = layout.device_array("cluster_ids", dev)
-            args = (qd, e, cid, seld, torch.from_numpy(blk).to(dev),
-                    int((blk >= 0).sum()), min(k, n), layout.block_rows)
-            scan.append(check_topk(ivf.ivf_scan(*args), ivf.ivf_scan_ref(*args),
-                                   ivf_scores(e, qd, cid, seld)))
+            args = (qd, e, cid, seld, blk.to(dev), n_scan, k, layout.block_rows)
+            want = ivf.ivf_scan_ref(*args)
+            off = layout.device_array("cluster_offsets", dev)
+            for kw in ({"cluster_offsets": off}, {}):
+                scan.append(check_topk(ivf.ivf_scan(*args, **kw), want,
+                                       ivf_scores(e, qd, cid, seld)))
+            if dtype == torch.bfloat16:
+                for q_tile, slots, max_splits in ((16, 264, 64), (64, 7, 3)):
+                    plan_args = (seld, off, q_tile, slots, max_splits)
+                    _check_plan(ivf.ivf_work_plan(*plan_args),
+                                ivf.ivf_work_plan_ref(*plan_args), str(case))
+                    plans += 1
     torch.cuda.synchronize()
-    return dense, scan
+    return dense, scan, plans
 
 
 def _dense_real_shapes(dev, emb, queries, seed: int, smi_line: str):
@@ -698,13 +721,15 @@ def _segment_phase(dev, retriever, requests, top_k: int, smi_line: str):
 
 def _ivf_phase(dev, seed: int, smi_line: str):
     """The default IVFFlat index at 5,000,000 rows: build, traffic, checks
-    and timings. Returns (launches, max abs error, timing numbers)."""
+    and timings. Returns (ivf_scan launches, max abs error, timing numbers,
+    ivf_work_plan launches, its timing numbers)."""
     import torch
 
     from anorag_tpu_torch.index.vector_index import VectorIndex
-    from anorag_tpu_torch.ops.ivf import (ivf_probe, ivf_scan, ivf_scan_ref,
-                                          select_blocks)
-    from anorag_tpu_torch.ops.topk import dense_topk_kernel
+    from anorag_tpu_torch.ops.ivf import (ivf_launch_shape, ivf_probe, ivf_scan,
+                                          ivf_scan_ref, ivf_slots, ivf_work_plan,
+                                          ivf_work_plan_ref, select_blocks)
+    from anorag_tpu_torch.ops.topk import dense_topk_kernel, kernel_dtype_code
     from anorag_tpu_torch.testing import check_topk, ivf_scores
 
     d = 1024
@@ -750,7 +775,7 @@ def _ivf_phase(dev, seed: int, smi_line: str):
                + 0.01 * torch.randn((n_q, d), generator=cpu_gen)).to(dev)
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    ivf_scan.launches = 0
+    ivf_scan.launches = ivf_work_plan.launches = 0
     lat_b, lat_1, single_ids = [], [], []
     for i in range(IVF_BATCHES):
         t = time.perf_counter()
@@ -765,23 +790,24 @@ def _ivf_phase(dev, seed: int, smi_line: str):
         if ids.shape != (1, 30) or ids.min() < -1 or ids.max() >= N_IVF:
             raise AssertionError("IVF single query returned invalid ids")
         single_ids.append(ids[0, :10])
-    launches = ivf_scan.launches
+    launches, plan_launches = ivf_scan.launches, ivf_work_plan.launches
     peak_search = torch.cuda.max_memory_allocated(dev) / 1e9
-    if launches != IVF_BATCHES + IVF_SINGLES:
-        raise AssertionError(f"ivf_scan launched {launches} times for "
-                             f"{IVF_BATCHES + IVF_SINGLES} searches")
+    if launches != IVF_BATCHES + IVF_SINGLES or plan_launches != launches:
+        raise AssertionError(f"ivf_scan launched {launches} times and ivf_work_plan "
+                             f"{plan_launches} for {IVF_BATCHES + IVF_SINGLES} searches")
     n_b = IVF_BATCHES * BATCH
     print(f"ivf traffic: {IVF_BATCHES} x {BATCH} queries at top_k 20, latency "
           f"{', '.join(f'{x:.4f}' for x in lat_b)} s ({n_b / sum(lat_b):.1f} "
           f"queries/s); {IVF_SINGLES} single queries at top_k 30, latency mean "
           f"{sum(lat_1) / len(lat_1):.4f} s, max {max(lat_1):.4f} s "
           f"({IVF_SINGLES / sum(lat_1):.1f} queries/s); ivf_scan launches "
-          f"{launches}; peak device memory {peak_search:.2f} GB; host peak RSS "
+          f"{launches}, ivf_work_plan launches {plan_launches}; peak device memory {peak_search:.2f} GB; host peak RSS "
           f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6:.2f} GB "
           f"| {smi_line}", flush=True)
 
     # the kernel against its plain version, and timings, at the real shapes
     cid = layout.device_array("cluster_ids", dev)
+    off = layout.device_array("cluster_offsets", dev)
 
     def scan_args(q, k):
         qn = index._preprocess(q)
@@ -799,13 +825,35 @@ def _ivf_phase(dev, seed: int, smi_line: str):
     for name, q, k in ((f"{BATCH} x {N_IVF} x {d} k 20", queries[:BATCH], 20),
                        (f"1 x {N_IVF} x {d} k 30", queries[n_b:n_b + 1], 30)):
         args = scan_args(q, k)
-        err = max(err, check_topk(ivf_scan(*args), ivf_scan_ref(*args),
+        err = max(err, check_topk(ivf_scan(*args, cluster_offsets=off),
+                                  ivf_scan_ref(*args),
                                   ivf_scores(sorted_emb, args[0], cid, args[3])))
-        ms, host_ms = _time_ms(lambda: ivf_scan(*args), n=3, reps=5)
+        b, nprobe = args[3].shape
+        q_tile, max_splits, stride = ivf_launch_shape(b, nprobe, layout.nlist, k)
+        slots = ivf_slots(kernel_dtype_code(sorted_emb), q_tile, k, dev.index)
+        plan_args = (args[3], off, q_tile, slots, max_splits)
+        plan = ivf_work_plan(*plan_args)
+        _check_plan(plan, ivf_work_plan_ref(*plan_args), name)
+        plan_ms, plan_host_ms = _time_ms(lambda: ivf_work_plan(*plan_args), n=5, reps=5)
+        plan_plain_ms, _ = _time_ms(lambda: ivf_work_plan_ref(*plan_args), n=5, reps=5)
+        # bytes: sel and offsets read, pairs and tiles written
+        plan_bound_ms = 1e3 * (8 * b * nprobe + 8 * off.numel()
+                               + 20 * plan.max_tiles) / HBM_BYTES_PER_S
+        used = plan.tile_splits[plan.tile_splits > 0]
+        print(f"ivf_scan {name} plan: {int((plan.tile_cluster >= 0).sum())} tiles of "
+              f"up to {q_tile} queries (bound {plan.max_tiles}), {int(used.min())}-"
+              f"{int(used.max())} splits a tile, {int(plan.unit_end[-1])} units for "
+              f"{slots} resident CTAs, grid {plan.grid}, partials (B, {stride}, k) "
+              f"{b * stride * k * 8 / 1e6:.3f} MB; the plan kernel equal to its plain "
+              f"version, {plan_ms:.4f} ms a launch (wrapper's host path "
+              f"{plan_host_ms:.4f} ms), plain {plan_plain_ms:.4f} ms, bound "
+              f"{plan_bound_ms:.6f} ms (bytes)", flush=True)
+        ms, host_ms = _time_ms(lambda: ivf_scan(*args, cluster_offsets=off), n=3,
+                               reps=5)
         plain_ms, _ = _time_ms(lambda: ivf_scan_ref(*args), n=1, reps=2, warm=1)
         lib_ms, _ = _time_ms(lambda: torch.topk(torch.matmul(args[0], sorted_emb.T), k),
                              n=1, reps=3, warm=1)
-        sel, n_scan, b = args[3], args[5], args[0].shape[0]
+        sel, n_scan = args[3], args[5]
         needed = int(sizes.to(dev)[sel.long()].sum())        # rows each query must score
         moved = (n_scan * layout.block_rows * (d * 2 + 4) + b * d * 2 + sel.numel() * 4
                  + b * k * 8)
@@ -820,6 +868,9 @@ def _ivf_phase(dev, seed: int, smi_line: str):
               flush=True)
         numbers.setdefault("main", dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                         bound_by=bound_by, library_ms=lib_ms))
+        numbers.setdefault("plan", dict(ms=plan_ms, plain_ms=plan_plain_ms,
+                                        bound_ms=plan_bound_ms, bound_by="bytes",
+                                        library_ms=None))
 
     # recall@10 of the single queries against exact search of the same rows
     qn = index._preprocess(queries[n_b:]).to(sorted_emb.dtype).contiguous()
@@ -830,7 +881,7 @@ def _ivf_phase(dev, seed: int, smi_line: str):
     print(f"ivf recall@10 of {len(exact)} single queries against exact search: "
           f"{recall:.4f} (nprobe {index.nprobe} of {layout.nlist}; not gated)")
     _hybrid_memory_check(dev, index, queries, seed, smi_line)
-    return launches, err, numbers["main"]
+    return launches, err, numbers["main"], plan_launches, numbers["plan"]
 
 
 def _hybrid_memory_check(dev, index, queries, seed: int, smi_line: str):
@@ -911,7 +962,8 @@ def run(dev, seed: int = 0):
     # 2. build: one nvcc for each source, all started together
     from concurrent.futures import ThreadPoolExecutor
 
-    sources = ("window_winners", "streaming_topk", "segment_scan", "bucket_winners")
+    sources = ("window_winners", "streaming_topk", "ivf_scan", "segment_scan",
+               "bucket_winners")
     with ThreadPoolExecutor(len(sources)) as pool:
         logs = dict(zip(sources, pool.map(_build.build, sources)))
     for name, log in logs.items():
@@ -979,9 +1031,10 @@ def run(dev, seed: int = 0):
           f"a launch (20 back to back), wrapper's host path {wrapper_host_ms:.4f} ms "
           f"a call, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
           f"{moved / 1e6:.1f} MB, {ops / 1e6:.1f} M ops) | {smi_line}")
-    dense_errs, scan_errs = _check_topk_odd_shapes(dev)
+    dense_errs, scan_errs, n_plans = _check_topk_odd_shapes(dev)
     print(f"streaming top-k check: {len(dense_errs)} dense and {len(scan_errs)} IVF "
-          f"odd-shape comparisons agree, max abs err {max(dense_errs + scan_errs):.3g}")
+          f"odd-shape comparisons agree, max abs err {max(dense_errs + scan_errs):.3g}; "
+          f"{n_plans} IVF work plans equal to their plain version")
     real_errs, dense_main = _dense_real_shapes(
         dev, retriever.index.flat_device_emb(), batch.q_emb, seed, smi_line)
     dense_errs += real_errs
@@ -1115,7 +1168,8 @@ def run(dev, seed: int = 0):
     t = _phase("bench", t)
 
     # 12. ivf: the default IVFFlat index at 5,000,000 rows
-    ivf_launches, ivf_err, ivf_main = _ivf_phase(dev, seed, smi_line)
+    ivf_launches, ivf_err, ivf_main, plan_launches, plan_main = _ivf_phase(
+        dev, seed, smi_line)
     scan_errs.append(ivf_err)
     t = _phase("ivf", t)
 
@@ -1133,9 +1187,19 @@ def run(dev, seed: int = 0):
         "launches": dense_launches, "max_abs_err": max(dense_errs), **dense_main,
     }, {
         "name": "ivf_scan", "route": "cuda",
-        "source": "anorag_tpu_torch/csrc/streaming_topk.cu",
+        "source": "anorag_tpu_torch/csrc/ivf_scan.cu",
+        "design": "each probed cluster scanned once per tile of the queries "
+                  "that probe it; 64-query mma.sync tiles (16 at k > 128 or a "
+                  "small batch) behind a 3-stage cp.async ring",
         "replaces": "anorag_tpu/ops/ivf.py:119",
         "launches": ivf_launches, "max_abs_err": max(scan_errs), **ivf_main,
+    }, {
+        "name": "ivf_work_plan", "route": "cuda",
+        "source": "anorag_tpu_torch/csrc/ivf_scan.cu",
+        "design": "the IVF scan's work plan in one CTA: sel inverted into "
+                  "64- or 16-query tiles of one cluster and about equal units",
+        "replaces": "anorag_tpu/ops/ivf.py:119",
+        "launches": plan_launches, "max_abs_err": 0.0, **plan_main,
     }, *segment_kernels, {
         "name": "bucket_winners", "route": "cuda",
         "source": "anorag_tpu_torch/csrc/bucket_winners.cu",

@@ -9,11 +9,12 @@ import pytest
 import torch
 
 from anorag_tpu_torch.ops import bm25, ivf, topk
-from anorag_tpu_torch.testing import (BUCKET_CASES, IVF_CASES, SEGMENT_CASES,
-                                      TOPK_CASES, WINDOW_CASES,
+from anorag_tpu_torch.testing import (ALL_IVF_CASES, BUCKET_CASES,
+                                      SEGMENT_CASES, TOPK_CASES, WINDOW_CASES,
                                       check_bucket_winners, check_topk,
-                                      clustered_corpus, flat_scores, ivf_scores,
-                                      segment_plan, sorted_plan, unit_rows)
+                                      clustered_corpus, flat_scores, ivf_case,
+                                      ivf_scores, segment_plan, sorted_plan,
+                                      unit_rows)
 
 DTYPES = [torch.bfloat16, torch.float32]
 
@@ -135,27 +136,39 @@ def test_dense_topk_kernel_matches_ref(cuda_device, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_ivf_scan_kernel_matches_ref(cuda_device, dtype):
-    for n, d, nlist, b, nprobe, k in IVF_CASES:
-        rng = np.random.default_rng(n + nprobe)
-        layout, sorted_emb = ivf.build_ivf(
-            torch.from_numpy(clustered_corpus(rng, n, d, nlist)), nlist=nlist,
-            block_rows=128)
-        q = torch.from_numpy(unit_rows(rng, b, d))
-        sel = ivf.ivf_probe(layout, q, nprobe)
-        blk = ivf.select_blocks(layout, sel.numpy())
-        n_scan = int((blk >= 0).sum())
-        e = sorted_emb.to(cuda_device, dtype)
+    for case in ALL_IVF_CASES:
+        q, layout, rows, sel, blk, n_scan, k = ivf_case(*case)
+        e = rows.to(cuda_device, dtype)
         qd = q.to(cuda_device, dtype)
         cid = layout.device_array("cluster_ids", cuda_device)
         seld = sel.to(cuda_device)
-        blkd = torch.from_numpy(blk).to(cuda_device)
-        args = (qd, e, cid, seld, blkd, n_scan, min(k, n), layout.block_rows)
-        before = ivf.ivf_scan.launches
-        got = ivf.ivf_scan(*args)
-        assert ivf.ivf_scan.launches == before + 1
+        args = (qd, e, cid, seld, blk.to(cuda_device), n_scan, k, layout.block_rows)
         want = ivf.ivf_scan_ref(*args)
-        torch.cuda.synchronize()
-        check_topk(got, want, ivf_scores(e, qd, cid, seld))
+        off = layout.device_array("cluster_offsets", cuda_device)
+        for kw in ({"cluster_offsets": off}, {}):
+            before = ivf.ivf_scan.launches
+            got = ivf.ivf_scan(*args, **kw)
+            assert ivf.ivf_scan.launches == before + 1
+            torch.cuda.synchronize()
+            check_topk(got, want, ivf_scores(e, qd, cid, seld))
+
+
+@pytest.mark.cuda
+def test_ivf_work_plan_kernel_matches_ref(cuda_device):
+    for case in ALL_IVF_CASES:
+        _, layout, _, sel, _, _, _ = ivf_case(*case)
+        seld = sel.to(cuda_device)
+        off = layout.device_array("cluster_offsets", cuda_device)
+        for q_tile, slots, max_splits in ((16, 264, 64), (64, 7, 3), (64, 1000, 256)):
+            args = (seld, off, q_tile, slots, max_splits)
+            before = ivf.ivf_work_plan.launches
+            got = ivf.ivf_work_plan(*args)
+            assert ivf.ivf_work_plan.launches == before + 1
+            want = ivf.ivf_work_plan_ref(*args)
+            kept = int(want.tile_count.sum())
+            assert torch.equal(got.tiles, want.tiles), case
+            assert torch.equal(got.pairs[:kept], want.pairs[:kept]), case
+            assert got.grid == want.grid
 
 
 @pytest.mark.cuda
@@ -183,6 +196,9 @@ def test_topk_wrappers_reject_what_the_kernel_does_not_take(cuda_device):
         ivf.ivf_scan(q, emb, cid.cpu(), sel, blk, 2, 5, 128)
     with pytest.raises(ValueError, match="1024"):
         ivf.ivf_scan(q, emb, cid, sel, blk, 2, 1025, 128)
+    with pytest.raises(ValueError):
+        ivf.ivf_scan(q, emb, cid, sel, blk, 2, 5, 128,
+                     cluster_offsets=torch.zeros(3, dtype=torch.long))
 
 
 @pytest.mark.cuda
