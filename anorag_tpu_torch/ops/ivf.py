@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 from dataclasses import dataclass, field
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -186,10 +187,14 @@ def ivf_scan_ref(queries: torch.Tensor, sorted_emb: torch.Tensor,
                  blk_ids: torch.Tensor, n_scan: int, k: int, block_rows: int,
                  chunk: int = SCAN_CHUNK):
     """Plain version of ivf_scan: f32 scores of the corpus-dtype queries,
-    masked to NEG_INF off the scanned blocks and off each query's clusters
-    (pad rows, cluster id -1, never count), per corpus chunk, then a stable
-    sort by (score descending, lower row first). Returns (B, k) f32 values
-    and int32 sorted-corpus rows, -1 where no valid row is left."""
+    masked to NEG_INF off the scanned blocks and off each query's clusters,
+    per corpus chunk, then a stable sort by (score descending, lower row
+    first). Returns (B, k) f32 values and int32 sorted-corpus rows, -1
+    where no valid row is left. Pad rows (cluster id -1) never count, even
+    for a sel entry of -1: this differs on purpose from the JAX kernel
+    (anorag_tpu/ops/ivf.py:151, `cids == sel`), which would count them
+    there, and matches the CUDA kernel, whose plan drops every negative
+    entry. No caller passes -1 (the reference pads sel with -2)."""
     n_rows = sorted_emb.shape[0]
     q32 = queries.to(sorted_emb.dtype).float()
     row_ok = _scanned_rows(blk_ids, n_scan, n_rows, block_rows)
@@ -348,10 +353,14 @@ ivf_work_plan.launches = 0
 
 def ivf_query_tile(b: int, nprobe: int, nlist: int, k: int) -> int:
     """Queries a tile of the kernel: 64 where k <= SMALL_K and the batch
-    gives a probed cluster 32 or more queries on average, else 16 (k up to
-    1024, or a small batch, where a 64-query tile would be mostly padding)."""
+    gives a probed cluster 16 or more queries on average, else 16 (k up to
+    1024, or a small batch, where a 64-query tile is mostly padding). The
+    threshold is where the two tiles crossed in chip_smoke.py's side-by-side
+    timing on an H100 at nlist 20, nprobe 4, k 20 and 30 (PERF.md): the
+    16-query tile ahead up to 12.8 queries a cluster (B 64), the 64-query
+    one from 19.2 (B 96)."""
     m = b * nprobe
-    return 64 if k <= SMALL_K and m >= 32 * min(nlist, m) else 16
+    return 64 if k <= SMALL_K and m >= 16 * min(nlist, m) else 16
 
 
 def ivf_max_splits(b: int, nprobe: int, k: int) -> int:
@@ -420,16 +429,19 @@ def ivf_slots(code: int, q_tile: int, k: int, device_index: int) -> int:
     return n
 
 
-def _scan_on_card(lib: ctypes.CDLL, slots: int, queries: torch.Tensor,
-                  sorted_emb: torch.Tensor, sel: torch.Tensor, blk_ids: torch.Tensor,
-                  n_scan: int, k: int, block_rows: int, offsets: torch.Tensor):
-    """ivf_scan's kernel launch through `lib` (csrc/ivf_scan.cu's library or
-    a build of a variant of it), `slots` its resident CTAs, on checked
-    operands: the plan, the filled partials, the scanned-block flags."""
+def _launch_scan(queries: torch.Tensor, sorted_emb: torch.Tensor, sel: torch.Tensor,
+                 blk_ids: torch.Tensor, n_scan: int, k: int, block_rows: int,
+                 offsets: torch.Tensor, q_tile: int):
+    """ivf_scan's kernel launch on checked operands with tiles of q_tile
+    queries (16, or 64 where k <= SMALL_K): the plan, the filled partials,
+    the scanned-block flags. ivf_scan passes ivf_query_tile's choice;
+    chip_smoke.py times both tiles through here."""
     (b, d), n_rows, nprobe = queries.shape, sorted_emb.shape[0], sel.shape[1]
     dev = sorted_emb.device
-    q_tile, max_splits, stride = ivf_launch_shape(b, nprobe, offsets.shape[0] - 1, k)
-    plan = ivf_work_plan(sel, offsets, q_tile, slots, max_splits)
+    code = kernel_dtype_code(sorted_emb)
+    _, max_splits, stride = ivf_launch_shape(b, nprobe, offsets.shape[0] - 1, k)
+    plan = ivf_work_plan(sel, offsets, q_tile, ivf_slots(code, q_tile, k, dev.index),
+                         max_splits)
     part_v = torch.full((b, stride, k), NEG_INF, dtype=torch.float32, device=dev)
     part_i = torch.full((b, stride, k), -1, dtype=torch.int32, device=dev)
     mid_v = mid_i = None
@@ -440,9 +452,9 @@ def _scan_on_card(lib: ctypes.CDLL, slots: int, queries: torch.Tensor,
     scanned.index_fill_(0, blk_ids[:n_scan].long(), 1)
     vals = torch.empty((b, k), dtype=torch.float32, device=dev)
     idx = torch.empty((b, k), dtype=torch.int32, device=dev)
-    err = lib.anorag_ivf_scan(
-        queries.data_ptr(), sorted_emb.data_ptr(), kernel_dtype_code(sorted_emb), b,
-        d, vec_ok(d, sorted_emb, queries), offsets.data_ptr(), scanned.data_ptr(),
+    err = _load_ivf().anorag_ivf_scan(
+        queries.data_ptr(), sorted_emb.data_ptr(), code, b, d,
+        vec_ok(d, sorted_emb, queries), offsets.data_ptr(), scanned.data_ptr(),
         block_rows, plan.pairs.data_ptr(), plan.tiles.data_ptr(), plan.max_tiles,
         plan.grid, q_tile, nprobe, max_splits, stride, k, part_v.data_ptr(),
         part_i.data_ptr(), None if mid_v is None else mid_v.data_ptr(),
@@ -451,6 +463,37 @@ def _scan_on_card(lib: ctypes.CDLL, slots: int, queries: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"ivf_scan kernel launch failed: CUDA error {err}")
     return vals, idx
+
+
+_checked = (None, None, None)   # the pair _check_offsets last checked
+
+
+def _check_offsets(offsets: torch.Tensor, cluster_ids: torch.Tensor) -> None:
+    """Assert on offsets' device, with no host sync (on the card a failure
+    surfaces at the next synchronisation), that offsets are cluster_ids'
+    cluster offsets: non-decreasing, each the first row of its cluster
+    0..nlist found by binary search in the sorted ids, the last one the
+    first pad row, so no cluster id lies past them. The kernel then reads
+    only rows of sorted_emb. A search repeats the layout's two cached
+    tensors, so the pair last checked, unchanged since (the same objects at
+    the same versions), is not checked again: the check's dozen small
+    launches cost about 0.4 ms of host time a call on the card."""
+    global _checked
+    versions = (offsets._version, cluster_ids._version)
+    off_ref, cid_ref, seen = _checked
+    if (seen == versions and off_ref is not None and off_ref() is offsets
+            and cid_ref() is cluster_ids):
+        return
+    big = torch.iinfo(torch.int32).max
+    key = torch.where(cluster_ids < 0, big, cluster_ids)
+    n = offsets.shape[0]
+    probe = torch.arange(n + 1, device=key.device, dtype=key.dtype)
+    want = torch.searchsorted(key, probe.masked_fill(probe == n, big))
+    ok = ((want[:-1] == offsets).all() & (want[-1] == offsets[-1])
+          & (offsets[1:] >= offsets[:-1]).all())
+    torch._assert_async(ok, "ivf_scan: cluster_offsets are not the offsets of "
+                            "cluster_ids (length nlist + 1, sorted by cluster)")
+    _checked = (weakref.ref(offsets), weakref.ref(cluster_ids), versions)
 
 
 def ivf_scan(queries: torch.Tensor, sorted_emb: torch.Tensor,
@@ -466,14 +509,16 @@ def ivf_scan(queries: torch.Tensor, sorted_emb: torch.Tensor,
     on each cluster's rows being contiguous (the corpus sorted by cluster,
     pads -1 at the end, as build_ivf leaves it) and reads cluster c's rows
     from cluster_offsets (nlist + 1,) int64, the layout's
-    cluster_offsets; absent, they are computed from cluster_ids. CUDA
-    tensors launch csrc/ivf_scan.cu and count one launch in
-    ivf_scan.launches; CPU tensors run ivf_scan_ref."""
+    cluster_offsets; absent, they are computed from cluster_ids. Offsets
+    that are not cluster_ids' (a wrong length, shifted, past the corpus)
+    fail _check_offsets' assertion: at once on the CPU, on the card at the
+    next synchronisation. CUDA tensors launch csrc/ivf_scan.cu and count
+    one launch in ivf_scan.launches; CPU tensors run ivf_scan_ref."""
     if (sorted_emb.dim() != 2 or queries.dim() != 2
             or queries.shape[1] != sorted_emb.shape[1]):
         raise ValueError(f"ivf_scan: sorted_emb (N, D) and queries (B, D), got "
                          f"{tuple(sorted_emb.shape)} and {tuple(queries.shape)}")
-    code = kernel_dtype_code(sorted_emb)
+    kernel_dtype_code(sorted_emb)                    # raises on another dtype
     if queries.dtype != sorted_emb.dtype:
         raise TypeError(f"ivf_scan: queries {queries.dtype} must be in the corpus "
                         f"dtype {sorted_emb.dtype}")
@@ -491,10 +536,13 @@ def ivf_scan(queries: torch.Tensor, sorted_emb: torch.Tensor,
                          f"of {KERNEL_ROWS}")
     operands = [queries, sorted_emb, cluster_ids, sel, blk_ids]
     if cluster_offsets is not None:
-        if cluster_offsets.dtype != torch.int64 or cluster_offsets.dim() != 1:
+        if (cluster_offsets.dtype != torch.int64 or cluster_offsets.dim() != 1
+                or cluster_offsets.shape[0] == 0):
             raise TypeError("ivf_scan: cluster_offsets must be (nlist + 1,) int64")
         operands.append(cluster_offsets)
     if check_kernel_operands("ivf_scan", k, *operands):
+        if cluster_offsets is not None:
+            _check_offsets(cluster_offsets, cluster_ids)
         return ivf_scan_ref(queries, sorted_emb, cluster_ids, sel, blk_ids,
                             n_scan, k, block_rows)
     if n_rows >= 1 << 31:
@@ -505,10 +553,9 @@ def ivf_scan(queries: torch.Tensor, sorted_emb: torch.Tensor,
                 torch.full((b, k), -1, dtype=torch.int32, device=queries.device))
     offsets = (cluster_offsets if cluster_offsets is not None
                else offsets_from_cluster_ids(cluster_ids))
-    q_tile = ivf_query_tile(b, nprobe, offsets.shape[0] - 1, k)
-    vals, idx = _scan_on_card(
-        _load_ivf(), ivf_slots(code, q_tile, k, queries.device.index), queries,
-        sorted_emb, sel, blk_ids, n_scan, k, block_rows, offsets)
+    _check_offsets(offsets, cluster_ids)
+    vals, idx = _launch_scan(queries, sorted_emb, sel, blk_ids, n_scan, k, block_rows,
+                             offsets, ivf_query_tile(b, nprobe, offsets.shape[0] - 1, k))
     ivf_scan.launches += 1
     return vals, idx
 

@@ -84,7 +84,9 @@ Phases, each printing its seconds:
                 its work plan (tiles, splits, units, CTAs, partial bytes;
                 the plan kernel equal to ivf_work_plan_ref and timed), the
                 kernel's, plain version's and library yardstick's times,
-                recall@10 against exact search (printed, not
+                the 16- and 64-query tiles timed side by side at batches of
+                1 to 512 queries (k 20 and 30), each checked against the
+                plain version, recall@10 against exact search (printed, not
                 gated), peak device memory and the host's peak RSS; then
                 hybrid_topk over the same rows at B 64 and 512 with a
                 seeded BM25 plan, which must allocate under 1 GiB above the
@@ -109,6 +111,8 @@ BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 on the tensor cores
 VOCAB, DOC_LEN, Q_LEN, MIN_RANK = 30_000, 40, 8, 100
 N_NOTES, N_REQUESTS, BATCH = 200_000, 4, 512
 N_IVF, IVF_CENTRES, IVF_BATCHES, IVF_SINGLES = 5_000_000, 1000, 4, 64
+# batch sizes at which the IVF kernel's 16- and 64-query tiles are timed
+IVF_TILE_BATCHES = (1, 4, 16, 32, 64, 96, 128, 192, 256, 512)
 N_RETRIEVE = 32
 
 
@@ -217,22 +221,23 @@ def _topk_bound(b: int, rows: int, d: int, k: int, item: int, extra_bytes: int =
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _check_plan(got, want, what: str):
+def _check_plan(got, want, what: str) -> float:
     """The IVF work plan kernel's plan equal to its plain version's: the
-    tiles and the kept pairs."""
-    import torch
-
+    tiles and the kept pairs. Returns the largest absolute difference (0)."""
     kept = int(want.tile_count.sum())
-    if not (torch.equal(got.tiles, want.tiles) and got.grid == want.grid
-            and torch.equal(got.pairs[:kept], want.pairs[:kept])):
+    err = max(int((got.tiles - want.tiles).abs().max()) if want.max_tiles else 0,
+              int((got.pairs[:kept] - want.pairs[:kept]).abs().max()) if kept else 0)
+    if err or got.grid != want.grid:
         raise AssertionError(f"ivf_work_plan {what}: the kernel's plan differs "
                              f"from ivf_work_plan_ref's")
+    return float(err)
 
 
 def _check_topk_odd_shapes(dev):
     """The streaming top-k and IVF scan kernels against their plain
-    versions at the CPU tests' odd shapes, bf16 and f32, and the IVF work
-    plan kernel against its plain version (both tile sizes); max abs
+    versions at the CPU tests' odd shapes, bf16 and f32 (the IVF scan at
+    both tile sizes where k allows), and the IVF work plan kernel against
+    its plain version (both tile sizes); max abs
     errors and the number of plans compared."""
     import numpy as np
     import torch
@@ -264,6 +269,12 @@ def _check_topk_odd_shapes(dev):
             for kw in ({"cluster_offsets": off}, {}):
                 scan.append(check_topk(ivf.ivf_scan(*args, **kw), want,
                                        ivf_scores(e, qd, cid, seld)))
+            # both tiles, whichever ivf_query_tile picks for the case
+            for q_tile in (16, 64) if k <= ivf.SMALL_K else ():
+                scan.append(check_topk(
+                    ivf._launch_scan(qd, e, seld, args[4], n_scan, k,
+                                     layout.block_rows, off, q_tile),
+                    want, ivf_scores(e, qd, cid, seld)))
             if dtype == torch.bfloat16:
                 for q_tile, slots, max_splits in ((16, 264, 64), (64, 7, 3)):
                     plan_args = (seld, off, q_tile, slots, max_splits)
@@ -726,9 +737,10 @@ def _ivf_phase(dev, seed: int, smi_line: str):
     import torch
 
     from anorag_tpu_torch.index.vector_index import VectorIndex
-    from anorag_tpu_torch.ops.ivf import (ivf_launch_shape, ivf_probe, ivf_scan,
-                                          ivf_scan_ref, ivf_slots, ivf_work_plan,
-                                          ivf_work_plan_ref, select_blocks)
+    from anorag_tpu_torch.ops.ivf import (_launch_scan, ivf_launch_shape, ivf_probe,
+                                          ivf_query_tile, ivf_scan, ivf_scan_ref,
+                                          ivf_slots, ivf_work_plan, ivf_work_plan_ref,
+                                          select_blocks)
     from anorag_tpu_torch.ops.topk import dense_topk_kernel, kernel_dtype_code
     from anorag_tpu_torch.testing import check_topk, ivf_scores
 
@@ -833,7 +845,7 @@ def _ivf_phase(dev, seed: int, smi_line: str):
         slots = ivf_slots(kernel_dtype_code(sorted_emb), q_tile, k, dev.index)
         plan_args = (args[3], off, q_tile, slots, max_splits)
         plan = ivf_work_plan(*plan_args)
-        _check_plan(plan, ivf_work_plan_ref(*plan_args), name)
+        plan_err = _check_plan(plan, ivf_work_plan_ref(*plan_args), name)
         plan_ms, plan_host_ms = _time_ms(lambda: ivf_work_plan(*plan_args), n=5, reps=5)
         plan_plain_ms, _ = _time_ms(lambda: ivf_work_plan_ref(*plan_args), n=5, reps=5)
         # bytes: sel and offsets read, pairs and tiles written
@@ -870,7 +882,28 @@ def _ivf_phase(dev, seed: int, smi_line: str):
                                         bound_by=bound_by, library_ms=lib_ms))
         numbers.setdefault("plan", dict(ms=plan_ms, plain_ms=plan_plain_ms,
                                         bound_ms=plan_bound_ms, bound_by="bytes",
-                                        library_ms=None))
+                                        library_ms=None, max_abs_err=plan_err))
+
+    # the 16- and 64-query tiles side by side, from one query to the batch,
+    # each checked against the plain version: ivf_query_tile's rule
+    for b in IVF_TILE_BATCHES:
+        for k in (20, 30):
+            args = scan_args(queries[:b], k)
+            want = ivf_scan_ref(*args)
+            times = []
+            for q_tile in (16, 64):
+                def run():
+                    return _launch_scan(args[0], args[1], args[3], args[4], args[5], k,
+                                        args[7], off, q_tile)
+                err = max(err, check_topk(run(), want,
+                                          ivf_scores(sorted_emb, args[0], cid, args[3])))
+                times.append(_time_ms(run, n=3, reps=5)[0])
+            m = b * index.nprobe
+            print(f"ivf_scan tiles B {b} k {k} ({m / min(layout.nlist, m):.1f} queries a "
+                  f"probed cluster on average): 16-query {times[0]:.4f} ms, 64-query "
+                  f"{times[1]:.4f} ms, ivf_query_tile picks "
+                  f"{ivf_query_tile(b, index.nprobe, layout.nlist, k)} | {smi_line}",
+                  flush=True)
 
     # recall@10 of the single queries against exact search of the same rows
     qn = index._preprocess(queries[n_b:]).to(sorted_emb.dtype).contiguous()
@@ -1189,17 +1222,20 @@ def run(dev, seed: int = 0):
         "name": "ivf_scan", "route": "cuda",
         "source": "anorag_tpu_torch/csrc/ivf_scan.cu",
         "design": "each probed cluster scanned once per tile of the queries "
-                  "that probe it; 64-query mma.sync tiles (16 at k > 128 or a "
-                  "small batch) behind a 3-stage cp.async ring",
+                  "that probe it; mma.sync tiles of 64 queries (16 at k > 128 "
+                  "or a small batch) behind a cp.async ring of 2 stages at 64 "
+                  "queries, 3 at 16",
         "replaces": "anorag_tpu/ops/ivf.py:119",
         "launches": ivf_launches, "max_abs_err": max(scan_errs), **ivf_main,
     }, {
         "name": "ivf_work_plan", "route": "cuda",
         "source": "anorag_tpu_torch/csrc/ivf_scan.cu",
-        "design": "the IVF scan's work plan in one CTA: sel inverted into "
-                  "64- or 16-query tiles of one cluster and about equal units",
+        "design": "part of ivf_scan, not a counterpart of its own: the scan's "
+                  "work plan in one CTA, sel inverted into 64- or 16-query "
+                  "tiles of one cluster and about equal units",
+        "part_of": "ivf_scan",
         "replaces": "anorag_tpu/ops/ivf.py:119",
-        "launches": plan_launches, "max_abs_err": 0.0, **plan_main,
+        "launches": plan_launches, **plan_main,
     }, *segment_kernels, {
         "name": "bucket_winners", "route": "cuda",
         "source": "anorag_tpu_torch/csrc/bucket_winners.cu",

@@ -4,6 +4,10 @@ this file imports none and runs without the suite's conftest:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -219,6 +223,30 @@ def test_ivf_search_on_the_card_always_scans_with_the_kernel(cuda_device):
     with pytest.raises(ValueError, match="use_kernel=False"):
         VectorIndex(dimension=32, index_type="IVFFlat", use_kernel=False,
                     device=cuda_device)
+
+
+@pytest.mark.cuda
+def test_ivf_scan_on_the_card_asserts_on_offsets_past_the_corpus(cuda_device):
+    """Offsets that would send the kernel past sorted_emb fail ivf_scan's
+    device-side assertion at the next synchronisation. That leaves the
+    CUDA context unusable, so the scan runs in a child process."""
+    code = (
+        "import torch\n"
+        "from anorag_tpu_torch.ops import ivf\n"
+        "from anorag_tpu_torch.testing import ALL_IVF_CASES, ivf_case\n"
+        "q, layout, rows, sel, blk, n_scan, k = ivf_case(*ALL_IVF_CASES[0])\n"
+        "dev = torch.device('cuda')\n"
+        "off = torch.from_numpy(layout.cluster_offsets).clone()\n"
+        "off[-1] = rows.shape[0] + 64\n"
+        "ivf.ivf_scan(q.to(dev), rows.to(dev), layout.device_array('cluster_ids', dev),\n"
+        "             sel.to(dev), blk.to(dev), n_scan, k, layout.block_rows,\n"
+        "             cluster_offsets=off.to(dev))\n"
+        "torch.cuda.synchronize()\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=300, cwd=Path(__file__).resolve().parents[1])
+    assert proc.returncode != 0, proc.stdout
+    assert "device-side assert" in proc.stderr or "cluster_offsets" in proc.stderr, \
+        proc.stderr[-2000:]
 
 
 @pytest.mark.cuda

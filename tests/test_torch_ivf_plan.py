@@ -182,7 +182,9 @@ def test_query_tile_and_splits_rules():
     assert ivf.ivf_query_tile(512, 4, 20, 129) == 16      # k above SMALL_K
     assert ivf.ivf_query_tile(1, 4, 20, 30) == 16         # one query a cluster
     assert ivf.ivf_query_tile(8, 4, 20, 10) == 16         # 32 pairs, 20 clusters
-    assert ivf.ivf_query_tile(160, 4, 20, 10) == 64       # 32 a cluster
+    assert ivf.ivf_query_tile(64, 4, 20, 20) == 16        # 12.8 a cluster
+    assert ivf.ivf_query_tile(80, 4, 20, 20) == 64        # 16 a cluster
+    assert ivf.ivf_query_tile(96, 4, 20, 30) == 64        # 19.2 a cluster
     assert ivf.max_plan_tiles(512, 4, 20, 64) == 20 + 32
     assert ivf.ivf_max_splits(512, 4, 20) == ivf.MAX_LISTS // 4
     assert ivf.ivf_max_splits(4, 260, 10) == 1             # two merge levels
@@ -278,3 +280,50 @@ def test_ivf_scan_rejects_offsets_of_another_type():
     with pytest.raises(TypeError, match="cluster_offsets"):
         ivf.ivf_scan(q, rows, cid, sel, blk, n_scan, k, layout.block_rows,
                      cluster_offsets=torch.from_numpy(layout.cluster_offsets).int())
+
+
+def _bad_offsets(off: torch.Tensor, n_rows: int, kind: str) -> torch.Tensor:
+    if kind == "short":                    # the last cluster left out
+        return off[:-1]
+    if kind == "past_corpus":              # one more cluster, past the rows
+        return torch.cat([off, off.new_tensor([n_rows + 64])])
+    if kind == "shifted":
+        return torch.cat([off[:1], off[1:-1] + 1, off[-1:]])
+    if kind == "end_past_corpus":
+        return torch.cat([off[:-1], off.new_tensor([n_rows + 64])])
+    if kind == "decreasing":
+        return torch.cat([off[:1], off[2:3], off[1:2], off[3:]])
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize("kind", ["short", "past_corpus", "shifted",
+                                  "end_past_corpus", "decreasing"])
+def test_ivf_scan_rejects_offsets_that_are_not_cluster_ids(kind):
+    q, layout, rows, sel, blk, n_scan, k = ivf_case(*ALL_IVF_CASES[0])
+    cid = torch.from_numpy(layout.cluster_ids)
+    off = torch.from_numpy(layout.cluster_offsets)
+    bad = _bad_offsets(off, rows.shape[0], kind)
+    assert not torch.equal(bad, off) and bool((off[1:] > off[:-1]).all())
+    with pytest.raises(RuntimeError, match="cluster_offsets"):
+        ivf.ivf_scan(q, rows, cid, sel, blk, n_scan, k, layout.block_rows,
+                     cluster_offsets=bad)
+    # the layout's own offsets, and a trailing empty cluster, pass
+    for good in (off, torch.cat([off, off[-1:]])):
+        ivf._check_offsets(good, cid)
+
+
+def test_offsets_check_sees_a_change_to_the_pair_it_last_checked():
+    _, layout, rows, _, _, _, _ = ivf_case(*ALL_IVF_CASES[0])
+    cid = torch.from_numpy(layout.cluster_ids).clone()
+    off = torch.from_numpy(layout.cluster_offsets).clone()
+    ivf._check_offsets(off, cid)                   # passes, and is remembered
+    ivf._check_offsets(off, cid)
+    off[-1] = rows.shape[0] + 64                   # in place: a new version
+    with pytest.raises(RuntimeError, match="cluster_offsets"):
+        ivf._check_offsets(off, cid)
+    off.copy_(torch.from_numpy(layout.cluster_offsets))
+    ivf._check_offsets(off, cid)
+    cid[layout.n] = layout.nlist                   # the ids change instead: a
+                                                   # pad becomes a cluster past them
+    with pytest.raises(RuntimeError, match="cluster_offsets"):
+        ivf._check_offsets(off, cid)
