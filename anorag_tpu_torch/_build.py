@@ -3,8 +3,8 @@
 Each source in csrc/ is compiled by nvcc for Hopper (sm_90a) into a shared
 library with a plain C interface and loaded with ctypes: no PyTorch headers,
 so a build takes seconds, not minutes. Libraries go to _build/ (listed in
-.gitignore), named by a hash of the source and flags, so a source is rebuilt
-only when it changes.
+.gitignore), named by a hash of the source, the shared headers (csrc/*.cuh)
+and the flags, so a source is rebuilt only when one of them changes.
 """
 from __future__ import annotations
 
@@ -38,9 +38,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    """The library's path, named by a hash of the source, every shared
+    header in csrc/ (a source may include any of them) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> str:

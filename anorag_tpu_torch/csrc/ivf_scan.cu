@@ -40,7 +40,7 @@
 //   (-3.0e38, -1) first, so a slot no CTA owns (a dropped pair, an empty
 //   split) stays empty.
 //   Phase 2: one warp per query merges its sorted partials by the same
-//   rule (streaming_topk.cu's merge_kernel; more than 256 lists merge in
+//   rule (common.cuh's merge_kernel; more than 256 lists merge in
 //   two levels of at most 256).
 // QT is 64 where k <= 128 (the lists take 64 x 128 x 8 = 64 KB) and the
 // batch gives a probed cluster 32 or more queries on average, else 16 (k up
@@ -56,21 +56,16 @@
 // TFLOP in all), re-stages the query slices for every sub-tile and runs
 // mma.sync on 8 warps, two CTAs an SM at QT 64 and k 20; wgmma fed by TMA,
 // resident queries and warp specialisation are the next steps (ROADMAP).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -3.0e38f;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 64;                  // corpus rows per sub-tile
 constexpr int kMaxK = 1024;
 constexpr int kSmallK = 128;               // largest k of the 64-query tile
-constexpr int kMaxLists = 256;             // sorted lists one merge warp takes
 constexpr int kScStride = kRows + 8;       // f32 scores: float2 stores bank-free
-constexpr unsigned kFull = 0xffffffffu;
 
 // Slices of D staged per step. Rows of 272 bytes keep 16-byte alignment for
 // cp.async and ldmatrix and put the 8 rows of a fragment on distinct banks.
@@ -106,50 +101,6 @@ template <typename T> __device__ __forceinline__ T zero();
 template <> __device__ __forceinline__ float zero<float>() { return 0.0f; }
 template <> __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
   return __float2bfloat16(0.0f);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int bytes = valid ? 16 : 0;        // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x2(uint32_t r[2], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1]) : "r"(a));
-}
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// a ranks before b: filled first, then score descending, then row ascending
-__device__ __forceinline__ bool beats(float av, int ai, float bv, int bi) {
-  if (ai < 0) return false;
-  if (bi < 0) return true;
-  return av > bv || (av == bv && ai < bi);
 }
 
 // Which rows of a sub-tile count: the first n (the cluster's end), those
@@ -480,67 +431,6 @@ ivf_partial_kernel(const T* __restrict__ q, const T* __restrict__ e, int D,
       part_i[out + i] = i < nf[j] ? I[i] : -1;
     }
   }
-}
-
-// Phase 2: one warp per query merges its `lists` sorted lists of k (as
-// streaming_topk.cu's merge_kernel).
-__global__ void __launch_bounds__(kThreads)
-merge_kernel(const float* __restrict__ part_v, const int32_t* __restrict__ part_i,
-             int64_t B, int lists, int k, float* __restrict__ out_v,
-             int32_t* __restrict__ out_i) {
-  constexpr int kHeads = kMaxLists / 32;
-  const int lane = threadIdx.x & 31;
-  const int64_t qi = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (qi >= B) return;                             // warp-uniform
-  const float* pv = part_v + qi * lists * k;
-  const int32_t* pi = part_i + qi * lists * k;
-  int head[kHeads];
-#pragma unroll
-  for (int h = 0; h < kHeads; ++h) head[h] = 0;
-  for (int o = 0; o < k; ++o) {
-    float bv = kNegInf;
-    int bi = -1, bh = -1;
-#pragma unroll
-    for (int h = 0; h < kHeads; ++h) {
-      const int s = lane + 32 * h;
-      if (s < lists && head[h] < k) {
-        const float v = pv[s * k + head[h]];
-        const int id = pi[s * k + head[h]];
-        if (beats(v, id, bv, bi)) {
-          bv = v;
-          bi = id;
-          bh = h;
-        }
-      }
-    }
-    float wv = bv;
-    int wi = bi, wl = lane;
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(kFull, wv, off);
-      const int oi = __shfl_xor_sync(kFull, wi, off);
-      const int ol = __shfl_xor_sync(kFull, wl, off);
-      if (beats(ov, oi, wv, wi) || (!beats(wv, wi, ov, oi) && ol < wl)) {
-        wv = ov;
-        wi = oi;
-        wl = ol;
-      }
-    }
-    if (lane == wl && wi >= 0) {
-#pragma unroll
-      for (int h = 0; h < kHeads; ++h) head[h] += (h == bh);
-    }
-    if (lane == 0) {
-      out_v[qi * k + o] = wi >= 0 ? wv : kNegInf;
-      out_i[qi * k + o] = wi;
-    }
-  }
-}
-
-int merge(const float* pv, const int32_t* pi, long long B, int lists, int k,
-          float* ov, int32_t* oi, cudaStream_t s) {
-  merge_kernel<<<(unsigned)((B + kWarps - 1) / kWarps), kThreads, 0, s>>>(
-      pv, pi, B, lists, k, ov, oi);
-  return (int)cudaGetLastError();
 }
 
 template <typename T, int QT>

@@ -3,422 +3,697 @@
 //
 // Replaces anorag_tpu/ops/topk.py::_topk_kernel (:40), via
 // _dense_topk_pallas (:124): for each query row, the exact top-k of
-// q . e^T (+ bias_weight * bias), rows >= n_valid masked. (The IVF kernel,
-// once a branch of this one, is csrc/ivf_scan.cu.)
-// Function: q (B, D) and e (rows, D) in one dtype (bf16 or f32), products
+// q . e^T (+ bias_weight * bias), rows >= n_valid masked.
+// Function: q (B, D) and e (N, D) in one dtype (bf16 or f32), products
 // summed in f32; for each query the k best valid rows by (score descending,
 // row ascending) -- lax.top_k's rule, not the Pallas kernel's slot history;
 // output sorted that way, slots never filled are (-3.0e38, -1).
 //
-// Design (a first version: simple and exact, not yet fast):
-//   phase 1, grid (query tiles of 16) x (corpus splits): a block stages
-//   64 corpus rows x 128 columns, and its 16 queries' 128 columns, in shared
-//   memory with 16-byte loads where the width and alignment allow. bf16
-//   tiles go to the tensor cores: each of the 8 warps runs mma.sync
-//   m16n8k16 for the 16 queries x 8 rows, f32 accumulators, and the scores
-//   pass through shared memory; f32 tiles are widened and summed with FMAs
-//   on the CUDA cores. Warp w then merges queries 2w and 2w + 1 x the 64
-//   rows into each query's running top-k, a list in shared memory sorted by
-//   the rule above: a score enters only when it beats the list's tail (the
-//   per-row threshold, counterpart of the reference's block reject test,
-//   ops/topk.py:81-83); insertion counts its place and shifts the tail with
-//   the whole warp. Each (query, split) list goes to a (B, splits, k)
-//   partial. Phase 2: one warp per query merges the sorted partials by the
-//   same rule.
+// Design. Phase 1, one CTA per unit: a tile of QT queries against one
+// corpus range (a split) of whole 128-row sub-tiles. The wrapper's plan
+// (ops/topk.py topk_work_plan) cuts the corpus into as many splits as make
+// the units about the CTAs the card holds at once, one wave; the unit index
+// runs over the query tiles first, so the tiles of one range run side by
+// side and share it in L2 (the corpus leaves device memory about once).
+//   Queries and rows stream through a cp.async ring in slices of 128 bytes
+//   of D: 3 stages at QT 128 and 64 (16 warps, warp tiles of 32 x 32 or
+//   16 x 32), 6 at QT 16 with k <= 512 and 4 above (8 warps, 16 x 16); one
+//   CTA an SM. Query rows past B are zeroed once and never copied. bf16
+//   slices go to the tensor cores: mma.sync m16n8k16 from ldmatrix, f32
+//   accumulators; f32 slices are summed by FMAs in the same layout.
+//   After a sub-tile's last slice the selection runs on the accumulators in
+//   registers (the bias added from float2 loads in the fragment's layout,
+//   prefetched to L2 a sub-tile ahead): each thread tests its scores
+//   against its queries' bars, the tails of their running lists, held in
+//   registers; survivors take slots of their query's candidate buffer in
+//   shared memory (64 entries, 128 at QT 64), one shared-memory atomic for
+//   the 4 lanes of a query; a warp with no survivor skips that. Scores never
+//   pass through shared memory. While some survivor finds its buffer full,
+//   every buffer at least half full is merged into its query's sorted list
+//   (shared memory, k entries) by one warp: the candidates sorted in
+//   registers (a bitonic network), then each output entry found by a binary
+//   search along its diagonal (merge path) -- exact under ties (distinct
+//   rows, the full rank rule); the waiting survivors are then tested again
+//   against the new tails, so a burst of ties, or more survivors than slots,
+//   drops nothing. The buffers are merged once more at the end of the unit
+//   and each list goes to partial slot (query, split).
+//   The batch route (QT 128 and 64) first runs the same kernel over a prefix
+//   of the corpus (topk_seed_rows: 128 k rows, at most N / 16); each
+//   query's k-th best score there is its first bar, reached by k rows, so
+//   the scan keeps nothing below it and merges far fewer candidates.
+//   Phase 2 (common.cuh's merge_kernel): one warp per query merges its
+//   sorted partials by the same rule.
+// QT 128 takes k <= 32 (its lists fit beside the ring), QT 64 k <= 128,
+// QT 16 any k to 1024; the wrapper picks the tile (topk_query_tile): 16
+// below 48 queries, the memory-bound route where a larger tile would be
+// padding, from the crossing measured on the card (PERF.md).
 //
-// Bound: the function needs 2 * B * rows * D operations on bf16 inputs and
-// reads the corpus once (512 x 200,000 x 1024: 209.7 GFLOP, 409.6 MB), so
-// the tensor cores' 989 TFLOP/s bound it at large batch and the 3.35 TB/s of
-// device memory at one query. This design re-reads the corpus once per
-// query tile (32 times at B = 512, mostly from L2), stages synchronously
-// with no overlap of loads and math, and uses mma.sync rather than wgmma;
-// larger query tiles, a TMA ring and wgmma are the next steps (ROADMAP).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// Bound: 2 * B * N * D operations on bf16 inputs and the corpus read once
+// (512 x 200,000 x 1024: 209.7 GFLOP, 409.6 MB): the tensor cores' 989
+// TFLOP/s bound it at large batch (0.2120 ms), the 3.35 TB/s of device
+// memory at one query (0.1223 ms). This design moves the corpus and the
+// query slices from L2 once per query tile and sub-tile (at B 512, QT 128:
+// 4 x 409.6 MB + 1,563 x 4 x 256 KB = 3.28 GB, which alone took 0.69 ms on
+// an H100 80GB HBM3 at 700 W) and runs mma.sync; the stop at each
+// sub-tile's selection costs about a quarter of its time (PERF.md). TMA
+// multicast across a cluster (fewer L2 bytes) and wgmma are the next steps
+// (ROADMAP).
+#include "common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -3.0e38f;
-constexpr int kThreads = 256;
-constexpr int kQ = 16;             // queries per block, 2 per warp
-constexpr int kRows = 64;          // corpus rows per tile, 2 per lane
-constexpr int kDk = 128;           // columns staged per step
-constexpr int kStride = kDk + 1;   // f32 tiles, padded: lanes read rows bank-free
-constexpr int kStrideH = kDk + 8;  // bf16 tiles: 16-byte rows, fragment loads bank-free
-constexpr int kScStride = kRows + 4;
-// shared bytes before the lists: the larger of the two tile layouts
-constexpr int kTileBytes = (kRows + kQ) * kStride * 4;
-static_assert((kRows + kQ) * kStrideH * 2 + kQ * kScStride * 4 <= kTileBytes,
-              "bf16 tiles and scores fit in the f32 tiles' room");
+constexpr int kRows = 128;             // corpus rows per sub-tile
 constexpr int kMaxK = 1024;
-constexpr int kMaxSplits = 256;
-constexpr unsigned kFull = 0xffffffffu;
 
-// a ranks before b: filled first, then score descending, then row ascending
-__device__ __forceinline__ bool beats(float av, int ai, float bv, int bi) {
-  if (ai < 0) return false;
-  if (bi < 0) return true;
-  return av > bv || (av == bv && ai < bi);
+// Slices of 128 bytes of D; rows of 144 bytes keep 16-byte alignment for
+// cp.async and ldmatrix and put the 8 rows of a fragment on distinct banks.
+template <typename T> struct Layout;
+template <> struct Layout<__nv_bfloat16> {
+  static constexpr int kDk = 64;
+  static constexpr int kStride = kDk + 8;
+  static constexpr int kVec = 8;                 // elements in 16 bytes
+};
+template <> struct Layout<float> {
+  static constexpr int kDk = 32;
+  static constexpr int kStride = kDk + 4;
+  static constexpr int kVec = 4;
+};
+
+// The warps' share of a QT x 128 tile: kWarpsQ warps down the queries,
+// kWarpsR across the rows; kMT m-tiles of 16 queries and kNT n-tiles of 8
+// rows a warp.
+template <int QT, bool LK = false> struct Tile {
+  static constexpr int kWarpsQ = QT >= 64 ? 4 : 1;
+  static constexpr int kWarpsR = QT >= 64 ? 4 : 8;
+  static constexpr int kWarps = kWarpsQ * kWarpsR;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kMT = QT / 16 / kWarpsQ;
+  static constexpr int kWarpRows = kRows / kWarpsR;
+  static constexpr int kNT = kWarpRows / 8;
+  static constexpr int kVals = kMT * kNT * 4;    // scores a thread holds
+  static constexpr int kStages = QT != 16 ? 3 : LK ? 4 : 6;
+  static constexpr int kMaxK = QT == 128 ? 32 : QT == 64 ? 128 : LK ? ::kMaxK : 512;
+  static constexpr int kCand = QT == 64 ? 128 : 64;   // candidate slots a query
+  static_assert(kMT >= 1 && kNT % 2 == 0 && kVals <= 64, "warp tiles");
+};
+
+template <typename T> __device__ __forceinline__ T zero();
+template <> __device__ __forceinline__ float zero<float>() { return 0.0f; }
+template <> __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
+  return __float2bfloat16(0.0f);
 }
 
-// f32 rows [row0, row0 + R) x columns [c0, c0 + kDk) of a (n_rows, D) matrix
-// into dst (row stride kStride); zeros outside the matrix.
-template <int R>
-__device__ void stage_f32(const float* __restrict__ src, int64_t row0,
-                          int64_t n_rows, int D, int c0, bool vec_ok, float* dst) {
-  if (vec_ok) {
-    constexpr int kPerRow = kDk / 4;
-    for (int e = threadIdx.x; e < R * kPerRow; e += kThreads) {
-      const int r = e / kPerRow, cv = (e % kPerRow) * 4;
-      const int64_t row = row0 + r;
-      const int col = c0 + cv;
-      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (row < n_rows && col < D)
-        v = *reinterpret_cast<const float4*>(src + row * D + col);
-      float* d = dst + r * kStride + cv;
-      d[0] = v.x;
-      d[1] = v.y;
-      d[2] = v.z;
-      d[3] = v.w;
+// Stage columns [c0, c0 + kDk) of rows [row0, row0 + R) of src (n_rows, D)
+// into dst (row stride kStride). Columns at or past D are zeros; rows at or
+// past n_rows are zeros (kSkip: left alone, the caller zeroed them once).
+// vec: 16-byte cp.async (D and the base 16-byte multiples); else plain loads.
+template <typename T, int R, bool kSkip, int kThreads>
+__device__ __forceinline__ void stage(const T* __restrict__ src, int64_t row0,
+                                      int64_t n_rows, int D, int c0, bool vec,
+                                      T* dst) {
+  using L = Layout<T>;
+  const T* base = src + row0 * D + c0;
+  const int rows = n_rows - row0 < R ? (int)(n_rows - row0) : R;
+  if (vec) {
+    constexpr int kPerRow = L::kDk / L::kVec;
+    constexpr int kIters = (R * kPerRow + kThreads - 1) / kThreads;
+#pragma unroll
+    for (int it = 0; it < kIters; ++it) {
+      const int e = threadIdx.x + it * kThreads;
+      if ((R * kPerRow) % kThreads != 0 && e >= R * kPerRow) break;
+      const int r = e / kPerRow, cv = (e % kPerRow) * L::kVec;
+      if (kSkip && r >= rows) continue;
+      const bool ok = r < rows && c0 + cv < D;
+      cp_async16(dst + r * L::kStride + cv, ok ? base + r * D + cv : src, ok);
     }
   } else {
-    for (int e = threadIdx.x; e < R * kDk; e += kThreads) {
-      const int r = e / kDk, c = e % kDk;
-      const int64_t row = row0 + r;
-      const int col = c0 + c;
-      dst[r * kStride + c] = (row < n_rows && col < D) ? src[row * D + col] : 0.0f;
+    for (int e = threadIdx.x; e < R * L::kDk; e += kThreads) {
+      const int r = e / L::kDk, c = e % L::kDk;
+      if (kSkip && r >= rows) continue;
+      const bool ok = r < rows && c0 + c < D;
+      dst[r * L::kStride + c] = ok ? base[r * D + c] : zero<T>();
     }
   }
 }
 
-// bf16 rows [row0, row0 + R) x columns [c0, c0 + kDk) into dst (row stride
-// kStrideH), zeros outside the matrix.
-template <int R>
-__device__ void stage_bf16(const __nv_bfloat16* __restrict__ src, int64_t row0,
-                           int64_t n_rows, int D, int c0, bool vec_ok,
-                           __nv_bfloat16* dst) {
-  if (vec_ok) {
-    constexpr int kPerRow = kDk / 8;
-    for (int e = threadIdx.x; e < R * kPerRow; e += kThreads) {
-      const int r = e / kPerRow, cv = (e % kPerRow) * 8;
-      const int64_t row = row0 + r;
-      const int col = c0 + cv;
-      uint4 u = make_uint4(0u, 0u, 0u, 0u);
-      if (row < n_rows && col < D)
-        u = *reinterpret_cast<const uint4*>(src + row * D + col);
-      *reinterpret_cast<uint4*>(dst + r * kStrideH + cv) = u;
-    }
-  } else {
-    for (int e = threadIdx.x; e < R * kDk; e += kThreads) {
-      const int r = e / kDk, c = e % kDk;
-      const int64_t row = row0 + r;
-      const int col = c0 + c;
-      dst[r * kStrideH + c] = (row < n_rows && col < D) ? src[row * D + col]
-                                                        : __float2bfloat16(0.0f);
+// One slice's products in the accumulator layout of mma.sync m16n8k16:
+// warp w owns queries 16 kMT (w % kWarpsQ) + [0, 16 kMT) and rows
+// kWarpRows (w / kWarpsQ) + [0, kWarpRows); acc[m][j][i] is query
+// 16 (kMT (w % kWarpsQ) + m) + g + 8 (i >> 1) against row
+// kWarpRows (w / kWarpsQ) + 8 j + 2 t4 + (i & 1), g = lane / 4, t4 = lane % 4.
+template <int QT>
+__device__ __forceinline__ void slice_scores(const __nv_bfloat16* __restrict__ qs,
+                                             const __nv_bfloat16* __restrict__ es,
+                                             float (&acc)[Tile<QT>::kMT][Tile<QT>::kNT][4]) {
+  using Tl = Tile<QT>;
+  constexpr int S = Layout<__nv_bfloat16>::kStride;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wq = warp % Tl::kWarpsQ, wr = warp / Tl::kWarpsQ;
+  // ldmatrix row addresses: lanes 8m..8m+7 give the rows of matrix m
+  const __nv_bfloat16* qa =
+      qs + (16 * Tl::kMT * wq + (lane & 7) + 8 * ((lane >> 3) & 1)) * S + 8 * (lane >> 4);
+  const __nv_bfloat16* eb =
+      es + (Tl::kWarpRows * wr + (lane & 7) + 8 * (lane >> 4)) * S + 8 * ((lane >> 3) & 1);
+#pragma unroll
+  for (int kk = 0; kk < Layout<__nv_bfloat16>::kDk; kk += 16) {
+    uint32_t a[Tl::kMT][4];
+#pragma unroll
+    for (int m = 0; m < Tl::kMT; ++m) ldmatrix_x4(a[m], qa + 16 * m * S + kk);
+#pragma unroll
+    for (int j = 0; j < Tl::kNT; j += 2) {
+      uint32_t b[4];
+      ldmatrix_x4(b, eb + 8 * j * S + kk);       // n-tiles j and j + 1, both k halves
+#pragma unroll
+      for (int m = 0; m < Tl::kMT; ++m) {
+        mma_bf16(acc[m][j], a[m], b[0], b[1]);
+        mma_bf16(acc[m][j + 1], a[m], b[2], b[3]);
+      }
     }
   }
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Scores of the block's 16 queries against tile rows [row0, row0 + 64):
-// acc[j][r] is query 2 * warp + j against row row0 + lane + 32 r.
-// bf16: tensor cores. Warp w runs mma.sync m16n8k16 (all 16 queries x rows
-// 8w..8w+7, f32 accumulators), and the scores pass through shared memory to
-// the warp that merges them.
-__device__ void tile_scores(const __nv_bfloat16* __restrict__ q,
-                            const __nv_bfloat16* __restrict__ e, int64_t row0,
-                            int64_t n_rows, int64_t q0, int64_t B, int D,
-                            bool vec_ok, float* smem, float acc[2][2]) {
-  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* qs = tile + kRows * kStrideH;
-  float* sc = reinterpret_cast<float*>(qs + kQ * kStrideH);
+template <int QT>
+__device__ __forceinline__ void slice_scores(const float* __restrict__ qs,
+                                             const float* __restrict__ es,
+                                             float (&acc)[Tile<QT>::kMT][Tile<QT>::kNT][4]) {
+  using Tl = Tile<QT>;
+  constexpr int S = Layout<float>::kStride;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t4 = lane & 3;
-  float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int c0 = 0; c0 < D; c0 += kDk) {
-    __syncthreads();
-    stage_bf16<kRows>(e, row0, n_rows, D, c0, vec_ok, tile);
-    stage_bf16<kQ>(q, q0, B, D, c0, vec_ok, qs);
-    __syncthreads();
-    const __nv_bfloat16* qa = qs + g * kStrideH + 2 * t4;
-    const __nv_bfloat16* eb = tile + (8 * warp + g) * kStrideH + 2 * t4;
+  const int wq = warp % Tl::kWarpsQ, wr = warp / Tl::kWarpsQ;
+  const float* q0 = qs + (16 * Tl::kMT * wq + g) * S;
+  const float* e0 = es + (Tl::kWarpRows * wr + 2 * t4) * S;
+#pragma unroll 4
+  for (int c = 0; c < Layout<float>::kDk; ++c) {
 #pragma unroll
-    for (int kk = 0; kk < kDk; kk += 16) {
-      const uint32_t a0 = ld32(qa + kk), a1 = ld32(qa + 8 * kStrideH + kk);
-      const uint32_t a2 = ld32(qa + kk + 8), a3 = ld32(qa + 8 * kStrideH + kk + 8);
-      const uint32_t b0 = ld32(eb + kk), b1 = ld32(eb + kk + 8);
-      asm volatile(
-          "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-          : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-          : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-    }
-  }
-  const int col = 8 * warp + 2 * t4;
-  sc[g * kScStride + col] = c[0];
-  sc[g * kScStride + col + 1] = c[1];
-  sc[(g + 8) * kScStride + col] = c[2];
-  sc[(g + 8) * kScStride + col + 1] = c[3];
-  __syncthreads();
+    for (int m = 0; m < Tl::kMT; ++m) {
+      const float a0 = q0[16 * m * S + c], a1 = q0[(16 * m + 8) * S + c];
 #pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      acc[j][r] = sc[(2 * warp + j) * kScStride + lane + 32 * r];
-}
-
-// f32: FMAs on the CUDA cores, each lane 2 queries x 2 rows from f32 tiles.
-__device__ void tile_scores(const float* __restrict__ q, const float* __restrict__ e,
-                            int64_t row0, int64_t n_rows, int64_t q0, int64_t B,
-                            int D, bool vec_ok, float* smem, float acc[2][2]) {
-  float* tile = smem;                              // kRows x kStride
-  float* qs = tile + kRows * kStride;              // kQ x kStride
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  acc[0][0] = acc[0][1] = acc[1][0] = acc[1][1] = 0.0f;
-  for (int c0 = 0; c0 < D; c0 += kDk) {
-    __syncthreads();
-    stage_f32<kRows>(e, row0, n_rows, D, c0, vec_ok, tile);
-    stage_f32<kQ>(q, q0, B, D, c0, vec_ok, qs);
-    __syncthreads();
-    const float* qa = qs + (2 * warp) * kStride;
-    const float* qb = qa + kStride;
-    const float* e0 = tile + lane * kStride;
-    const float* e1 = tile + (lane + 32) * kStride;
-#pragma unroll 8
-    for (int c = 0; c < kDk; ++c) {
-      const float x0 = e0[c], x1 = e1[c], a = qa[c], b = qb[c];
-      acc[0][0] = fmaf(a, x0, acc[0][0]);
-      acc[0][1] = fmaf(a, x1, acc[0][1]);
-      acc[1][0] = fmaf(b, x0, acc[1][0]);
-      acc[1][1] = fmaf(b, x1, acc[1][1]);
+      for (int j = 0; j < Tl::kNT; ++j) {
+        const float x0 = e0[8 * j * S + c], x1 = e0[(8 * j + 1) * S + c];
+        acc[m][j][0] = fmaf(a0, x0, acc[m][j][0]);
+        acc[m][j][1] = fmaf(a0, x1, acc[m][j][1]);
+        acc[m][j][2] = fmaf(a1, x0, acc[m][j][2]);
+        acc[m][j][3] = fmaf(a1, x1, acc[m][j][3]);
+      }
     }
   }
 }
 
-// Merge (s, row) of each lane into the sorted list (V, I) of nf entries, at
-// most k; `ok` marks lanes whose row is valid for this query. Warp-wide.
-__device__ void merge_scores(float s, int row, bool ok, float* V, int32_t* I,
-                             int& nf, int k) {
+// A (score, row) pair; row -1 is an empty entry, ranked after every other.
+struct __align__(8) Entry {
+  float v;
+  int i;
+};
+
+__device__ __forceinline__ bool beats(Entry a, Entry b) { return beats(a.v, a.i, b.v, b.i); }
+
+// Sort a warp's 32 kPerLane entries (entry 32 p + lane in register p),
+// best first by the rank rule, empty entries last: a bitonic network,
+// shuffles between lanes, register swaps within one.
+template <int kPerLane>
+__device__ __forceinline__ void warp_sort(Entry (&x)[kPerLane]) {
   const int lane = threadIdx.x & 31;
-  const bool cand = ok && (nf < k || beats(s, row, V[k - 1], I[k - 1]));
-  unsigned mask = __ballot_sync(kFull, cand);
-  while (mask) {
-    const int src = __ffs(mask) - 1;
-    mask &= mask - 1;
-    const float cv = __shfl_sync(kFull, s, src);
-    const int ci = __shfl_sync(kFull, row, src);
-    if (nf == k && !beats(cv, ci, V[k - 1], I[k - 1])) continue;
-    int cnt = 0;
-    for (int p = lane; p < nf; p += 32) cnt += beats(V[p], I[p], cv, ci);
-    const int pos = __reduce_add_sync(kFull, cnt);
-    const int nn = nf + 1 < k ? nf + 1 : k;
-    // shift [pos, nn - 1) up by one slot, the top chunk of 32 first
-    for (int top = nn - 1; top > pos; top -= 32) {
-      const int p = top - lane;
-      const bool act = p > pos;
-      float v = 0.0f;
-      int32_t id = 0;
-      if (act) {
-        v = V[p - 1];
-        id = I[p - 1];
-      }
-      __syncwarp();
-      if (act) {
-        V[p] = v;
-        I[p] = id;
-      }
-      __syncwarp();
-    }
-    if (lane == 0) {
-      V[pos] = cv;
-      I[pos] = ci;
-    }
-    __syncwarp();
-    nf = nn;
-  }
-}
-
-// Phase 1: units are 64-row tiles of e (n_rows = N, the valid rows).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-topk_partial_kernel(const T* __restrict__ q, const T* __restrict__ e,
-                    const float* __restrict__ bias, float bias_weight,
-                    int64_t B, int64_t n_rows, int D, int k, int vec_ok,
-                    int64_t units, float* __restrict__ part_v,
-                    int32_t* __restrict__ part_i) {
-  extern __shared__ __align__(16) float smem[];
-  float* lists_v = smem + kTileBytes / 4;          // kQ x k
-  int32_t* lists_i = reinterpret_cast<int32_t*>(lists_v + kQ * k);
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int64_t q0 = (int64_t)blockIdx.x * kQ;
-  const int splits = gridDim.y, split = blockIdx.y;
-  const int64_t per = (units + splits - 1) / splits;
-  const int64_t u_lo = split * per;
-  const int64_t u_hi = u_lo + per < units ? u_lo + per : units;
-  const int64_t n_tiles = u_hi > u_lo ? u_hi - u_lo : 0;
-  int nf[2] = {0, 0};
-
-  for (int64_t t = 0; t < n_tiles; ++t) {
-    const int64_t row0 = (u_lo + t) * kRows;
-    float acc[2][2];
-    tile_scores(q, e, row0, n_rows, q0, B, D, vec_ok, smem, acc);
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int64_t qi = q0 + 2 * warp + j;
-      if (qi >= B) continue;                       // warp-uniform
-      float* V = lists_v + (2 * warp + j) * k;
-      int32_t* I = lists_i + (2 * warp + j) * k;
+  for (int size = 2; size <= 32 * kPerLane; size <<= 1) {
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int64_t row = row0 + lane + 32 * r;
-        const bool ok = row < n_rows;
-        float s = acc[j][r];
-        if (bias != nullptr && ok)
-          s = __fadd_rn(s, __fmul_rn(bias_weight, bias[qi * n_rows + row]));
-        merge_scores(s, (int)row, ok, V, I, nf[j], k);
-      }
-    }
-  }
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int64_t qi = q0 + 2 * warp + j;
-    if (qi >= B) continue;
-    const float* V = lists_v + (2 * warp + j) * k;
-    const int32_t* I = lists_i + (2 * warp + j) * k;
-    const int64_t out = (qi * splits + split) * k;
-    for (int p = lane; p < k; p += 32) {
-      part_v[out + p] = p < nf[j] ? V[p] : kNegInf;
-      part_i[out + p] = p < nf[j] ? I[p] : -1;
-    }
-  }
-}
-
-// Phase 2: one warp per query merges its `splits` sorted lists of k.
-__global__ void __launch_bounds__(kThreads)
-merge_kernel(const float* __restrict__ part_v, const int32_t* __restrict__ part_i,
-             int64_t B, int splits, int k, float* __restrict__ out_v,
-             int32_t* __restrict__ out_i) {
-  constexpr int kHeads = kMaxSplits / 32;
-  const int lane = threadIdx.x & 31;
-  const int64_t qi = (int64_t)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
-  if (qi >= B) return;                             // warp-uniform
-  const float* pv = part_v + qi * splits * k;
-  const int32_t* pi = part_i + qi * splits * k;
-  int head[kHeads];
-#pragma unroll
-  for (int h = 0; h < kHeads; ++h) head[h] = 0;
-  for (int o = 0; o < k; ++o) {
-    float bv = kNegInf;
-    int bi = -1, bh = -1;
-#pragma unroll
-    for (int h = 0; h < kHeads; ++h) {
-      const int s = lane + 32 * h;
-      if (s < splits && head[h] < k) {
-        const float v = pv[s * k + head[h]];
-        const int id = pi[s * k + head[h]];
-        if (beats(v, id, bv, bi)) {
-          bv = v;
-          bi = id;
-          bh = h;
+      for (int p = 0; p < kPerLane; ++p) {
+        const int e = 32 * p + lane;
+        const bool best_first = (e & size) == 0;   // this block's direction
+        if (stride >= 32) {                        // the partner is register q
+          const int q = p ^ (stride >> 5);
+          if (q < p) continue;                     // each pair once, from below
+          if (best_first ? beats(x[q], x[p]) : beats(x[p], x[q])) {
+            const Entry t = x[p];
+            x[p] = x[q];
+            x[q] = t;
+          }
+        } else {
+          Entry o;
+          o.v = __shfl_xor_sync(kFull, x[p].v, stride);
+          o.i = __shfl_xor_sync(kFull, x[p].i, stride);
+          const bool keep_better = ((e & stride) == 0) == best_first;
+          if (keep_better != beats(x[p], o)) x[p] = o;
         }
       }
     }
-    float wv = bv;
-    int wi = bi, wl = lane;
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(kFull, wv, off);
-      const int oi = __shfl_xor_sync(kFull, wi, off);
-      const int ol = __shfl_xor_sync(kFull, wl, off);
-      if (beats(ov, oi, wv, wi) || (!beats(wv, wi, ov, oi) && ol < wl)) {
-        wv = ov;
-        wi = oi;
-        wl = ol;
+  }
+}
+
+// Merge the n candidates C, distinct rows in any order, into the sorted
+// list L of nf entries, keeping at most k; warp-wide. The candidates are
+// sorted in registers (warp_sort) and written back; output entry o of the
+// merge is found by a binary search along its diagonal (how many list
+// entries are among the first o + 1: "merge path"). Outputs are written
+// from the top chunk of 32 down: a chunk reads list entries at or below its
+// own positions only. Returns the new length.
+template <int kCand>
+__device__ int merge_list(Entry* L, int nf, int k, Entry* C, int n) {
+  constexpr int kPerLane = kCand / 32;
+  const int lane = threadIdx.x & 31;
+  Entry x[kPerLane];
+#pragma unroll
+  for (int p = 0; p < kPerLane; ++p) {
+    const int j = 32 * p + lane;
+    if (j < n) x[p] = C[j];
+    else x[p] = Entry{kNegInf, -1};
+  }
+  warp_sort(x);
+  __syncwarp();
+#pragma unroll
+  for (int p = 0; p < kPerLane; ++p)
+    if (32 * p + lane < n) C[32 * p + lane] = x[p];
+  __syncwarp();
+  const int n_out = nf + n < k ? nf + n : k;
+  for (int base = (n_out - 1) & ~31; base >= 0; base -= 32) {
+    const int o = base + lane;
+    Entry out{0.0f, -1};
+    if (o < n_out) {
+      const int d = o + 1;                         // entries taken so far
+      int lo = d - n > 0 ? d - n : 0, hi = d < nf ? d : nf;
+      while (lo < hi) {                            // list entries among them
+        const int mid = (lo + hi) >> 1;
+        if (beats(L[mid], C[d - mid - 1])) lo = mid + 1;
+        else hi = mid;
+      }
+      const int i = lo, j = d - lo;
+      // entry o is the worse of the last taken from each side
+      if (i == 0) {
+        out = C[j - 1];
+      } else if (j == 0) {
+        out = L[i - 1];
+      } else {
+        const Entry a = L[i - 1], c = C[j - 1];
+        out = beats(c, a) ? a : c;
       }
     }
-    if (lane == wl && wi >= 0) {
-#pragma unroll
-      for (int h = 0; h < kHeads; ++h) head[h] += (h == bh);
+    __syncwarp();
+    if (o < n_out) L[o] = out;
+    __syncwarp();
+  }
+  return n_out;
+}
+
+// Per-query state of a unit in shared memory.
+struct Lists {
+  Entry* list;       // QT x k, sorted
+  Entry* cand;       // QT x Tile<QT>::kCand
+  int* cnt;          // candidates taken (may pass kCand: the surplus waits)
+  int* fill;         // list length
+  Entry* tail;       // the list's tail once full, else (kNegInf, -1)
+};
+
+// Merge query slot s's buffer of kCand into its list; warp-wide.
+template <int kCand>
+__device__ __forceinline__ void merge_slot(const Lists& L, int s, int k) {
+  const int n = min(L.cnt[s], kCand);
+  Entry* list = L.list + (size_t)s * k;
+  const int nn = merge_list<kCand>(list, L.fill[s], k, L.cand + s * kCand, n);
+  if ((threadIdx.x & 31) == 0) {
+    L.fill[s] = nn;
+    L.cnt[s] = 0;
+    if (nn == k) L.tail[s] = list[k - 1];
+  }
+  __syncwarp();
+}
+
+template <typename T, int QT, bool LK>
+constexpr size_t smem_bytes(int k) {
+  return (size_t)Tile<QT, LK>::kStages * (QT + kRows) * Layout<T>::kStride * sizeof(T) +
+         (size_t)QT * k * sizeof(Entry) + (size_t)QT * Tile<QT, LK>::kCand * sizeof(Entry) +
+         (size_t)QT * (8 + sizeof(Entry));
+}
+
+// Phase 1: unit blockIdx.x = split * q_tiles + query tile; the split is
+// sub-tiles [split * per, (split + 1) * per) of the corpus.
+template <typename T, int QT, bool LK>
+__global__ void __launch_bounds__(Tile<QT, LK>::kThreads, 1)
+topk_partial_kernel(const T* __restrict__ q, const T* __restrict__ e,
+                    const float* __restrict__ bias, int64_t ldb, float bias_weight,
+                    int bias_vec, const float* __restrict__ seed, int B, int N, int D,
+                    int k, int vec, int per, float* __restrict__ part_v,
+                    int32_t* __restrict__ part_i) {
+  using Ly = Layout<T>;
+  using Tl = Tile<QT, LK>;
+  constexpr int kStages = Tl::kStages;
+  constexpr int kCand = Tl::kCand;
+  constexpr int kStageElems = (QT + kRows) * Ly::kStride;
+  const int q_tiles = (B + QT - 1) / QT;
+  const int splits = gridDim.x / q_tiles;
+  const int split = blockIdx.x / q_tiles;
+  const int q0 = (blockIdx.x % q_tiles) * QT;
+  const int nq = B - q0 < QT ? B - q0 : QT;
+  const int n_sub = (N + kRows - 1) / kRows;
+  const int sub_lo = split * per;
+  const int sub_hi = sub_lo + per < n_sub ? sub_lo + per : n_sub;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  Lists L;
+  L.list = reinterpret_cast<Entry*>(smem_raw + (size_t)kStages * kStageElems * sizeof(T));
+  L.cand = L.list + (size_t)QT * k;
+  L.tail = L.cand + QT * kCand;
+  L.cnt = reinterpret_cast<int*>(L.tail + QT);
+  L.fill = L.cnt + QT;
+  // a seed bar: any score at least seed[q] (the k-th best of a prefix of
+  // the corpus, so at least k rows reach it)
+  auto first_tail = [&](int s) {
+    return seed != nullptr && s < nq ? Entry{seed[q0 + s], 0x7fffffff}
+                                     : Entry{kNegInf, -1};
+  };
+  for (int s = threadIdx.x; s < QT; s += Tl::kThreads) {
+    L.cnt[s] = 0;
+    L.fill[s] = 0;
+    L.tail[s] = first_tail(s);
+  }
+  // the bias of a sub-tile is fetched to L2 one sub-tile ahead: a bulk
+  // prefetch of each query's row segment (16-byte aligned), else one
+  // prefetch a line
+  auto prefetch_bias = [&](int sub) {
+    if (bias == nullptr || sub >= sub_hi) return;
+    const int r0 = sub * kRows;
+    const int bytes = (N - r0 < kRows ? N - r0 : kRows) * 4;
+    for (int x = threadIdx.x; x < nq; x += Tl::kThreads) {
+      const float* p = bias + (int64_t)(q0 + x) * ldb + r0;
+      if ((reinterpret_cast<uintptr_t>(p) & 15) == 0 && bytes >= 16) {
+        asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(p), "r"(bytes & ~15));
+      } else {
+        for (int b = 0; b < bytes; b += 128)
+          asm volatile("prefetch.global.L2 [%0];" ::"l"(p + b / 4));
+      }
     }
-    if (lane == 0) {
-      out_v[qi * k + o] = wi >= 0 ? wv : kNegInf;
-      out_i[qi * k + o] = wi;
+  };
+  prefetch_bias(sub_lo);
+  // query rows past B: zeroed once in every stage, never copied
+  for (int x = threadIdx.x; x < kStages * (QT - nq) * Ly::kStride; x += Tl::kThreads) {
+    const int per_stage = (QT - nq) * Ly::kStride;
+    ring[(x / per_stage) * kStageElems + nq * Ly::kStride + x % per_stage] = zero<T>();
+  }
+
+  const int n_chunks = (D + Ly::kDk - 1) / Ly::kDk;
+  const int steps = sub_lo < sub_hi ? (sub_hi - sub_lo) * n_chunks : 0;
+  int ld_sub = sub_lo, ld_c0 = 0;              // the next (sub-tile, slice) to stage
+  auto load_next = [&](int buf) {
+    T* qs = ring + buf * kStageElems;
+    stage<T, QT, true, Tl::kThreads>(q, q0, B, D, ld_c0, vec, qs);
+    stage<T, kRows, false, Tl::kThreads>(e, (int64_t)ld_sub * kRows, N, D, ld_c0, vec,
+                                         qs + QT * Ly::kStride);
+    ld_c0 += Ly::kDk;
+    if (ld_c0 >= D) {
+      ld_c0 = 0;
+      ++ld_sub;
+    }
+  };
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wq = warp % Tl::kWarpsQ, wr = warp / Tl::kWarpsQ;
+  float acc[Tl::kMT][Tl::kNT][4];
+#pragma unroll
+  for (int m = 0; m < Tl::kMT; ++m)
+#pragma unroll
+    for (int j = 0; j < Tl::kNT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][j][i] = 0.0f;
+  // the tails of this thread's 2 kMT queries: the bar a score must beat
+  Entry tl[Tl::kMT][2];
+#pragma unroll
+  for (int m = 0; m < Tl::kMT; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) tl[m][h] = first_tail(16 * (Tl::kMT * wq + m) + g + 8 * h);
+
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < steps) load_next(s);
+    cp_async_commit();
+  }
+  int buf_ld = kStages - 1, buf_use = 0, use_chunk = 0, use_sub = sub_lo;
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<kStages - 2>();   // this thread's copies for `step` landed
+    __syncthreads();                // everyone's did; step - 1's buffer is free
+    if (step + kStages - 1 < steps) load_next(buf_ld);
+    cp_async_commit();
+    buf_ld = buf_ld + 1 == kStages ? 0 : buf_ld + 1;
+    const T* qs = ring + buf_use * kStageElems;
+    slice_scores<QT>(qs, qs + QT * Ly::kStride, acc);
+    buf_use = buf_use + 1 == kStages ? 0 : buf_use + 1;
+    if (++use_chunk < n_chunks) continue;
+    use_chunk = 0;
+
+    // The sub-tile is complete: select on the accumulators. A score
+    // survives when it beats its query's tail: first a plain compare (at
+    // least the tail), then the full rule for the few that pass.
+    const int row0 = use_sub * kRows;
+    ++use_sub;
+    prefetch_bias(use_sub);
+    const bool whole = row0 + kRows <= N && nq == QT;   // no row or query masked
+    uint64_t pend = 0;                         // bit (m kNT + j) 4 + i
+#pragma unroll
+    for (int m = 0; m < Tl::kMT; ++m)
+#pragma unroll
+      for (int j = 0; j < Tl::kNT; ++j) {
+        const int rb = row0 + Tl::kWarpRows * wr + 8 * j + 2 * t4;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int slot = 16 * (Tl::kMT * wq + m) + g + 8 * h;
+          if (bias != nullptr && slot < nq) {
+            const float* bp = bias + (int64_t)(q0 + slot) * ldb + rb;
+            float b0 = 0.0f, b1 = 0.0f;
+            if (bias_vec && rb + 1 < N) {
+              const float2 t = *reinterpret_cast<const float2*>(bp);
+              b0 = t.x;
+              b1 = t.y;
+            } else {
+              if (rb < N) b0 = bp[0];
+              if (rb + 1 < N) b1 = bp[1];
+            }
+            acc[m][j][2 * h] = __fadd_rn(acc[m][j][2 * h], __fmul_rn(bias_weight, b0));
+            acc[m][j][2 * h + 1] =
+                __fadd_rn(acc[m][j][2 * h + 1], __fmul_rn(bias_weight, b1));
+          }
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            if (acc[m][j][2 * h + c] >= tl[m][h].v &&
+                (whole || (slot < nq && rb + c < N)))
+              pend |= 1ull << ((m * Tl::kNT + j) * 4 + 2 * h + c);
+        }
+      }
+    if (pend) {                                // ties with the tail: the full rule
+#pragma unroll
+      for (int m = 0; m < Tl::kMT; ++m)
+#pragma unroll
+        for (int j = 0; j < Tl::kNT; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const uint64_t bit = 1ull << ((m * Tl::kNT + j) * 4 + i);
+            const int row = row0 + Tl::kWarpRows * wr + 8 * j + 2 * t4 + (i & 1);
+            if ((pend & bit) && !beats(acc[m][j][i], row, tl[m][i >> 1].v, tl[m][i >> 1].i))
+              pend &= ~bit;
+          }
+    }
+    // Survivors to their buffers; while one waits for a free slot, merge
+    // the buffers at least half full, refresh the tails and test the
+    // waiting ones again. The 4 lanes of a query take their slots with one
+    // shared-memory atomic; a warp with no survivor skips this.
+    while (true) {
+      if (__any_sync(kFull, pend != 0)) {
+#pragma unroll
+        for (int m = 0; m < Tl::kMT; ++m)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            int mine = 0;
+#pragma unroll
+            for (int j = 0; j < Tl::kNT; ++j)
+              mine += __popcll(pend & (3ull << ((m * Tl::kNT + j) * 4 + 2 * h)));
+            if (!__any_sync(kFull, mine != 0)) continue;
+            int upto = mine;                       // inclusive scan over t4
+#pragma unroll
+            for (int off = 1; off < 4; off <<= 1) {
+              const int y = __shfl_up_sync(kFull, upto, off, 4);
+              if (t4 >= off) upto += y;
+            }
+            const int total = __shfl_sync(kFull, upto, 3, 4);
+            const int slot = 16 * (Tl::kMT * wq + m) + g + 8 * h;
+            int pos = 0;
+            if (t4 == 0 && total > 0) pos = atomicAdd(&L.cnt[slot], total);
+            pos = __shfl_sync(kFull, pos, 0, 4) + upto - mine;
+#pragma unroll
+            for (int j = 0; j < Tl::kNT; ++j)
+#pragma unroll
+              for (int c = 0; c < 2; ++c) {
+                const uint64_t bit = 1ull << ((m * Tl::kNT + j) * 4 + 2 * h + c);
+                if (!(pend & bit)) continue;
+                if (pos < kCand) {
+                  L.cand[slot * kCand + pos] =
+                      Entry{acc[m][j][2 * h + c],
+                            row0 + Tl::kWarpRows * wr + 8 * j + 2 * t4 + c};
+                  pend &= ~bit;
+                }
+                ++pos;
+              }
+          }
+      }
+      if (!__syncthreads_or(pend != 0)) break;
+      for (int s = warp; s < QT; s += Tl::kWarps)
+        if (L.cnt[s] >= kCand / 2) merge_slot<kCand>(L, s, k);
+      __syncthreads();
+#pragma unroll
+      for (int m = 0; m < Tl::kMT; ++m)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) tl[m][h] = L.tail[16 * (Tl::kMT * wq + m) + g + 8 * h];
+#pragma unroll
+      for (int m = 0; m < Tl::kMT; ++m)
+#pragma unroll
+        for (int j = 0; j < Tl::kNT; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const uint64_t bit = 1ull << ((m * Tl::kNT + j) * 4 + i);
+            const int row = row0 + Tl::kWarpRows * wr + 8 * j + 2 * t4 + (i & 1);
+            if ((pend & bit) && !beats(acc[m][j][i], row, tl[m][i >> 1].v, tl[m][i >> 1].i))
+              pend &= ~bit;
+          }
+    }
+#pragma unroll
+    for (int m = 0; m < Tl::kMT; ++m)
+#pragma unroll
+      for (int j = 0; j < Tl::kNT; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[m][j][i] = 0.0f;
+  }
+  cp_async_wait<0>();
+  __syncthreads();                  // every insertion (and the init) visible
+  for (int s = warp; s < nq; s += Tl::kWarps) {
+    if (L.cnt[s] > 0) merge_slot<kCand>(L, s, k);
+    const int64_t out = ((int64_t)(q0 + s) * splits + split) * k;
+    const int nf = L.fill[s];
+    const Entry* list = L.list + (size_t)s * k;
+    for (int i = lane; i < k; i += 32) {
+      const Entry x = i < nf ? list[i] : Entry{kNegInf, -1};
+      part_v[out + i] = x.v;
+      part_i[out + i] = x.i;
     }
   }
 }
 
-size_t smem_bytes(int k) {
-  return (size_t)kTileBytes + (size_t)kQ * k * 8;
+template <typename T, int QT, bool LK>
+int set_smem(int k) {
+  return (int)cudaFuncSetAttribute(topk_partial_kernel<T, QT, LK>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem_bytes<T, QT, LK>(k));
 }
 
-template <typename T>
-int launch(const void* q, const void* e, const float* bias, float bias_weight,
-           long long B, long long n_rows, int D, int k, int vec_ok,
-           long long units, int splits, void* part_v, void* part_i, void* out_v,
-           void* out_i, cudaStream_t s) {
-  const size_t smem = smem_bytes(k);
-  auto kern = topk_partial_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)((B + kQ - 1) / kQ), (unsigned)splits);
-  kern<<<grid, kThreads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(e), bias, bias_weight, B,
-      n_rows, D, k, vec_ok, units,
-      static_cast<float*>(part_v), static_cast<int32_t*>(part_i));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int warps = kThreads / 32;
-  merge_kernel<<<(unsigned)((B + warps - 1) / warps), kThreads, 0, s>>>(
-      static_cast<const float*>(part_v), static_cast<const int32_t*>(part_i), B,
-      splits, k, static_cast<float*>(out_v), static_cast<int32_t*>(out_i));
+template <typename T, int QT, bool LK>
+int resident(int k, int* per_sm) {
+  const int err = set_smem<T, QT, LK>(k);
+  if (err) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, topk_partial_kernel<T, QT, LK>, Tile<QT, LK>::kThreads,
+      smem_bytes<T, QT, LK>(k));
+}
+
+// One launch's operands (anorag_dense_topk's arguments, checked).
+struct Args {
+  const void* q;
+  const void* e;
+  const float* bias;
+  long long ldb;
+  float bias_weight;
+  int bias_vec;
+  const float* seed;
+  int B, N, D, k, vec, splits, per;
+  float* part_v;
+  int32_t* part_i;
+};
+
+template <typename T, int QT, bool LK>
+int launch(const Args& a, cudaStream_t s) {
+  const int err = set_smem<T, QT, LK>(a.k);
+  if (err) return err;
+  const int q_tiles = (a.B + QT - 1) / QT;
+  topk_partial_kernel<T, QT, LK><<<(unsigned)(q_tiles * a.splits),
+                                   Tile<QT, LK>::kThreads, smem_bytes<T, QT, LK>(a.k), s>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.e), a.bias, a.ldb,
+      a.bias_weight, a.bias_vec, a.seed, a.B, a.N, a.D, a.k, a.vec, a.per, a.part_v,
+      a.part_i);
   return (int)cudaGetLastError();
 }
 
-int check(long long B, int D, int k, int splits) {
-  if (k < 1 || k > kMaxK || splits < 1 || splits > kMaxSplits || D < 1)
-    return (int)cudaErrorInvalidValue;
-  if (B > 65535LL * kQ) return (int)cudaErrorInvalidValue;
-  return 0;
+// The kernel instance for (dtype, q_tile, k), called as fn<T, QT, LK>(args...).
+template <template <typename, int, bool> class Fn, typename... A>
+int dispatch(int dtype, int q_tile, int k, A... args) {
+  const bool lk = k > Tile<16>::kMaxK;
+  if (dtype == 1)
+    return lk ? Fn<float, 16, true>::run(args...) : Fn<float, 16, false>::run(args...);
+  if (q_tile == 128) return Fn<__nv_bfloat16, 128, false>::run(args...);
+  if (q_tile == 64) return Fn<__nv_bfloat16, 64, false>::run(args...);
+  return lk ? Fn<__nv_bfloat16, 16, true>::run(args...)
+            : Fn<__nv_bfloat16, 16, false>::run(args...);
+}
+
+template <typename T, int QT, bool LK> struct Resident {
+  static int run(int k, int* per_sm) { return resident<T, QT, LK>(k, per_sm); }
+};
+template <typename T, int QT, bool LK> struct Launch {
+  static int run(const Args* a, cudaStream_t s) { return launch<T, QT, LK>(*a, s); }
+};
+
+// The tile takes (dtype, k): bf16 at 128 queries to k 32, at 64 to k 128,
+// at 16 to k 1024; f32 only at 16.
+bool bad_tile(int dtype, int q_tile, int k) {
+  if (k < 1 || k > kMaxK) return true;
+  if (dtype == 1) return q_tile != 16;
+  if (q_tile == 128) return k > Tile<128>::kMaxK;
+  if (q_tile == 64) return k > Tile<64>::kMaxK;
+  return q_tile != 16;
 }
 
 }  // namespace
 
-// Corpus splits for B queries over `units` tiles: about four
-// blocks for each SM, at most kMaxSplits, at most one split per unit.
-extern "C" int anorag_topk_splits(long long B, long long units, int device) {
-  int sms = 132;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const long long tiles = (B + kQ - 1) / kQ;
-  long long s = (4LL * sms + tiles - 1) / tiles;
-  if (s > kMaxSplits) s = kMaxSplits;
-  if (s > units) s = units;
-  return s < 1 ? 1 : (int)s;
+// CTAs of the phase-1 kernel for dtype (0 bf16, 1 f32), q_tile and k that
+// the card holds at once: per SM times the SMs. Returns minus the CUDA error
+// code on failure.
+extern "C" int anorag_topk_slots(int dtype, int q_tile, int k, int device) {
+  if (bad_tile(dtype, q_tile, k)) return -(int)cudaErrorInvalidValue;
+  int err = (int)cudaSetDevice(device);
+  int per_sm = 0, sms = 0;
+  if (!err) {
+    err = dispatch<Resident>(dtype, q_tile, k, k, &per_sm);
+  }
+  if (!err) err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err) return -err;
+  return per_sm * sms > 0 ? per_sm * sms : 1;
 }
 
-// dtype 0 = bf16, 1 = f32. bias is (B, N) f32 or null. Returns the CUDA error
-// code (0 on success); launches on `stream` of CUDA device `device`.
+// dtype 0 = bf16, 1 = f32. q (B, D), e (N, D); bias f32 or null, row q's
+// scores at bias + q ldb (ldb >= N), bias_vec 1 when its rows can be read
+// as float2 (ldb even, 8-byte base); seed (B) f32 or null, a bar per query
+// that at least k rows reach (a score below it is never kept). The plan:
+// tiles of q_tile queries, splits of per 128-row sub-tiles covering the N
+// rows, none empty (ops/topk.py topk_work_plan). part_v / part_i (B,
+// splits, k) scratch, out (B, k). Returns the CUDA error code (0 on
+// success); launches on `stream` of CUDA device `device`.
 extern "C" int anorag_dense_topk(const void* q, const void* e, const void* bias,
-                                 float bias_weight, int dtype, long long B,
-                                 long long N, int D, int k, int vec_ok,
-                                 int splits, void* part_v, void* part_i,
-                                 void* out_v, void* out_i, int device,
-                                 void* stream) {
+                                 long long ldb, float bias_weight, int bias_vec,
+                                 const void* seed, int dtype, long long B, long long N,
+                                 int D, int k, int vec, int q_tile, int splits, int per,
+                                 void* part_v, void* part_i, void* out_v, void* out_i,
+                                 int device, void* stream) {
   if (B <= 0) return 0;
-  int err = check(B, D, k, splits);
+  const long long n_sub = (N + kRows - 1) / kRows;
+  if (bad_tile(dtype, q_tile, k) || D < 1 || N < 1 || N > 0x7fffff00LL ||
+      B > 0x7fffffffLL || splits < 1 || splits > kMaxLists || per < 1 ||
+      (long long)splits * per < n_sub || (long long)(splits - 1) * per >= n_sub ||
+      (B + q_tile - 1) / q_tile * splits > 0x7fffffffLL || (bias && ldb < N))
+    return (int)cudaErrorInvalidValue;
+  int err = (int)cudaSetDevice(device);
   if (err) return err;
-  err = (int)cudaSetDevice(device);
-  if (err) return err;
-  const long long units = (N + kRows - 1) / kRows;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* b = static_cast<const float*>(bias);
-  if (dtype == 0)
-    return launch<__nv_bfloat16>(q, e, b, bias_weight, B, N, D, k, vec_ok, units,
-                                 splits, part_v, part_i, out_v, out_i, s);
-  return launch<float>(q, e, b, bias_weight, B, N, D, k, vec_ok, units, splits,
-                       part_v, part_i, out_v, out_i, s);
+  const Args a{q, e, static_cast<const float*>(bias), ldb, bias_weight, bias_vec,
+               static_cast<const float*>(seed), (int)B, (int)N, D, k, vec, splits, per,
+               static_cast<float*>(part_v), static_cast<int32_t*>(part_i)};
+  err = dispatch<Launch>(dtype, q_tile, k, &a, s);
+  if (err) return err;
+  return merge(a.part_v, a.part_i, B, splits, k, static_cast<float*>(out_v),
+               static_cast<int32_t*>(out_i), s);
 }

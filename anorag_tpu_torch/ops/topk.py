@@ -24,6 +24,7 @@ them to XLA.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -333,6 +334,78 @@ def dense_topk_ref(emb: torch.Tensor, queries: torch.Tensor, k: int,
     return vals, torch.where(vals > NEG_INF / 2, idx, -1).int()
 
 
+TOPK_ROWS = 128             # corpus rows of a sub-tile (csrc kRows)
+MAX_SPLITS = 256            # sorted partials one merge warp takes (csrc kMaxLists)
+# query tile -> the largest k it takes (csrc Tile<QT>::kMaxK): the 128- and
+# 64-query tiles hold their queries' lists beside the ring
+TOPK_TILE_MAX_K = {128: 32, 64: 128, 16: MAX_K}
+# From this many queries a bf16 batch takes the 128- or 64-query tile; below
+# it the 16-query tile, the memory-bound route, where the larger tile would
+# be mostly padding (topk_query_tile).
+TOPK_BATCH_FROM = 48
+# The batch route's seed pass scans the first TOPK_SEED_PER_K * k rows (at
+# most a sixteenth of the corpus) for each query's k-th best score.
+TOPK_SEED_PER_K = 128
+
+
+def topk_query_tile(b: int, k: int, code: int) -> int:
+    """Queries a tile of the streaming top-k kernel for b queries at k, dtype
+    code 0 bf16 or 1 f32: 16 for f32, for k above 128 or for fewer than
+    TOPK_BATCH_FROM queries (the small-batch route); else 128 at k <= 32 and
+    64 at k <= 128. The threshold is where the routes cross in
+    chip_smoke.py's side-by-side timing (PERF.md)."""
+    if code != 0 or k > TOPK_TILE_MAX_K[64] or b < TOPK_BATCH_FROM:
+        return 16
+    return 128 if k <= TOPK_TILE_MAX_K[128] else 64
+
+
+class TopkPlan(NamedTuple):
+    """The kernel's units: q_tiles tiles of q_tile queries x splits corpus
+    ranges of `per` TOPK_ROWS-row sub-tiles (the last range may be shorter,
+    none is empty); unit u is split u // q_tiles of tile u % q_tiles, so
+    the tiles of one range run side by side."""
+    q_tile: int
+    q_tiles: int
+    splits: int
+    per: int
+
+    @property
+    def units(self) -> int:
+        return self.q_tiles * self.splits
+
+
+def topk_work_plan(b: int, n: int, q_tile: int, slots: int) -> TopkPlan:
+    """About `slots` units (the CTAs the card holds at once, one wave): the
+    corpus's sub-tiles cut into slots // q_tiles splits, at most MAX_SPLITS
+    and at most one a sub-tile, of equal whole sub-tiles."""
+    n_sub = -(-n // TOPK_ROWS)
+    q_tiles = -(-b // q_tile)
+    want = max(1, min(MAX_SPLITS, n_sub, slots // q_tiles))
+    per = -(-n_sub // want)
+    return TopkPlan(q_tile, q_tiles, -(-n_sub // per), per)
+
+
+def topk_seed_rows(n: int, k: int, q_tile: int) -> int:
+    """Rows of the seed pass before a scan with q_tile-query tiles: the
+    first TOPK_SEED_PER_K * k rows, at most n // 16, in whole sub-tiles; 0
+    (no seed pass) for the 16-query tile or where that leaves fewer than
+    max(k, TOPK_ROWS) rows. The seed pass's k-th best score of each query is
+    a bar that k rows reach, so the scan keeps nothing below it and merges
+    far fewer candidates."""
+    rows = min(TOPK_SEED_PER_K * k, n // 16) // TOPK_ROWS * TOPK_ROWS
+    return rows if q_tile > 16 and rows >= max(k, TOPK_ROWS) else 0
+
+
+def topk_unit(plan: TopkPlan, u: int, b: int, n: int):
+    """Unit u's queries [q_lo, q_hi) and rows [r_lo, r_hi), as the kernel
+    decodes blockIdx.x."""
+    split, tile = divmod(u, plan.q_tiles)
+    q_lo = tile * plan.q_tile
+    r_lo = split * plan.per * TOPK_ROWS
+    return (q_lo, min(q_lo + plan.q_tile, b), r_lo,
+            min(r_lo + plan.per * TOPK_ROWS, n))
+
+
 _topk_lib = None
 
 
@@ -345,13 +418,23 @@ def _load_topk() -> ctypes.CDLL:
 
         lib = _build.load("streaming_topk")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.anorag_topk_splits.argtypes = [ll, ll, i]
-        lib.anorag_topk_splits.restype = i
-        lib.anorag_dense_topk.argtypes = [p, p, p, ctypes.c_float, i, ll, ll, i,
-                                          i, i, i, p, p, p, p, i, p]
+        lib.anorag_topk_slots.argtypes = [i, i, i, i]
+        lib.anorag_topk_slots.restype = i
+        lib.anorag_dense_topk.argtypes = [p, p, p, ll, ctypes.c_float, i, p, i, ll,
+                                          ll, i, i, i, i, i, i, p, p, p, p, i, p]
         lib.anorag_dense_topk.restype = i
         _topk_lib = lib
     return _topk_lib
+
+
+@functools.lru_cache(maxsize=None)
+def topk_slots(code: int, q_tile: int, k: int, device_index: int) -> int:
+    """CTAs of the kernel instance (dtype code, q_tile, k) that card
+    device_index holds at once, from the CUDA occupancy calculator."""
+    n = _load_topk().anorag_topk_slots(code, q_tile, k, device_index)
+    if n <= 0:
+        raise RuntimeError(f"dense_topk occupancy query failed: CUDA error {-n}")
+    return n
 
 
 def kernel_dtype_code(t: torch.Tensor) -> int:
@@ -387,15 +470,62 @@ def vec_ok(d: int, *tensors: torch.Tensor) -> int:
                and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
+def _scan(emb: torch.Tensor, queries: torch.Tensor, k: int,
+          bias: Optional[torch.Tensor], ldb: int, bias_weight: float, q_tile: int,
+          seed: Optional[torch.Tensor]):
+    """One run of the kernel (phase 1 and the merge) over emb's rows, bias
+    rows ldb apart; returns (B, k) values and int32 rows."""
+    code = kernel_dtype_code(emb)
+    (b, d), n = queries.shape, emb.shape[0]
+    dev = emb.device
+    plan = topk_work_plan(b, n, q_tile, topk_slots(code, q_tile, k, dev.index))
+    part_v = torch.empty((b, plan.splits, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((b, plan.splits, k), dtype=torch.int32, device=dev)
+    vals = torch.empty((b, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((b, k), dtype=torch.int32, device=dev)
+    bias_vec = int(bias is not None and ldb % 2 == 0 and bias.data_ptr() % 8 == 0)
+    err = _load_topk().anorag_dense_topk(
+        queries.data_ptr(), emb.data_ptr(),
+        None if bias is None else bias.data_ptr(), ldb, float(bias_weight), bias_vec,
+        None if seed is None else seed.data_ptr(), code, b, n, d, k,
+        vec_ok(d, emb, queries), q_tile, plan.splits, plan.per, part_v.data_ptr(),
+        part_i.data_ptr(), vals.data_ptr(), idx.data_ptr(), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"dense_topk kernel launch failed: CUDA error {err}")
+    return vals, idx
+
+
+def _launch_topk(emb: torch.Tensor, queries: torch.Tensor, k: int,
+                 bias: Optional[torch.Tensor], bias_weight: float, q_tile: int,
+                 seed_rows: Optional[int] = None):
+    """dense_topk_kernel's launch on checked CUDA operands (k <= N) with
+    tiles of q_tile queries, after a seed pass over the first seed_rows rows
+    (topk_seed_rows's choice when None; 0 for none). dense_topk_kernel
+    passes topk_query_tile's tile, chip_smoke.py times both routes through
+    here. Counts one launch in dense_topk_kernel.launches."""
+    n = emb.shape[0]
+    if seed_rows is None:
+        seed_rows = topk_seed_rows(n, k, q_tile)
+    seed = None
+    if seed_rows:
+        sv, _ = _scan(emb[:seed_rows], queries, k, bias, n, bias_weight, q_tile, None)
+        seed = sv[:, k - 1].contiguous()
+    vals, idx = _scan(emb, queries, k, bias, n, bias_weight, q_tile, seed)
+    dense_topk_kernel.launches += 1
+    return vals, idx
+
+
 def dense_topk_kernel(emb: torch.Tensor, queries: torch.Tensor, k: int,
                       bias: Optional[torch.Tensor] = None,
                       bias_weight: float = 1.0):
     """Exact streaming top-k of queries @ emb.T (+ bias_weight * bias):
     (B, min(k, N)) f32 values and int32 rows, sorted by (score descending,
     lower row first). emb (N, D) bf16 or f32, queries (B, D) in emb's dtype,
-    bias (B, N) f32. CUDA tensors launch csrc/streaming_topk.cu and count
-    one launch in dense_topk_kernel.launches; CPU tensors run
-    dense_topk_ref. k above MAX_K raises ValueError."""
+    bias (B, N) f32. CUDA tensors launch csrc/streaming_topk.cu with the
+    tile topk_query_tile picks and count one launch in
+    dense_topk_kernel.launches; CPU tensors run dense_topk_ref. k above
+    MAX_K raises ValueError."""
     if emb.dim() != 2 or queries.dim() != 2 or queries.shape[1] != emb.shape[1]:
         raise ValueError(f"dense_topk_kernel: emb (N, D) and queries (B, D), "
                          f"got {tuple(emb.shape)} and {tuple(queries.shape)}")
@@ -403,7 +533,7 @@ def dense_topk_kernel(emb: torch.Tensor, queries: torch.Tensor, k: int,
     if queries.dtype != emb.dtype:
         raise TypeError(f"dense_topk_kernel: queries {queries.dtype} must be in "
                         f"the corpus dtype {emb.dtype}")
-    (b, d), n = queries.shape, emb.shape[0]
+    b, n = queries.shape[0], emb.shape[0]
     operands = [emb, queries]
     if bias is not None:
         if bias.dtype != torch.float32:
@@ -415,23 +545,8 @@ def dense_topk_kernel(emb: torch.Tensor, queries: torch.Tensor, k: int,
     k_eff = min(k, n)
     if check_kernel_operands("dense_topk_kernel", k_eff, *operands):
         return dense_topk_ref(emb, queries, k_eff, bias, bias_weight)
-    lib = _load_topk()
-    dev = emb.device
-    splits = lib.anorag_topk_splits(b, -(-n // 64), dev.index)
-    part_v = torch.empty((b, splits, k_eff), dtype=torch.float32, device=dev)
-    part_i = torch.empty((b, splits, k_eff), dtype=torch.int32, device=dev)
-    vals = torch.empty((b, k_eff), dtype=torch.float32, device=dev)
-    idx = torch.empty((b, k_eff), dtype=torch.int32, device=dev)
-    err = lib.anorag_dense_topk(
-        queries.data_ptr(), emb.data_ptr(),
-        None if bias is None else bias.data_ptr(), float(bias_weight), code,
-        b, n, d, k_eff, vec_ok(d, emb, queries), splits, part_v.data_ptr(),
-        part_i.data_ptr(), vals.data_ptr(), idx.data_ptr(), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"dense_topk kernel launch failed: CUDA error {err}")
-    dense_topk_kernel.launches += 1
-    return vals, idx
+    return _launch_topk(emb, queries, k_eff, bias, bias_weight,
+                        topk_query_tile(b, k_eff, code))
 
 
 dense_topk_kernel.launches = 0

@@ -90,15 +90,48 @@ def segment_plan(kind: str, n_docs: int, b: int, l: int
 
 
 # Odd shapes for the streaming top-k kernel: (N, D, B, k, bias). k > N pads;
-# D 72 and 100 are not multiples of 128 (100 also not of 8: the kernel's
-# scalar loads); B 17 crosses a 16-query tile; k 1024 is the kernel's limit.
+# D 72 and 100 are not multiples of 64 (100 also not of 8: the kernel's
+# scalar loads); N 129, 257, 333 and 1021 end in a part-full 128-row
+# sub-tile; B 17, 65, 129 and 513 cross a 16-, 64- or 128-query tile, B 1
+# and 64 fill none or one; k 1, 20, 32 (the 128-query tile's largest), 128
+# (the 64-query tile's), 129 and 1024 (the kernel's limit).
 TOPK_CASES = (
     (7, 64, 3, 10, False),
     (300, 64, 5, 10, True),
     (1500, 72, 5, 33, False),
     (1021, 100, 9, 128, True),
     (2000, 64, 17, 1024, False),
+    (129, 64, 1, 1, False),
+    (1000, 72, 17, 20, True),
+    (700, 100, 64, 128, False),
+    (333, 64, 65, 129, True),
+    (300, 64, 129, 32, False),
+    (257, 72, 513, 20, True),
 )
+
+# Tie-heavy corpora for the streaming top-k kernel: (N, D, B, k, bias), rows
+# from tie_rows, so whole 128-row sub-tiles tie on a query's threshold and
+# far more than k rows share the best score; bias from {0, 1}. The kernel
+# must keep the lowest rows among ties, as its plain version does.
+TOPK_TIE_CASES = (
+    (1500, 64, 70, 20, False),
+    (1300, 72, 3, 129, True),
+    (900, 64, 130, 32, True),
+)
+
+
+def tie_rows(rng: np.random.Generator, n: int, d: int, b: int, bias: bool):
+    """(rows (N, D), queries (B, D), bias (B, N) or None), f32 with small
+    integer values, so every score is an exact integer (+ 0 or 1 times the
+    bias weight): each row one of 4 patterns with entries in [-2, 2], one
+    in fifty its own; queries with entries in [-1, 1]."""
+    patterns = rng.integers(-2, 3, (4, d))
+    x = patterns[rng.integers(0, 4, n)]
+    own = rng.random(n) < 0.02
+    x[own] = rng.integers(-2, 3, (int(own.sum()), d))
+    q = rng.integers(-1, 2, (b, d))
+    bs = rng.integers(0, 2, (b, n)).astype(np.float32) if bias else None
+    return x.astype(np.float32), q.astype(np.float32), bs
 
 # Odd shapes for the IVF scan: (N, D, nlist, B, nprobe, k). k 150 over one
 # probed cluster leaves slots unfilled; B 17 crosses a 16-query tile.

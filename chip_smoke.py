@@ -18,8 +18,12 @@ Phases, each printing its seconds:
                 1e-6; the streaming top-k (512 x 200,000 x 1024 bf16 at k
                 20 and 128, with a bias, 1 query at k 30) and top-k values
                 to atol 1e-5, ids equal outside score ties (testing.
-                check_topk); the IVF scan at every case of testing.
-                ALL_IVF_CASES (skewed clusters, part-full tiles, pads and
+                check_topk), at every odd shape through both routes, on
+                the tie-heavy corpora exactly equal; its two routes (16-
+                and 128- or 64-query tiles) timed side by side at B 1 to
+                512, k 20 and 128, and the chunked dense candidates of
+                hybrid_fuse beside it at k 128; the IVF scan at every case
+                of testing.ALL_IVF_CASES (skewed clusters, part-full tiles, pads and
                 repeats in sel, a subset of the blocks, k 1024, B 1, two
                 merge levels), with the layout's cluster offsets and
                 without; the kernels' and plain versions' device times
@@ -113,6 +117,8 @@ N_NOTES, N_REQUESTS, BATCH = 200_000, 4, 512
 N_IVF, IVF_CENTRES, IVF_BATCHES, IVF_SINGLES = 5_000_000, 1000, 4, 64
 # batch sizes at which the IVF kernel's 16- and 64-query tiles are timed
 IVF_TILE_BATCHES = (1, 4, 16, 32, 64, 96, 128, 192, 256, 512)
+# batch sizes at which the streaming top-k kernel's two routes are timed
+TOPK_ROUTE_BATCHES = (1, 4, 16, 32, 48, 64, 128, 512)
 N_RETRIEVE = 32
 
 
@@ -243,10 +249,20 @@ def _check_topk_odd_shapes(dev):
     import torch
 
     from anorag_tpu_torch.ops import ivf
-    from anorag_tpu_torch.ops.topk import dense_topk_kernel, dense_topk_ref
-    from anorag_tpu_torch.testing import (ALL_IVF_CASES, TOPK_CASES, check_topk,
+    from anorag_tpu_torch.ops.topk import (TOPK_TILE_MAX_K, _launch_topk,
+                                           dense_topk_kernel, dense_topk_ref)
+    from anorag_tpu_torch.testing import (ALL_IVF_CASES, TOPK_CASES,
+                                          TOPK_TIE_CASES, check_topk,
                                           flat_scores, ivf_case, ivf_scores,
-                                          unit_rows)
+                                          tie_rows, unit_rows)
+
+    def tiles(dtype, k):
+        if dtype == torch.float32:
+            return [16]
+        return [t for t, k_max in sorted(TOPK_TILE_MAX_K.items()) if k <= k_max]
+
+    def seeds(n, k, q_tile):   # the odd shapes are too small for the rule's
+        return [0] + ([256] if q_tile > 16 and k <= 256 < n else [])
 
     dense, scan, plans = [], [], 0
     for dtype in (torch.bfloat16, torch.float32):
@@ -256,9 +272,34 @@ def _check_topk_odd_shapes(dev):
             q = torch.from_numpy(unit_rows(rng, b, d)).to(dev, dtype)
             bias = (torch.from_numpy(rng.standard_normal((b, n)).astype(np.float32))
                     .to(dev) if has_bias else None)
-            dense.append(check_topk(dense_topk_kernel(emb, q, k, bias, 0.7),
-                                    dense_topk_ref(emb, q, k, bias, 0.7),
-                                    flat_scores(emb, q, bias, 0.7)))
+            want = dense_topk_ref(emb, q, k, bias, 0.7)
+            score_of = flat_scores(emb, q, bias, 0.7)
+            dense.append(check_topk(dense_topk_kernel(emb, q, k, bias, 0.7), want,
+                                    score_of))
+            # both routes, whichever topk_query_tile picks for the case, the
+            # batch route with and without a seed pass
+            for q_tile in tiles(dtype, min(k, n)):
+                for seed_rows in seeds(n, min(k, n), q_tile):
+                    dense.append(check_topk(
+                        _launch_topk(emb, q, min(k, n), bias, 0.7, q_tile, seed_rows),
+                        want, score_of))
+        # tie-heavy corpora: integer scores, so rows and values exactly equal
+        for n, d, b, k, has_bias in TOPK_TIE_CASES:
+            x, qn, bs = tie_rows(np.random.default_rng(n), n, d, b, has_bias)
+            emb = torch.from_numpy(x).to(dev, dtype)
+            q = torch.from_numpy(qn).to(dev, dtype)
+            bias = None if bs is None else torch.from_numpy(bs).to(dev)
+            want = dense_topk_ref(emb, q, k, bias, 0.7)
+            for q_tile in tiles(dtype, k):
+                for seed_rows in seeds(n, k, q_tile):
+                    got = _launch_topk(emb, q, k, bias, 0.7, q_tile, seed_rows)
+                    if not (torch.equal(got[0], want[0])
+                            and torch.equal(got[1], want[1])):
+                        raise AssertionError(
+                            f"dense_topk on the tie case {(n, d, b, k)} at tile "
+                            f"{q_tile}, seed rows {seed_rows}, differs from the "
+                            f"plain version")
+                    dense.append(0.0)
         for case in ALL_IVF_CASES:
             q, layout, rows, sel, blk, n_scan, k = ivf_case(*case)
             e, qd, seld = rows.to(dev, dtype), q.to(dev, dtype), sel.to(dev)
@@ -295,6 +336,10 @@ def _dense_real_shapes(dev, emb, queries, seed: int, smi_line: str):
     from anorag_tpu_torch.ops.topk import dense_topk_kernel, dense_topk_ref
     from anorag_tpu_torch.testing import check_topk, flat_scores
 
+    from anorag_tpu_torch.ops.topk import (SCAN_CHUNK, TOPK_TILE_MAX_K,
+                                           _dense_candidates, _launch_topk,
+                                           topk_query_tile)
+
     b, n, d = queries.shape[0], emb.shape[0], emb.shape[1]
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     bias = torch.randn((b, n), generator=gen, device=dev)
@@ -330,6 +375,38 @@ def _dense_real_shapes(dev, emb, queries, seed: int, smi_line: str):
             main = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                         bound_by=bound_by, library_ms=lib_ms)
     del bias
+
+    # Both routes side by side, so the crossing topk_query_tile uses is
+    # measured: the 16-query tile against the 128-query tile (k 20) or the
+    # 64-query tile (k 128), each checked against the plain version.
+    for k in (20, 128):
+        big = max(t for t, k_max in TOPK_TILE_MAX_K.items() if k <= k_max)
+        for bq in TOPK_ROUTE_BATCHES:
+            q = queries[:bq].contiguous()
+            want = dense_topk_ref(emb, q, k)
+            times = {}
+            for q_tile in (16, big):
+                errs.append(check_topk(_launch_topk(emb, q, k, None, 1.0, q_tile),
+                                       want, flat_scores(emb, q)))
+                times[q_tile], _ = _time_ms(
+                    lambda: _launch_topk(emb, q, k, None, 1.0, q_tile), n=3, reps=5)
+            print(f"dense_topk route B {bq} k {k}: 16-query tile {times[16]:.4f} ms, "
+                  f"{big}-query tile {times[big]:.4f} ms; topk_query_tile picks "
+                  f"{topk_query_tile(bq, k, 0)} | {smi_line}", flush=True)
+
+    # The chunked route hybrid_fuse runs for its dense candidates, beside
+    # the kernel at the same shape (the bench's hybrid: k 128).
+    k = 128
+    errs.append(check_topk(dense_topk_kernel(emb, queries, k),
+                           _dense_candidates(emb, queries, k, SCAN_CHUNK),
+                           flat_scores(emb, queries)))
+    cand_ms, _ = _time_ms(lambda: _dense_candidates(emb, queries, k, SCAN_CHUNK),
+                          n=3, reps=5)
+    kern_ms, _ = _time_ms(lambda: dense_topk_kernel(emb, queries, k), n=3, reps=5)
+    print(f"hybrid dense candidates {b} x {n} x {d} k {k}: _dense_candidates "
+          f"(f32 torch.matmul per {SCAN_CHUNK}-row chunk + exact merge) "
+          f"{cand_ms:.4f} ms, dense_topk_kernel {kern_ms:.4f} ms | {smi_line}",
+          flush=True)
     return errs, main
 
 
@@ -1216,6 +1293,14 @@ def run(dev, seed: int = 0):
     }, {
         "name": "dense_topk", "route": "cuda",
         "source": "anorag_tpu_torch/csrc/streaming_topk.cu",
+        "design": "mma.sync from ldmatrix behind a cp.async ring, 128-row "
+                  "sub-tiles; from 48 queries 128-query tiles at k <= 32 and "
+                  "64 at k <= 128 (16 warps, 3 stages) after a seed pass over "
+                  "128 k rows, else 16-query tiles (8 warps, 6 stages to k "
+                  "512, 4 above); one CTA an SM; the selection on the "
+                  "accumulators, survivors to candidate buffers merged by a "
+                  "bitonic sort and merge path; units of one wave, the query "
+                  "tiles of a corpus range side by side",
         "replaces": "anorag_tpu/ops/topk.py:40",
         "launches": dense_launches, "max_abs_err": max(dense_errs), **dense_main,
     }, {

@@ -14,11 +14,11 @@ import torch
 
 from anorag_tpu_torch.ops import bm25, ivf, topk
 from anorag_tpu_torch.testing import (ALL_IVF_CASES, BUCKET_CASES,
-                                      SEGMENT_CASES, TOPK_CASES, WINDOW_CASES,
-                                      check_bucket_winners, check_topk,
-                                      clustered_corpus, flat_scores, ivf_case,
-                                      ivf_scores, segment_plan, sorted_plan,
-                                      unit_rows)
+                                      SEGMENT_CASES, TOPK_CASES, TOPK_TIE_CASES,
+                                      WINDOW_CASES, check_bucket_winners,
+                                      check_topk, clustered_corpus, flat_scores,
+                                      ivf_case, ivf_scores, segment_plan,
+                                      sorted_plan, tie_rows, unit_rows)
 
 DTYPES = [torch.bfloat16, torch.float32]
 
@@ -119,6 +119,13 @@ def test_segment_routes_on_the_card_launch_the_kernels(cuda_device):
         assert torch.equal(x.cpu(), y)
 
 
+def _topk_tiles(dtype, k):
+    """The query tiles the kernel takes at (dtype, k)."""
+    if dtype == torch.float32:
+        return [16]
+    return [t for t, k_max in sorted(topk.TOPK_TILE_MAX_K.items()) if k <= k_max]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_dense_topk_kernel_matches_ref(cuda_device, dtype):
@@ -135,6 +142,51 @@ def test_dense_topk_kernel_matches_ref(cuda_device, dtype):
         torch.cuda.synchronize()
         assert got[0].shape == (b, min(k, n))
         check_topk(got, want, flat_scores(emb, q, bias, 0.7))
+
+
+def _seed_rows(n, k, q_tile):
+    """No seed pass, and one over the first 256 rows where the tile takes
+    one and they hold k (the odd shapes are too small for the rule's)."""
+    return [0] + ([256] if q_tile > 16 and k <= 256 < n else [])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_dense_topk_kernel_matches_ref_at_every_tile(cuda_device, dtype):
+    """Both routes (the 16-query tile and the 128- or 64-query tile, where
+    k allows), with and without a seed pass, at every odd shape."""
+    for n, d, b, k, has_bias in TOPK_CASES:
+        rng = np.random.default_rng(n)
+        emb = torch.from_numpy(unit_rows(rng, n, d)).to(cuda_device, dtype)
+        q = torch.from_numpy(unit_rows(rng, b, d)).to(cuda_device, dtype)
+        bias = (torch.from_numpy(rng.standard_normal((b, n)).astype(np.float32))
+                .to(cuda_device) if has_bias else None)
+        k_eff = min(k, n)
+        want = topk.dense_topk_ref(emb, q, k_eff, bias=bias, bias_weight=0.7)
+        for q_tile in _topk_tiles(dtype, k_eff):
+            for seed_rows in _seed_rows(n, k_eff, q_tile):
+                got = topk._launch_topk(emb, q, k_eff, bias, 0.7, q_tile, seed_rows)
+                torch.cuda.synchronize()
+                check_topk(got, want, flat_scores(emb, q, bias, 0.7))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_dense_topk_kernel_keeps_the_lowest_rows_among_ties(cuda_device, dtype):
+    """Tie-heavy corpora: integer scores, exact in any summation order, so
+    values and rows equal the plain version's exactly at every tile."""
+    for n, d, b, k, has_bias in TOPK_TIE_CASES:
+        x, qn, bs = tie_rows(np.random.default_rng(n), n, d, b, has_bias)
+        emb = torch.from_numpy(x).to(cuda_device, dtype)
+        q = torch.from_numpy(qn).to(cuda_device, dtype)
+        bias = None if bs is None else torch.from_numpy(bs).to(cuda_device)
+        want = topk.dense_topk_ref(emb, q, k, bias=bias, bias_weight=0.7)
+        for q_tile in _topk_tiles(dtype, k):
+            for seed_rows in _seed_rows(n, k, q_tile):
+                got = topk._launch_topk(emb, q, k, bias, 0.7, q_tile, seed_rows)
+                torch.cuda.synchronize()
+                assert torch.equal(got[1], want[1]), (n, b, k, q_tile, seed_rows)
+                assert torch.equal(got[0], want[0]), (n, b, k, q_tile, seed_rows)
 
 
 @pytest.mark.cuda

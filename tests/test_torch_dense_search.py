@@ -17,7 +17,7 @@ from anorag_tpu.ops.topk import dense_topk as j_dense_topk
 from anorag_tpu.ops.topk import dense_topk_np as j_dense_topk_np
 from anorag_tpu.ops.topk import dense_topk_xla as j_dense_topk_xla
 from anorag_tpu_torch.ops import topk
-from anorag_tpu_torch.testing import TOPK_CASES, unit_rows
+from anorag_tpu_torch.testing import TOPK_CASES, TOPK_TIE_CASES, tie_rows, unit_rows
 
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -55,6 +55,26 @@ def test_kernel_route_matches_pallas_interpret(case, dtype):
                           bias_weight=0.7)
     _same(got, want)
     assert got[0].shape == (b, k)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", TOPK_TIE_CASES, ids=lambda c: "n{}-d{}-b{}-k{}-bias{}".format(*c))
+def test_kernel_route_keeps_the_reference_rows_among_ties(case, dtype):
+    """On the tie-heavy corpora (integer scores, whole sub-tiles tied) the
+    kernel route on the CPU (dense_topk_ref) returns exactly the reference's
+    exact route: lax.top_k's lower row first, which the kernel keeps too
+    (the Pallas kernel's slot history is not the rule; see
+    test_tie_rule_is_lower_row_first)."""
+    n, d, b, k, has_bias = case
+    emb, q, bias = tie_rows(np.random.default_rng(n), n, d, b, has_bias)
+    jdt, tdt = DTYPES[dtype]
+    want = j_dense_topk(jnp.asarray(emb, jdt), q, k, method="exact", bias=bias,
+                        bias_weight=0.7)
+    got = topk.dense_topk(torch.from_numpy(emb).to(tdt), torch.from_numpy(q), k,
+                          method="kernel",
+                          bias=None if bias is None else torch.from_numpy(bias),
+                          bias_weight=0.7)
+    _same(got, want, atol=0)
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
