@@ -15,49 +15,58 @@
 // the units about the CTAs the card holds at once, one wave; the unit index
 // runs over the query tiles first, so the tiles of one range run side by
 // side and share it in L2 (the corpus leaves device memory about once).
-//   Queries and rows stream through a cp.async ring in slices of 128 bytes
-//   of D: 3 stages at QT 128 and 64 (16 warps, warp tiles of 32 x 32 or
-//   16 x 32), 6 at QT 16 with k <= 512 and 4 above (8 warps, 16 x 16); one
-//   CTA an SM. Query rows past B are zeroed once and never copied. bf16
-//   slices go to the tensor cores: mma.sync m16n8k16 from ldmatrix, f32
-//   accumulators; f32 slices are summed by FMAs in the same layout.
+//   From 48 queries at k <= 32 (topk_query_tile) bf16 batches with 16-byte
+//   rows take the wgmma route (topk_wgmma_kernel): 128-query tiles, one
+//   producer thread keeping a 4-stage ring of TMA loads (128-byte swizzled
+//   slices of 64 columns of the tile's queries and of a sub-tile's rows)
+//   in flight behind mbarriers, and two consumer warpgroups of 64 queries
+//   running wgmma m64n128k16 on them; each warp then holds all 128 rows of
+//   its 16 queries, so it selects and merges without any CTA barrier.
+//   Everything else takes topk_partial_kernel: 64-query tiles from 64
+//   queries at k <= 128 (16 warps, warp tiles 16 x 32, a 3-stage cp.async
+//   ring), 16-query tiles for smaller batches and for k to 1024 (8 warps,
+//   16 x 16; 6 ring stages to k 512, 4 above), 128-query tiles without
+//   16-byte rows; mma.sync m16n8k16
+//   from ldmatrix (bf16) or FMAs (f32); query rows past B zeroed once, never
+//   copied. One CTA an SM throughout.
 //   After a sub-tile's last slice the selection runs on the accumulators in
 //   registers (the bias added from float2 loads in the fragment's layout,
-//   prefetched to L2 a sub-tile ahead): each thread tests its scores
-//   against its queries' bars, the tails of their running lists, held in
-//   registers; survivors take slots of their query's candidate buffer in
-//   shared memory (64 entries, 128 at QT 64), one shared-memory atomic for
-//   the 4 lanes of a query; a warp with no survivor skips that. Scores never
-//   pass through shared memory. While some survivor finds its buffer full,
-//   every buffer at least half full is merged into its query's sorted list
-//   (shared memory, k entries) by one warp: the candidates sorted in
-//   registers (a bitonic network), then each output entry found by a binary
-//   search along its diagonal (merge path) -- exact under ties (distinct
-//   rows, the full rank rule); the waiting survivors are then tested again
-//   against the new tails, so a burst of ties, or more survivors than slots,
-//   drops nothing. The buffers are merged once more at the end of the unit
-//   and each list goes to partial slot (query, split).
+//   prefetched to L2 a sub-tile ahead): a thread tests its scores against
+//   its queries' bars, the tails of their running lists (on the wgmma route
+//   only where a query's largest score reaches its bar); survivors take
+//   slots of their query's candidate buffer in shared memory, one count
+//   update for a query's 4 lanes; a warp with no survivor skips that.
+//   Scores never pass through shared memory. While some survivor finds its
+//   buffer full, every buffer at least half full is merged into its query's
+//   sorted list (shared memory, k entries) by one warp: the candidates sorted
+//   in registers (a bitonic network), then each output entry found by a
+//   binary search along its diagonal (merge path) -- exact under ties
+//   (distinct rows, the full rank rule); the waiting survivors are then
+//   tested again against the new tails, so a burst of ties, or more
+//   survivors than slots, drops nothing. In topk_partial_kernel a query's
+//   scores are spread over 4 warps, so rounds of merges meet at a CTA
+//   barrier. The buffers are merged once more at the end of the unit and
+//   each list goes to partial slot (query, split).
 //   The batch route (QT 128 and 64) first runs the same kernel over a prefix
-//   of the corpus (topk_seed_rows: 128 k rows, at most N / 16); each
+//   of the corpus (topk_seed_rows: 512 k rows, at most N / 16); each
 //   query's k-th best score there is its first bar, reached by k rows, so
 //   the scan keeps nothing below it and merges far fewer candidates.
 //   Phase 2 (common.cuh's merge_kernel): one warp per query merges its
 //   sorted partials by the same rule.
-// QT 128 takes k <= 32 (its lists fit beside the ring), QT 64 k <= 128,
-// QT 16 any k to 1024; the wrapper picks the tile (topk_query_tile): 16
-// below 48 queries, the memory-bound route where a larger tile would be
-// padding, from the crossing measured on the card (PERF.md).
 //
 // Bound: 2 * B * N * D operations on bf16 inputs and the corpus read once
 // (512 x 200,000 x 1024: 209.7 GFLOP, 409.6 MB): the tensor cores' 989
 // TFLOP/s bound it at large batch (0.2120 ms), the 3.35 TB/s of device
-// memory at one query (0.1223 ms). This design moves the corpus and the
+// memory at one query (0.1223 ms). Both routes move the corpus and the
 // query slices from L2 once per query tile and sub-tile (at B 512, QT 128:
-// 4 x 409.6 MB + 1,563 x 4 x 256 KB = 3.28 GB, which alone took 0.69 ms on
-// an H100 80GB HBM3 at 700 W) and runs mma.sync; the stop at each
-// sub-tile's selection costs about a quarter of its time (PERF.md). TMA
-// multicast across a cluster (fewer L2 bytes) and wgmma are the next steps
-// (ROADMAP).
+// 3.28 GB): on an H100 80GB HBM3 at 700 W the TMA ring moves that in about
+// 0.36 ms and the wgmma products with it take about 0.5 ms, against 0.74 and
+// 1.05 ms for cp.async and mma.sync; the selection's stops at the 48
+// sub-tile ends cost as much again (PERF.md). Multicast of the corpus slice
+// across a cluster of query tiles and selection overlapped with the next
+// sub-tile's products are the next steps (ROADMAP).
+#include <cuda.h>
+
 #include "common.cuh"
 
 namespace {
@@ -638,6 +647,386 @@ template <typename T, int QT, bool LK> struct Launch {
   static int run(const Args* a, cudaStream_t s) { return launch<T, QT, LK>(*a, s); }
 };
 
+// ------------------------------------------------- the wgmma route (bf16)
+// 128-query tiles at k <= 32 with 16-byte rows: a producer thread keeps a
+// ring of TMA loads (128-byte swizzled slices of the tile's queries and of
+// a 128-row sub-tile) in flight behind mbarriers; two consumer warpgroups,
+// 64 queries each, run wgmma m64n128k16 on them, so each warp holds all 128
+// rows of its 16 queries and selects on its accumulators without a CTA
+// barrier (the warp merges its own queries' buffers).
+constexpr int kWgStages = 4;
+constexpr int kWgCand = 32;                    // candidate slots a query
+constexpr int kWgSlice = 64;                   // columns of D a stage
+constexpr int kWgRowBytes = kWgSlice * 2;      // a slice's row: 128 bytes
+constexpr int kWgThreads = 384;                // 2 consumer warpgroups + producer
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Wait for the completion of the barrier's phase of this parity; a wait
+// far past any launch's length traps, so a lost arrival fails the launch
+// instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t a = smem_u32(bar);
+  for (long long spin = 0;; ++spin) {
+    uint32_t done;
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; "
+        "selp.u32 %0, 1, 0, p; }"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    if (done) return;
+    if (spin > (1LL << 26)) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];"
+      ::"r"(smem_u32(dst)), "l"(map), "r"(smem_u32(bar)), "r"(col), "r"(row) : "memory");
+}
+
+// wgmma's shared-memory descriptor of a K-major tile of 128-byte rows in
+// TMA's 128-byte swizzle: 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  return ((uint64_t)(smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence_regs(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A (64 x 16, rows of a) . B^T (128 x 16, rows of b); scale_d 0
+// overwrites d.
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t a, uint64_t b,
+                                              int scale_d) {
+  asm volatile(
+      "{ .reg .pred p; setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0; }"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+size_t wg_smem_bytes(int k) {
+  return 1024 + (size_t)kWgStages * 2 * kRows * kWgRowBytes + (size_t)128 * k * sizeof(Entry) +
+         (size_t)128 * kWgCand * sizeof(Entry) + (size_t)128 * (8 + sizeof(Entry)) +
+         (size_t)kWgStages * 2 * 8;
+}
+
+// Phase 1 on the wgmma route: unit blockIdx.x as topk_partial_kernel's.
+__global__ void __launch_bounds__(kWgThreads, 1)
+topk_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                  const __grid_constant__ CUtensorMap emap,
+                  const float* __restrict__ bias, int64_t ldb, float bias_weight,
+                  int bias_vec, const float* __restrict__ seed, int B, int N, int D,
+                  int k, int per, float* __restrict__ part_v,
+                  int32_t* __restrict__ part_i) {
+  constexpr int QT = 128;
+  const int q_tiles = (B + QT - 1) / QT;
+  const int splits = gridDim.x / q_tiles;
+  const int split = blockIdx.x / q_tiles;
+  const int q0 = (blockIdx.x % q_tiles) * QT;
+  const int nq = B - q0 < QT ? B - q0 : QT;
+  const int n_sub = (N + kRows - 1) / kRows;
+  const int sub_lo = split * per;
+  const int sub_hi = sub_lo + per < n_sub ? sub_lo + per : n_sub;
+  const int n_chunks = (D + kWgSlice - 1) / kWgSlice;
+  const int steps = sub_lo < sub_hi ? (sub_hi - sub_lo) * n_chunks : 0;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  constexpr int kTileBytes = kRows * kWgRowBytes;   // a stage's slice of either
+  unsigned char* qs = base;                                  // stages x 128 queries
+  unsigned char* es = base + kWgStages * kTileBytes;         // stages x 128 rows
+  Lists L;
+  L.list = reinterpret_cast<Entry*>(es + kWgStages * kTileBytes);
+  L.cand = L.list + (size_t)QT * k;
+  L.tail = L.cand + QT * kWgCand;
+  L.cnt = reinterpret_cast<int*>(L.tail + QT);
+  L.fill = L.cnt + QT;
+  uint64_t* full = reinterpret_cast<uint64_t*>(L.fill + QT);
+  uint64_t* empty = full + kWgStages;
+
+  auto first_tail = [&](int s) {
+    return seed != nullptr && s < nq ? Entry{seed[q0 + s], 0x7fffffff}
+                                     : Entry{kNegInf, -1};
+  };
+  for (int s = threadIdx.x; s < QT; s += kWgThreads) {
+    L.cnt[s] = 0;
+    L.fill[s] = 0;
+    L.tail[s] = first_tail(s);
+  }
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kWgStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {                                  // the producer warpgroup
+    if (threadIdx.x != 256) return;
+    for (int t = 0; t < steps; ++t) {
+      const int st = t % kWgStages;
+      if (t >= kWgStages) mbar_wait(&empty[st], ((t / kWgStages) & 1) ^ 1);
+      const int sub = sub_lo + t / n_chunks, c0 = (t % n_chunks) * kWgSlice;
+      if (c0 == 0 && bias != nullptr) {          // the sub-tile's bias to L2
+        const int r0 = sub * kRows;
+        const int bytes = (N - r0 < kRows ? N - r0 : kRows) * 4;
+        for (int x = 0; x < nq; ++x) {
+          const float* p = bias + (int64_t)(q0 + x) * ldb + r0;
+          if ((reinterpret_cast<uintptr_t>(p) & 15) == 0 && bytes >= 16)
+            asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(p),
+                         "r"(bytes & ~15));
+        }
+      }
+      mbar_expect_tx(&full[st], 2 * kTileBytes);
+      tma_load(qs + st * kTileBytes, &qmap, &full[st], c0, q0);
+      tma_load(es + st * kTileBytes, &emap, &full[st], c0, sub * kRows);
+    }
+    return;
+  }
+
+  // a consumer warp: queries qw + g and qw + g + 8 of the tile, all 128 rows
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int qw = 16 * warp;                       // the warp's first query slot
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  Entry tl[2] = {first_tail(qw + g), first_tail(qw + g + 8)};
+  for (int t = 0; t < steps; ++t) {
+    const int st = t % kWgStages, chunk = t % n_chunks;
+    mbar_wait(&full[st], (t / kWgStages) & 1);
+    wgmma_fence_regs(acc);
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+    const uint64_t da = sw128_desc(qs + st * kTileBytes + wg * 64 * kWgRowBytes);
+    const uint64_t db = sw128_desc(es + st * kTileBytes);
+#pragma unroll
+    for (int kk = 0; kk < kWgSlice / 16; ++kk)     // 32 bytes of K a step
+      wgmma_m64n128(acc, da + 2 * kk, db + 2 * kk, chunk != 0 || kk != 0);
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    // one slice's products in flight behind this one: the slice before is
+    // done, and its stage goes back to the producer
+    const bool leader = (threadIdx.x & 127) == 0;
+    if (chunk + 1 < n_chunks) {
+      asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+      if (leader && chunk > 0) mbar_arrive(&empty[(t - 1) % kWgStages]);
+      continue;
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    wgmma_fence_regs(acc);
+    if (leader) {
+      if (chunk > 0) mbar_arrive(&empty[(t - 1) % kWgStages]);
+      mbar_arrive(&empty[st]);
+    }
+
+    // The sub-tile is complete: select on the accumulators, as
+    // topk_partial_kernel does, but within the warp. A thread tests its
+    // scores one by one only where the largest of a query's 32 reaches
+    // the bar: after the first sub-tiles, rarely.
+    const int row0 = (sub_lo + t / n_chunks) * kRows;
+    const bool whole = row0 + kRows <= N && nq == QT;
+    if (bias != nullptr) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int rb = row0 + 8 * j + 2 * t4;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int slot = qw + g + 8 * h;
+          if (slot >= nq) continue;
+          const float* bp = bias + (int64_t)(q0 + slot) * ldb + rb;
+          float b0 = 0.0f, b1 = 0.0f;
+          if (bias_vec && rb + 1 < N) {
+            const float2 v = *reinterpret_cast<const float2*>(bp);
+            b0 = v.x;
+            b1 = v.y;
+          } else {
+            if (rb < N) b0 = bp[0];
+            if (rb + 1 < N) b1 = bp[1];
+          }
+          acc[4 * j + 2 * h] = __fadd_rn(acc[4 * j + 2 * h], __fmul_rn(bias_weight, b0));
+          acc[4 * j + 2 * h + 1] =
+              __fadd_rn(acc[4 * j + 2 * h + 1], __fmul_rn(bias_weight, b1));
+        }
+      }
+    }
+    uint64_t pend = 0;                            // bit 4 j + 2 h + c
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float top = acc[2 * h];
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        top = fmaxf(top, fmaxf(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]));
+      if (top < tl[h].v) continue;
+      const int slot = qw + g + 8 * h;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          if (acc[4 * j + 2 * h + c] >= tl[h].v &&
+              (whole || (slot < nq && row0 + 8 * j + 2 * t4 + c < N)))
+            pend |= 1ull << (4 * j + 2 * h + c);
+    }
+    if (pend) {                                   // ties with the bar: the full rule
+#pragma unroll
+      for (int i = 0; i < 64; ++i)
+        if ((pend >> i & 1) &&
+            !beats(acc[i], row0 + 8 * (i >> 2) + 2 * t4 + (i & 1), tl[(i >> 1) & 1].v,
+                   tl[(i >> 1) & 1].i))
+          pend &= ~(1ull << i);
+    }
+    // Survivors to their query's buffer (the query's 4 lanes share one
+    // count, written by one of them); while one waits, the warp merges its
+    // buffers at least half full and tests the waiting ones again.
+    while (__any_sync(kFull, pend != 0)) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint64_t mask = 0x3333333333333333ull << (2 * h);
+        if (!__any_sync(kFull, (pend & mask) != 0)) continue;
+        const int mine = __popcll(pend & mask);
+        int upto = mine;
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          const int y = __shfl_up_sync(kFull, upto, off, 4);
+          if (t4 >= off) upto += y;
+        }
+        const int total = __shfl_sync(kFull, upto, 3, 4);
+        const int slot = qw + g + 8 * h;
+        const int taken = L.cnt[slot];
+        int pos = taken + upto - mine;
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          if (!((mask & pend) >> i & 1)) continue;
+          if (pos < kWgCand) {
+            L.cand[slot * kWgCand + pos] = Entry{acc[i], row0 + 8 * (i >> 2) + 2 * t4 + (i & 1)};
+            pend &= ~(1ull << i);
+          }
+          ++pos;
+        }
+        __syncwarp();
+        if (t4 == 0) L.cnt[slot] = taken + total;
+        __syncwarp();
+      }
+      if (!__any_sync(kFull, pend != 0)) break;
+      for (int s = qw; s < qw + 16; ++s)
+        if (L.cnt[s] >= kWgCand / 2) merge_slot<kWgCand>(L, s, k);
+      tl[0] = L.tail[qw + g];
+      tl[1] = L.tail[qw + g + 8];
+#pragma unroll
+      for (int i = 0; i < 64; ++i)
+        if ((pend >> i & 1) &&
+            !beats(acc[i], row0 + 8 * (i >> 2) + 2 * t4 + (i & 1), tl[(i >> 1) & 1].v,
+                   tl[(i >> 1) & 1].i))
+          pend &= ~(1ull << i);
+    }
+  }
+  // the warp's queries: last merge and write-out
+  for (int s = qw; s < qw + 16 && s < nq; ++s) {
+    if (L.cnt[s] > 0) merge_slot<kWgCand>(L, s, k);
+    const int64_t out = ((int64_t)(q0 + s) * splits + split) * k;
+    const int nf = L.fill[s];
+    const Entry* list = L.list + (size_t)s * k;
+    for (int i = lane; i < k; i += 32) {
+      const Entry x = i < nf ? list[i] : Entry{kNegInf, -1};
+      part_v[out + i] = x.v;
+      part_i[out + i] = x.i;
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// A tensor map of `rows` bf16 rows of D (16-byte stride), boxes of 64
+// columns x box_rows rows, 128-byte swizzle, zeros outside.
+int make_map(CUtensorMap* map, const void* base, long long rows, int D, int box_rows) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return (int)cudaErrorNotSupported;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)D * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)kWgSlice, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+                 CUDA_SUCCESS
+             ? 0
+             : (int)cudaErrorInvalidValue;
+}
+
+int wgmma_set_smem(int k) {
+  return (int)cudaFuncSetAttribute(topk_wgmma_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)wg_smem_bytes(k));
+}
+
+// The wgmma route takes bf16 128-query tiles (so k <= 32) with 16-byte
+// rows; 64-query tiles stay on topk_partial_kernel, where 16 warps share
+// the merges of k up to 128 (measured faster: PERF.md).
+bool wgmma_route(int dtype, int q_tile, int vec) {
+  return dtype == 0 && q_tile == 128 && vec;
+}
+
+int launch_wgmma(const Args& a, cudaStream_t s) {
+  CUtensorMap qmap, emap;
+  int err = make_map(&qmap, a.q, a.B, a.D, 128);
+  if (!err) err = make_map(&emap, a.e, a.N, a.D, kRows);
+  if (!err) err = wgmma_set_smem(a.k);
+  if (err) return err;
+  const int q_tiles = (a.B + 127) / 128;
+  topk_wgmma_kernel<<<(unsigned)(q_tiles * a.splits), kWgThreads, wg_smem_bytes(a.k), s>>>(
+      qmap, emap, a.bias, a.ldb, a.bias_weight, a.bias_vec, a.seed, a.B, a.N, a.D, a.k,
+      a.per, a.part_v, a.part_i);
+  return (int)cudaGetLastError();
+}
+
 // The tile takes (dtype, k): bf16 at 128 queries to k 32, at 64 to k 128,
 // at 16 to k 1024; f32 only at 16.
 bool bad_tile(int dtype, int q_tile, int k) {
@@ -650,14 +1039,19 @@ bool bad_tile(int dtype, int q_tile, int k) {
 
 }  // namespace
 
-// CTAs of the phase-1 kernel for dtype (0 bf16, 1 f32), q_tile and k that
-// the card holds at once: per SM times the SMs. Returns minus the CUDA error
-// code on failure.
-extern "C" int anorag_topk_slots(int dtype, int q_tile, int k, int device) {
+// CTAs of the phase-1 kernel for dtype (0 bf16, 1 f32), q_tile, k and vec
+// (anorag_dense_topk's) that the card holds at once: per SM times the SMs.
+// Returns minus the CUDA error code on failure.
+extern "C" int anorag_topk_slots(int dtype, int q_tile, int k, int vec, int device) {
   if (bad_tile(dtype, q_tile, k)) return -(int)cudaErrorInvalidValue;
   int err = (int)cudaSetDevice(device);
   int per_sm = 0, sms = 0;
-  if (!err) {
+  if (!err && wgmma_route(dtype, q_tile, vec)) {
+    err = wgmma_set_smem(k);
+    if (!err)
+      err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, topk_wgmma_kernel, kWgThreads, wg_smem_bytes(k));
+  } else if (!err) {
     err = dispatch<Resident>(dtype, q_tile, k, k, &per_sm);
   }
   if (!err) err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
@@ -692,7 +1086,8 @@ extern "C" int anorag_dense_topk(const void* q, const void* e, const void* bias,
   const Args a{q, e, static_cast<const float*>(bias), ldb, bias_weight, bias_vec,
                static_cast<const float*>(seed), (int)B, (int)N, D, k, vec, splits, per,
                static_cast<float*>(part_v), static_cast<int32_t*>(part_i)};
-  err = dispatch<Launch>(dtype, q_tile, k, &a, s);
+  err = wgmma_route(dtype, q_tile, vec) ? launch_wgmma(a, s)
+                                        : dispatch<Launch>(dtype, q_tile, k, &a, s);
   if (err) return err;
   return merge(a.part_v, a.part_i, B, splits, k, static_cast<float*>(out_v),
                static_cast<int32_t*>(out_i), s);

@@ -339,24 +339,25 @@ MAX_SPLITS = 256            # sorted partials one merge warp takes (csrc kMaxLis
 # query tile -> the largest k it takes (csrc Tile<QT>::kMaxK): the 128- and
 # 64-query tiles hold their queries' lists beside the ring
 TOPK_TILE_MAX_K = {128: 32, 64: 128, 16: MAX_K}
-# From this many queries a bf16 batch takes the 128- or 64-query tile; below
-# it the 16-query tile, the memory-bound route, where the larger tile would
-# be mostly padding (topk_query_tile).
-TOPK_BATCH_FROM = 48
+# From this many queries a bf16 batch takes the 128-query tile (k <= 32) or
+# the 64-query tile (k <= 128); below, the 16-query tile, the memory-bound
+# route, where the larger tile would be mostly padding (topk_query_tile).
+TOPK_BATCH_FROM = {128: 48, 64: 64}
 # The batch route's seed pass scans the first TOPK_SEED_PER_K * k rows (at
 # most a sixteenth of the corpus) for each query's k-th best score.
-TOPK_SEED_PER_K = 128
+TOPK_SEED_PER_K = 512
 
 
 def topk_query_tile(b: int, k: int, code: int) -> int:
     """Queries a tile of the streaming top-k kernel for b queries at k, dtype
-    code 0 bf16 or 1 f32: 16 for f32, for k above 128 or for fewer than
-    TOPK_BATCH_FROM queries (the small-batch route); else 128 at k <= 32 and
-    64 at k <= 128. The threshold is where the routes cross in
-    chip_smoke.py's side-by-side timing (PERF.md)."""
-    if code != 0 or k > TOPK_TILE_MAX_K[64] or b < TOPK_BATCH_FROM:
+    code 0 bf16 or 1 f32: 128 at k <= 32 and 64 at k <= 128 from
+    TOPK_BATCH_FROM's count of queries; else 16 (f32, k above 128, a small
+    batch). The thresholds are where the routes cross in chip_smoke.py's
+    side-by-side timing (PERF.md)."""
+    if code != 0 or k > TOPK_TILE_MAX_K[64]:
         return 16
-    return 128 if k <= TOPK_TILE_MAX_K[128] else 64
+    big = 128 if k <= TOPK_TILE_MAX_K[128] else 64
+    return big if b >= TOPK_BATCH_FROM[big] else 16
 
 
 class TopkPlan(NamedTuple):
@@ -418,7 +419,7 @@ def _load_topk() -> ctypes.CDLL:
 
         lib = _build.load("streaming_topk")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.anorag_topk_slots.argtypes = [i, i, i, i]
+        lib.anorag_topk_slots.argtypes = [i, i, i, i, i]
         lib.anorag_topk_slots.restype = i
         lib.anorag_dense_topk.argtypes = [p, p, p, ll, ctypes.c_float, i, p, i, ll,
                                           ll, i, i, i, i, i, i, p, p, p, p, i, p]
@@ -428,10 +429,11 @@ def _load_topk() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def topk_slots(code: int, q_tile: int, k: int, device_index: int) -> int:
-    """CTAs of the kernel instance (dtype code, q_tile, k) that card
-    device_index holds at once, from the CUDA occupancy calculator."""
-    n = _load_topk().anorag_topk_slots(code, q_tile, k, device_index)
+def topk_slots(code: int, q_tile: int, k: int, vec: int, device_index: int) -> int:
+    """CTAs of the kernel instance (dtype code, q_tile, k, 16-byte rows or
+    not) that card device_index holds at once, from the CUDA occupancy
+    calculator."""
+    n = _load_topk().anorag_topk_slots(code, q_tile, k, vec, device_index)
     if n <= 0:
         raise RuntimeError(f"dense_topk occupancy query failed: CUDA error {-n}")
     return n
@@ -478,7 +480,8 @@ def _scan(emb: torch.Tensor, queries: torch.Tensor, k: int,
     code = kernel_dtype_code(emb)
     (b, d), n = queries.shape, emb.shape[0]
     dev = emb.device
-    plan = topk_work_plan(b, n, q_tile, topk_slots(code, q_tile, k, dev.index))
+    vec = vec_ok(d, emb, queries)
+    plan = topk_work_plan(b, n, q_tile, topk_slots(code, q_tile, k, vec, dev.index))
     part_v = torch.empty((b, plan.splits, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((b, plan.splits, k), dtype=torch.int32, device=dev)
     vals = torch.empty((b, k), dtype=torch.float32, device=dev)
@@ -487,8 +490,8 @@ def _scan(emb: torch.Tensor, queries: torch.Tensor, k: int,
     err = _load_topk().anorag_dense_topk(
         queries.data_ptr(), emb.data_ptr(),
         None if bias is None else bias.data_ptr(), ldb, float(bias_weight), bias_vec,
-        None if seed is None else seed.data_ptr(), code, b, n, d, k,
-        vec_ok(d, emb, queries), q_tile, plan.splits, plan.per, part_v.data_ptr(),
+        None if seed is None else seed.data_ptr(), code, b, n, d, k, vec, q_tile,
+        plan.splits, plan.per, part_v.data_ptr(),
         part_i.data_ptr(), vals.data_ptr(), idx.data_ptr(), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

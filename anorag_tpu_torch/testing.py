@@ -92,9 +92,10 @@ def segment_plan(kind: str, n_docs: int, b: int, l: int
 # Odd shapes for the streaming top-k kernel: (N, D, B, k, bias). k > N pads;
 # D 72 and 100 are not multiples of 64 (100 also not of 8: the kernel's
 # scalar loads); N 129, 257, 333 and 1021 end in a part-full 128-row
-# sub-tile; B 17, 65, 129 and 513 cross a 16-, 64- or 128-query tile, B 1
-# and 64 fill none or one; k 1, 20, 32 (the 128-query tile's largest), 128
-# (the 64-query tile's), 129 and 1024 (the kernel's limit).
+# sub-tile; B 17, 65, 70, 129 and 513 cross a 16-, 64- or 128-query tile,
+# B 1 and 64 fill none or one; k 1, 16, 20, 32 (the 128-query tile's
+# largest), 128 (the 64-query tile's), 129 and 1024 (the kernel's limit);
+# at the 128-query tile D 64 and 72 take the wgmma route, D 100 the other.
 TOPK_CASES = (
     (7, 64, 3, 10, False),
     (300, 64, 5, 10, True),
@@ -107,6 +108,7 @@ TOPK_CASES = (
     (333, 64, 65, 129, True),
     (300, 64, 129, 32, False),
     (257, 72, 513, 20, True),
+    (500, 100, 70, 16, False),
 )
 
 # Tie-heavy corpora for the streaming top-k kernel: (N, D, B, k, bias), rows

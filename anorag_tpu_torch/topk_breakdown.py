@@ -10,10 +10,11 @@ final merge and write-out).
 
     python -m anorag_tpu_torch.topk_breakdown
 
-Variants: full (the shipped kernel), no_select (loads and products, no
-selection), loads_only, mma_only (products from whatever the ring holds),
-test_only (the threshold test, nothing inserted), no_seed (no seed pass),
-w8 (8 warps at the 128-query tile), timing.
+Variants: full (the shipped kernel), mma_sync (the 128-query tile on the
+mma.sync kernel, not the wgmma one), no_seed (no seed pass); on the wgmma
+route wg_no_select (TMA loads and products, no selection), wg_loads_only,
+wg_mma_only (products on whatever the ring holds); on the mma.sync kernel
+(the 64- and 16-query tiles) no_select, loads_only, mma_only and timing.
 """
 import ctypes
 import subprocess
@@ -31,15 +32,12 @@ OUT = _build.BUILD_DIR / "breakdown"
 SRC = (_build.CSRC / "streaming_topk.cu").read_text()
 VARIANTS = {
     "full": [],
-    "no_select": ["-DNO_SELECT"],
-    "loads_only": ["-DNO_MMA", "-DNO_SELECT"],
-    "mma_only": ["-DNO_LOADS", "-DNO_SELECT"],
-    "test_only": ["-DTEST_ONLY"],
+    "mma_sync": ["-DNO_WGMMA_ROUTE"],
     "no_seed": [],
-    "w8": ["-DWQ128=2"],
-    "timing": ["-DTIMING"],
+    "wg_no_select": ["-DWG_NO_SELECT"],
+    "wg_timing": ["-DWG_TIMING"],
 }
-CHECKED = ("full", "no_seed", "w8", "timing")
+CHECKED = ("full", "mma_sync", "no_seed")
 
 
 def patch(s, old, new):
@@ -119,6 +117,61 @@ extern "C" void anorag_read_counts(unsigned long long* out) { cudaDeviceSynchron
     s = patch(s, "  cp_async_wait<0>();\n  __syncthreads();                  // every insertion", "#ifdef TIMING\n  long long tf = clock64();\n#endif\n  cp_async_wait<0>();\n  __syncthreads();                  // every insertion")
     s = patch(s, "      part_i[out + i] = x.i;\n    }\n  }\n}\n", "      part_i[out + i] = x.i;\n    }\n  }\n#ifdef TIMING\n  if (lane == 0) {\n    long long te = clock64();\n    atomicAdd(&g_count[0], (unsigned long long)(te - t0));\n    atomicAdd(&g_count[1], (unsigned long long)t_wait);\n    atomicAdd(&g_count[2], (unsigned long long)t_test);\n    atomicAdd(&g_count[3], (unsigned long long)(t_ins - t_round));\n    atomicAdd(&g_count[4], (unsigned long long)t_round);\n    atomicAdd(&g_count[5], (unsigned long long)(te - tf));\n    atomicAdd(&g_count[6], 1ull);\n  }\n#endif\n}\n")
     s = patch(s, "    if (bias == nullptr || sub >= sub_hi) return;\n", "    if (bias == nullptr || sub >= sub_hi) return;\n#ifdef NO_PREFETCH\n    return;\n#endif\n")
+    s = patch(s, "bool wgmma_route(int dtype, int q_tile, int vec) {\n",
+              "bool wgmma_route(int dtype, int q_tile, int vec) {\n#ifdef NO_WGMMA_ROUTE\n"
+              "  return false;\n#endif\n")
+    s = patch(s, "  Entry tl[2] = {first_tail(qw + g), first_tail(qw + g + 8)};\n",
+              "  Entry tl[2] = {first_tail(qw + g), first_tail(qw + g + 8)};\n  float wsink = 0.0f;\n")
+    s = patch(s, "  // the warp's queries: last merge and write-out\n",
+              "  if (wsink == 1.2345f) part_v[blockIdx.x] = wsink;\n  // the warp's queries: last merge and write-out\n")
+    s = patch(s, "      mbar_arrive(&empty[st]);\n    }\n",
+              "      mbar_arrive(&empty[st]);\n    }\n#ifdef WG_NO_SELECT\n"
+              "    for (int i = 0; i < 64; ++i) wsink += acc[i];\n    continue;\n#endif\n")
+    s = patch(s, "#pragma unroll\n    for (int kk = 0; kk < kWgSlice / 16; ++kk)     // 32 bytes of K a step\n"
+                 "      wgmma_m64n128(acc, da + 2 * kk, db + 2 * kk, chunk != 0 || kk != 0);\n",
+              "#ifndef WG_NO_MMA\n#pragma unroll\n    for (int kk = 0; kk < kWgSlice / 16; ++kk)\n"
+              "      wgmma_m64n128(acc, da + 2 * kk, db + 2 * kk, chunk != 0 || kk != 0);\n#endif\n")
+    s = patch(s, "      mbar_expect_tx(&full[st], 2 * kTileBytes);\n",
+              "#ifdef WG_NO_LOADS\n      mbar_arrive(&full[st]);\n      continue;\n#endif\n"
+              "      mbar_expect_tx(&full[st], 2 * kTileBytes);\n")
+    # WG_TIMING: clock64 sums a consumer warp on the wgmma route: waits for a
+    # stage, the drain at a sub-tile's end, the test, insertion and merges;
+    # counts of merges, merge rounds and candidates
+    s = patch(s, "  float wsink = 0.0f;\n", "  float wsink = 0.0f;\n#ifdef WG_TIMING\n"
+              "  long long w_full = 0, w_drain = 0, w_test = 0, w_ins = 0, w_t0 = clock64();\n"
+              "  unsigned long long n_merge = 0, n_round = 0;\n#endif\n")
+    s = patch(s, "    mbar_wait(&full[st], (t / kWgStages) & 1);\n",
+              "#ifdef WG_TIMING\n    long long wa = clock64();\n#endif\n"
+              "    mbar_wait(&full[st], (t / kWgStages) & 1);\n"
+              "#ifdef WG_TIMING\n    w_full += clock64() - wa;\n#endif\n")
+    s = patch(s, "    asm volatile(\"wgmma.wait_group.sync.aligned 0;\" ::: \"memory\");\n    wgmma_fence_regs(acc);\n",
+              "#ifdef WG_TIMING\n    long long wd = clock64();\n#endif\n"
+              "    asm volatile(\"wgmma.wait_group.sync.aligned 0;\" ::: \"memory\");\n    wgmma_fence_regs(acc);\n"
+              "#ifdef WG_TIMING\n    w_drain += clock64() - wd;\n    long long wt = clock64();\n#endif\n")
+    s = patch(s, "    while (__any_sync(kFull, pend != 0)) {\n",
+              "#ifdef WG_TIMING\n    long long wi = clock64();\n    w_test += wi - wt;\n#endif\n"
+              "    while (__any_sync(kFull, pend != 0)) {\n")
+    s = patch(s, "        if (L.cnt[s] >= kWgCand / 2) merge_slot<kWgCand>(L, s, k);\n",
+              "        if (L.cnt[s] >= kWgCand / 2) {\n#ifdef WG_TIMING\n          ++n_merge;\n#endif\n"
+              "          merge_slot<kWgCand>(L, s, k);\n        }\n#ifdef WG_TIMING\n      ++n_round;\n#endif\n")
+    s = patch(s, "  if (wsink == 1.2345f) part_v[blockIdx.x] = wsink;\n",
+              "  if (wsink == 1.2345f) part_v[blockIdx.x] = wsink;\n#ifdef WG_TIMING\n"
+              "  if (lane == 0) {\n    atomicAdd(&g_count[0], (unsigned long long)(clock64() - w_t0));\n"
+              "    atomicAdd(&g_count[1], (unsigned long long)w_full);\n"
+              "    atomicAdd(&g_count[2], (unsigned long long)w_drain);\n"
+              "    atomicAdd(&g_count[3], (unsigned long long)w_test);\n"
+              "    atomicAdd(&g_count[4], (unsigned long long)w_ins);\n"
+              "    atomicAdd(&g_count[5], n_merge);\n    atomicAdd(&g_count[6], 1ull);\n"
+              "    atomicAdd(&g_count[7], n_round);\n  }\n#endif\n")
+    s = patch(s, "    // Survivors to their query's buffer (the query's 4 lanes share one\n",
+              "#ifdef WG_TEST_ONLY\n    wsink += (float)__popcll(pend);\n    pend = 0;\n#endif\n"
+              "    // Survivors to their query's buffer (the query's 4 lanes share one\n")
+    s = patch(s, "    const bool whole = row0 + kRows <= N && nq == QT;\n    if (bias != nullptr) {\n",
+              "    const bool whole = row0 + kRows <= N && nq == QT;\n"
+              "#ifdef WG_SUM_ONLY\n    for (int i = 0; i < 64; ++i) wsink += acc[i];\n    continue;\n#endif\n"
+              "    if (bias != nullptr) {\n")
+    s = patch(s, "    }\n  }\n  if (wsink == 1.2345f)",
+              "#ifdef WG_TIMING\n    w_ins += clock64() - wi;\n#endif\n    }\n  }\n  if (wsink == 1.2345f)")
     return s
 
 
@@ -129,9 +182,13 @@ def build(name, source):
                           capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(proc.stdout + proc.stderr)
+    if name in ("full", "wg_no_select"):   # registers, spills, serialized wgmma
+        for line in (proc.stdout + proc.stderr).splitlines():
+            if any(w in line for w in ("wgmma", "Performance", "registers", "spill")):
+                print(f"  ptxas {name}:", line.split("ptxas info    :")[-1].strip()[:220])
     lib = ctypes.CDLL(str(lib))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.anorag_topk_slots.argtypes = [i, i, i, i]
+    lib.anorag_topk_slots.argtypes = [i, i, i, i, i]
     lib.anorag_dense_topk.argtypes = [p, p, p, ll, ctypes.c_float, i, p, i, ll, ll, i,
                                       i, i, i, i, i, p, p, p, p, i, p]
     lib.anorag_read_counts.argtypes = [p]
@@ -140,7 +197,7 @@ def build(name, source):
 
 def scan(lib, emb, q, k, bias, ldb, q_tile, seed):
     (b, d), n = q.shape, emb.shape[0]
-    plan = topk.topk_work_plan(b, n, q_tile, lib.anorag_topk_slots(0, q_tile, k, 0))
+    plan = topk.topk_work_plan(b, n, q_tile, lib.anorag_topk_slots(0, q_tile, k, 1, 0))
     dev = emb.device
     pv = torch.empty((b, plan.splits, k), device=dev)
     pi = torch.empty((b, plan.splits, k), dtype=torch.int32, device=dev)
@@ -160,6 +217,8 @@ def run(name, lib, emb, q, k, bias, q_tile):
     """_launch_topk's two scans through a variant's library."""
     n = emb.shape[0]
     rows = 0 if name == "no_seed" else topk.topk_seed_rows(n, k, q_tile)
+    if name.startswith("seed") and q_tile > 16:      # seed<rows a k>
+        rows = min(int(name[4:]) * k, n // 16) // topk.TOPK_ROWS * topk.TOPK_ROWS
     seed = None
     if rows:
         sv, _ = scan(lib, emb[:rows], q, k, bias, n, q_tile, None)
@@ -200,6 +259,7 @@ def main():
     q = (q / q.norm(dim=1, keepdim=True)).to(torch.bfloat16)
     bias = torch.randn((512, n), generator=gen, device=dev)
     shapes = [("B 512 k 20, 128-query tile", q, 20, None, 128),
+              ("B 128 k 20, 128-query tile", q[:128].contiguous(), 20, None, 128),
               ("B 512 k 128, 64-query tile", q, 128, None, 64),
               ("B 512 k 20 + bias, 128-query tile", q, 20, bias, 128),
               ("B 1 k 30, 16-query tile", q[:1].contiguous(), 30, None, 16)]
@@ -216,13 +276,31 @@ def main():
                     lambda: run(name, libs[name], emb, qq, k, bs, q_tile)))
         print(f"{label}: " + ", ".join(f"{nm} {min(v):.4f}-{max(v):.4f} ms"
                                        for nm, v in times.items()), flush=True)
-        lib = libs["timing"]
+        lib = libs["wg_timing"]
+        before, after = (ctypes.c_ulonglong * 8)(), (ctypes.c_ulonglong * 8)()
+        lib.anorag_read_counts(before)
+        run("wg_timing", lib, emb, qq, k, bs, q_tile)
+        torch.cuda.synchronize()
+        lib.anorag_read_counts(after)
+        c = [a - b for a, b in zip(after, before)]
+        if c[6]:
+            total = c[0] / c[6]
+            print(f"  wgmma route, share of a consumer warp's {total:.0f} cycles (seed pass "
+                  f"included): stage waits {c[1] / c[6] / total:.3f}, drain "
+                  f"{c[2] / c[6] / total:.3f}, test {c[3] / c[6] / total:.3f}, insertion "
+                  f"and merges {c[4] / c[6] / total:.3f}; a warp's merges {c[5] / c[6]:.1f}, "
+                  f"rounds {c[7] / c[6]:.1f}", flush=True)
+        lib = libs.get("timing")
+        if lib is None:
+            continue
         before, after = (ctypes.c_ulonglong * 8)(), (ctypes.c_ulonglong * 8)()
         lib.anorag_read_counts(before)
         run("timing", lib, emb, qq, k, bs, q_tile)
         torch.cuda.synchronize()
         lib.anorag_read_counts(after)
         c = [a - b for a, b in zip(after, before)]
+        if not c[6]:                  # the wgmma route has no counters
+            continue
         total = c[0] / c[6]
         print(f"  timing, share of a warp's {total:.0f} cycles (seed pass included): "
               f"ring wait {c[1] / c[6] / total:.3f}, test {c[2] / c[6] / total:.3f}, "

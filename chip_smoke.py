@@ -1293,10 +1293,13 @@ def run(dev, seed: int = 0):
     }, {
         "name": "dense_topk", "route": "cuda",
         "source": "anorag_tpu_torch/csrc/streaming_topk.cu",
-        "design": "mma.sync from ldmatrix behind a cp.async ring, 128-row "
-                  "sub-tiles; from 48 queries 128-query tiles at k <= 32 and "
-                  "64 at k <= 128 (16 warps, 3 stages) after a seed pass over "
-                  "128 k rows, else 16-query tiles (8 warps, 6 stages to k "
+        "design": "128-row sub-tiles; from 48 queries 128-query tiles at k <= "
+                  "32 on wgmma m64n128k16 (two consumer warpgroups) behind a "
+                  "4-stage TMA ring with a producer thread and mbarriers, "
+                  "from 64 queries 64-query tiles at k <= 128 on mma.sync (16 "
+                  "warps, 3-stage cp.async ring), both after a seed pass over "
+                  "512 k rows; "
+                  "else 16-query tiles on mma.sync (8 warps, 6 stages to k "
                   "512, 4 above); one CTA an SM; the selection on the "
                   "accumulators, survivors to candidate buffers merged by a "
                   "bitonic sort and merge path; units of one wave, the query "

@@ -56,19 +56,19 @@ def test_units_cover_every_row_once(shape):
 
 def test_query_tile_follows_the_measured_crossing():
     # chip_smoke.py's route lines on an H100 (PERF.md): at k 20 the 16-query
-    # tile led at B 32 and trailed at B 48; at k 128 the tiles tied at B 48
-    # and the 64-query tile led from B 64
+    # tile led at B 32 and trailed the 128-query tile at B 48; at k 128 it
+    # led at B 48 and trailed the 64-query tile at B 64
     assert topk.topk_query_tile(32, 20, 0) == 16
     assert topk.topk_query_tile(48, 20, 0) == 128
-    assert topk.topk_query_tile(32, 128, 0) == 16
+    assert topk.topk_query_tile(48, 128, 0) == 16
     assert topk.topk_query_tile(64, 128, 0) == 64
-    edge = topk.TOPK_BATCH_FROM
     for k, big in ((1, 128), (20, 128), (32, 128), (33, 64), (128, 64)):
+        edge = topk.TOPK_BATCH_FROM[big]
         assert topk.topk_query_tile(edge - 1, k, 0) == 16
         assert topk.topk_query_tile(edge, k, 0) == big
         assert topk.topk_query_tile(512, k, 0) == big
         assert topk.topk_query_tile(1, k, 0) == 16
-    for b in (1, edge, 512):
+    for b in (1, 64, 512):
         assert topk.topk_query_tile(b, 129, 0) == 16     # only 16 holds k > 128
         assert topk.topk_query_tile(b, 1024, 0) == 16
         assert topk.topk_query_tile(b, 20, 1) == 16      # f32: 16 only
