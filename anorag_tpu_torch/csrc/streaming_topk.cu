@@ -59,12 +59,12 @@
 // TFLOP/s bound it at large batch (0.2120 ms), the 3.35 TB/s of device
 // memory at one query (0.1223 ms). Both routes move the corpus and the
 // query slices from L2 once per query tile and sub-tile (at B 512, QT 128:
-// 3.28 GB): on an H100 80GB HBM3 at 700 W the TMA ring moves that in about
-// 0.36 ms and the wgmma products with it take about 0.5 ms, against 0.74 and
-// 1.05 ms for cp.async and mma.sync; the selection's stops at the 48
-// sub-tile ends cost as much again (PERF.md). Multicast of the corpus slice
-// across a cluster of query tiles and selection overlapped with the next
-// sub-tile's products are the next steps (ROADMAP).
+// 3.28 GB): on an H100 80GB HBM3 at 700 W the TMA ring and wgmma products
+// take about 0.52 ms for it, cp.async and mma.sync 1.05-1.11; the
+// selection's stops at the 48 sub-tile ends cost about as much again
+// (PERF.md). Selection overlapped with the next sub-tile's products and
+// multicast of the corpus slice across a cluster of query tiles are the
+// next steps (ROADMAP).
 #include <cuda.h>
 
 #include "common.cuh"
@@ -305,6 +305,24 @@ __device__ int merge_list(Entry* L, int nf, int k, Entry* C, int n) {
   return n_out;
 }
 
+// Fetch the bias of rows [r0, r0 + 128) of a tile's nq queries (from q0)
+// to L2: one bulk prefetch of each query's row segment where it is 16-byte
+// aligned, else one prefetch a 128-byte line; threads tid, tid + stride, ...
+// take the queries.
+__device__ __forceinline__ void prefetch_bias(const float* bias, int64_t ldb, int q0,
+                                              int nq, int r0, int N, int tid, int stride) {
+  const int bytes = (N - r0 < kRows ? N - r0 : kRows) * 4;
+  for (int x = tid; x < nq; x += stride) {
+    const float* p = bias + (int64_t)(q0 + x) * ldb + r0;
+    if ((reinterpret_cast<uintptr_t>(p) & 15) == 0 && bytes >= 16) {
+      asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(p), "r"(bytes & ~15));
+    } else {
+      for (int b = 0; b < bytes; b += 128)
+        asm volatile("prefetch.global.L2 [%0];" ::"l"(p + b / 4));
+    }
+  }
+}
+
 // Per-query state of a unit in shared memory.
 struct Lists {
   Entry* list;       // QT x k, sorted
@@ -377,24 +395,12 @@ topk_partial_kernel(const T* __restrict__ q, const T* __restrict__ e,
     L.fill[s] = 0;
     L.tail[s] = first_tail(s);
   }
-  // the bias of a sub-tile is fetched to L2 one sub-tile ahead: a bulk
-  // prefetch of each query's row segment (16-byte aligned), else one
-  // prefetch a line
-  auto prefetch_bias = [&](int sub) {
-    if (bias == nullptr || sub >= sub_hi) return;
-    const int r0 = sub * kRows;
-    const int bytes = (N - r0 < kRows ? N - r0 : kRows) * 4;
-    for (int x = threadIdx.x; x < nq; x += Tl::kThreads) {
-      const float* p = bias + (int64_t)(q0 + x) * ldb + r0;
-      if ((reinterpret_cast<uintptr_t>(p) & 15) == 0 && bytes >= 16) {
-        asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(p), "r"(bytes & ~15));
-      } else {
-        for (int b = 0; b < bytes; b += 128)
-          asm volatile("prefetch.global.L2 [%0];" ::"l"(p + b / 4));
-      }
-    }
+  // the bias of a sub-tile is fetched to L2 one sub-tile ahead
+  auto prefetch_sub = [&](int sub) {
+    if (bias != nullptr && sub < sub_hi)
+      prefetch_bias(bias, ldb, q0, nq, sub * kRows, N, threadIdx.x, Tl::kThreads);
   };
-  prefetch_bias(sub_lo);
+  prefetch_sub(sub_lo);
   // query rows past B: zeroed once in every stage, never copied
   for (int x = threadIdx.x; x < kStages * (QT - nq) * Ly::kStride; x += Tl::kThreads) {
     const int per_stage = (QT - nq) * Ly::kStride;
@@ -455,7 +461,7 @@ topk_partial_kernel(const T* __restrict__ q, const T* __restrict__ e,
     // least the tail), then the full rule for the few that pass.
     const int row0 = use_sub * kRows;
     ++use_sub;
-    prefetch_bias(use_sub);
+    prefetch_sub(use_sub);
     const bool whole = row0 + kRows <= N && nq == QT;   // no row or query masked
     uint64_t pend = 0;                         // bit (m kNT + j) 4 + i
 #pragma unroll
@@ -805,16 +811,8 @@ topk_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       const int st = t % kWgStages;
       if (t >= kWgStages) mbar_wait(&empty[st], ((t / kWgStages) & 1) ^ 1);
       const int sub = sub_lo + t / n_chunks, c0 = (t % n_chunks) * kWgSlice;
-      if (c0 == 0 && bias != nullptr) {          // the sub-tile's bias to L2
-        const int r0 = sub * kRows;
-        const int bytes = (N - r0 < kRows ? N - r0 : kRows) * 4;
-        for (int x = 0; x < nq; ++x) {
-          const float* p = bias + (int64_t)(q0 + x) * ldb + r0;
-          if ((reinterpret_cast<uintptr_t>(p) & 15) == 0 && bytes >= 16)
-            asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(p),
-                         "r"(bytes & ~15));
-        }
-      }
+      if (c0 == 0 && bias != nullptr)            // the sub-tile's bias to L2
+        prefetch_bias(bias, ldb, q0, nq, sub * kRows, N, 0, 1);
       mbar_expect_tx(&full[st], 2 * kTileBytes);
       tma_load(qs + st * kTileBytes, &qmap, &full[st], c0, q0);
       tma_load(es + st * kTileBytes, &emap, &full[st], c0, sub * kRows);

@@ -397,16 +397,6 @@ def topk_seed_rows(n: int, k: int, q_tile: int) -> int:
     return rows if q_tile > 16 and rows >= max(k, TOPK_ROWS) else 0
 
 
-def topk_unit(plan: TopkPlan, u: int, b: int, n: int):
-    """Unit u's queries [q_lo, q_hi) and rows [r_lo, r_hi), as the kernel
-    decodes blockIdx.x."""
-    split, tile = divmod(u, plan.q_tiles)
-    q_lo = tile * plan.q_tile
-    r_lo = split * plan.per * TOPK_ROWS
-    return (q_lo, min(q_lo + plan.q_tile, b), r_lo,
-            min(r_lo + plan.per * TOPK_ROWS, n))
-
-
 _topk_lib = None
 
 
@@ -491,8 +481,8 @@ def _scan(emb: torch.Tensor, queries: torch.Tensor, k: int,
         queries.data_ptr(), emb.data_ptr(),
         None if bias is None else bias.data_ptr(), ldb, float(bias_weight), bias_vec,
         None if seed is None else seed.data_ptr(), code, b, n, d, k, vec, q_tile,
-        plan.splits, plan.per, part_v.data_ptr(),
-        part_i.data_ptr(), vals.data_ptr(), idx.data_ptr(), dev.index,
+        plan.splits, plan.per, part_v.data_ptr(), part_i.data_ptr(),
+        vals.data_ptr(), idx.data_ptr(), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"dense_topk kernel launch failed: CUDA error {err}")

@@ -23,13 +23,13 @@ Phases, each printing its seconds:
                 and 128- or 64-query tiles) timed side by side at B 1 to
                 512, k 20 and 128, and the chunked dense candidates of
                 hybrid_fuse beside it at k 128; the IVF scan at every case
-                of testing.ALL_IVF_CASES (skewed clusters, part-full tiles, pads and
-                repeats in sel, a subset of the blocks, k 1024, B 1, two
-                merge levels), with the layout's cluster offsets and
-                without; the kernels' and plain versions' device times
-                (CUDA events around launches back to back), the wrappers'
-                host time, the bound, and torch.matmul + torch.topk as the
-                library yardstick;
+                of testing.ALL_IVF_CASES (skewed clusters, part-full
+                tiles, pads and repeats in sel, a subset of the blocks,
+                k 1024, B 1, two merge levels), with the layout's
+                cluster offsets and without; the kernels' and plain
+                versions' device times (CUDA events around launches back
+                to back), the wrappers' host time, the bound, and
+                torch.matmul + torch.topk as the library yardstick;
   5. bucket  -- the bucket-winners kernel against its plain version at the
                 CPU tests' odd shapes (bf16 and f32, the (N, D) and the
                 transposed (D, N) corpus): values to atol 1e-5, ids equal
@@ -333,12 +333,11 @@ def _dense_real_shapes(dev, emb, queries, seed: int, smi_line: str):
     case)."""
     import torch
 
-    from anorag_tpu_torch.ops.topk import dense_topk_kernel, dense_topk_ref
-    from anorag_tpu_torch.testing import check_topk, flat_scores
-
     from anorag_tpu_torch.ops.topk import (SCAN_CHUNK, TOPK_TILE_MAX_K,
                                            _dense_candidates, _launch_topk,
+                                           dense_topk_kernel, dense_topk_ref,
                                            topk_query_tile)
+    from anorag_tpu_torch.testing import check_topk, flat_scores
 
     b, n, d = queries.shape[0], emb.shape[0], emb.shape[1]
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
@@ -1298,9 +1297,9 @@ def run(dev, seed: int = 0):
                   "4-stage TMA ring with a producer thread and mbarriers, "
                   "from 64 queries 64-query tiles at k <= 128 on mma.sync (16 "
                   "warps, 3-stage cp.async ring), both after a seed pass over "
-                  "512 k rows; "
-                  "else 16-query tiles on mma.sync (8 warps, 6 stages to k "
-                  "512, 4 above); one CTA an SM; the selection on the "
+                  "512 k rows; else 16-query tiles on mma.sync (8 warps, 6 "
+                  "stages to k 512, 4 above); one CTA an SM; the selection "
+                  "on the "
                   "accumulators, survivors to candidate buffers merged by a "
                   "bitonic sort and merge path; units of one wave, the query "
                   "tiles of a corpus range side by side",

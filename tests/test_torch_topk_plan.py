@@ -34,6 +34,16 @@ PLAN_SHAPES = [
 ]
 
 
+def unit_of(plan, u, b, n):
+    """Unit u's queries [q_lo, q_hi) and rows [r_lo, r_hi), as both kernels
+    decode blockIdx.x (split u // q_tiles of query tile u % q_tiles)."""
+    split, tile = divmod(u, plan.q_tiles)
+    q_lo = tile * plan.q_tile
+    r_lo = split * plan.per * topk.TOPK_ROWS
+    return (q_lo, min(q_lo + plan.q_tile, b), r_lo,
+            min(r_lo + plan.per * topk.TOPK_ROWS, n))
+
+
 @pytest.mark.parametrize("shape", PLAN_SHAPES, ids=lambda s: "b{}-n{}-qt{}-slots{}".format(*s))
 def test_units_cover_every_row_once(shape):
     b, n, q_tile, slots = shape
@@ -43,14 +53,14 @@ def test_units_cover_every_row_once(shape):
     assert plan.splits == 1 or plan.units <= slots       # one wave
     cover = np.zeros((b, n + 1), np.int64)                # row-difference array
     for u in range(plan.units):
-        q_lo, q_hi, r_lo, r_hi = topk.topk_unit(plan, u, b, n)
+        q_lo, q_hi, r_lo, r_hi = unit_of(plan, u, b, n)
         assert 0 <= q_lo < q_hi <= b and 0 <= r_lo < r_hi <= n    # none empty
         assert r_lo % topk.TOPK_ROWS == 0
         cover[q_lo:q_hi, r_lo] += 1
         cover[q_lo:q_hi, r_hi] -= 1
     assert (np.cumsum(cover, axis=1)[:, :n] == 1).all()
     # the tiles of one range run side by side
-    first = [topk.topk_unit(plan, u, b, n)[2] for u in range(plan.units)]
+    first = [unit_of(plan, u, b, n)[2] for u in range(plan.units)]
     assert first == sorted(first)
 
 
@@ -173,7 +183,7 @@ def emulate_kernel(emb, queries, k, bias, bias_weight, q_tile, cand=64, seed_row
     rng = np.random.default_rng(seed)
     parts = [[] for _ in range(b)]
     for u in range(plan.units):
-        q_lo, q_hi, r_lo, r_hi = topk.topk_unit(plan, u, b, n)
+        q_lo, q_hi, r_lo, r_hi = unit_of(plan, u, b, n)
         for qi, got in zip(range(q_lo, q_hi),
                            _emulate_unit(scores[q_lo:q_hi], r_lo, r_hi, k, cand, rng,
                                          tails[q_lo:q_hi])):
