@@ -22,31 +22,34 @@
 //   in flight behind mbarriers, and two consumer warpgroups of 64 queries
 //   running wgmma m64n128k16 on them; each warp then holds all 128 rows of
 //   its 16 queries, so it selects and merges without any CTA barrier.
-//   Everything else takes topk_partial_kernel: 64-query tiles from 64
-//   queries at k <= 128 (16 warps, warp tiles 16 x 32, a 3-stage cp.async
-//   ring), 16-query tiles for smaller batches and for k to 1024 (8 warps,
-//   16 x 16; 6 ring stages to k 512, 4 above), 128-query tiles without
-//   16-byte rows; mma.sync m16n8k16
-//   from ldmatrix (bf16) or FMAs (f32); query rows past B zeroed once, never
-//   copied. One CTA an SM throughout.
-//   After a sub-tile's last slice the selection runs on the accumulators in
-//   registers (the bias added from float2 loads in the fragment's layout,
-//   prefetched to L2 a sub-tile ahead): a thread tests its scores against
-//   its queries' bars, the tails of their running lists (on the wgmma route
-//   only where a query's largest score reaches its bar); survivors take
-//   slots of their query's candidate buffer in shared memory, one count
-//   update for a query's 4 lanes; a warp with no survivor skips that.
-//   Scores never pass through shared memory. While some survivor finds its
-//   buffer full, every buffer at least half full is merged into its query's
-//   sorted list (shared memory, k entries) by one warp: the candidates sorted
-//   in registers (a bitonic network), then each output entry found by a
-//   binary search along its diagonal (merge path) -- exact under ties
-//   (distinct rows, the full rank rule); the waiting survivors are then
-//   tested again against the new tails, so a burst of ties, or more
-//   survivors than slots, drops nothing. In topk_partial_kernel a query's
-//   scores are spread over 4 warps, so rounds of merges meet at a CTA
-//   barrier. The buffers are merged once more at the end of the unit and
-//   each list goes to partial slot (query, split).
+//   Everything else takes topk_partial_kernel, mma.sync m16n8k16 from
+//   ldmatrix (bf16) or FMAs (f32) behind a cp.async ring: 64-query tiles
+//   from 64 queries at k <= 128, and at k <= 32 for rows that are not
+//   16-byte multiples (16 warps, warp tiles 16 x 32, 3 stages of 64
+//   columns); 16-query tiles for smaller batches and for k to 1024 (8
+//   warps, 16 x 16; bf16 4 stages of 128 columns to k 512, 2 above; f32 6
+//   stages of 32 columns, 4 above). Query rows past B are zeroed once,
+//   never copied. One CTA an SM throughout.
+//   After a sub-tile's last slice the selection (select_sub, shared by both
+//   kernels) runs on the accumulators in registers (the bias added from
+//   float2 loads in the fragment's layout, prefetched to L2 a sub-tile
+//   ahead): a thread tests its scores against its queries' bars, the tails
+//   of their running lists, where a query's largest score reaches its bar;
+//   survivors take slots of their query's candidate buffer in shared
+//   memory, one count update for a query's 4 lanes; a warp with no
+//   survivor skips that. Scores never pass through shared memory. While
+//   some survivor finds its buffer full, every buffer at least half full is
+//   merged into its query's sorted list (shared memory, k entries) by one
+//   warp: the candidates sorted in registers (a bitonic network), then each
+//   output entry found by a binary search along its diagonal (merge path)
+//   -- exact under ties (distinct rows, the full rank rule); the waiting
+//   survivors are then tested again against the new tails, so a burst of
+//   ties, or more survivors than slots, drops nothing. Only how the merge
+//   rounds meet differs: in topk_partial_kernel a query's scores are
+//   spread over 4 warps, so they meet at a CTA barrier (CtaRounds); on the
+//   wgmma route a warp merges its own queries (WarpRounds). The buffers are
+//   merged once more at the end of the unit and each list goes to partial
+//   slot (query, split).
 //   The batch route (QT 128 and 64) first runs the same kernel over a prefix
 //   of the corpus (topk_seed_rows: 512 k rows, at most N / 16); each
 //   query's k-th best score there is its first bar, reached by k rows, so
@@ -57,14 +60,16 @@
 // Bound: 2 * B * N * D operations on bf16 inputs and the corpus read once
 // (512 x 200,000 x 1024: 209.7 GFLOP, 409.6 MB): the tensor cores' 989
 // TFLOP/s bound it at large batch (0.2120 ms), the 3.35 TB/s of device
-// memory at one query (0.1223 ms). Both routes move the corpus and the
-// query slices from L2 once per query tile and sub-tile (at B 512, QT 128:
-// 3.28 GB): on an H100 80GB HBM3 at 700 W the TMA ring and wgmma products
-// take about 0.52 ms for it, cp.async and mma.sync 1.05-1.11; the
-// selection's stops at the 48 sub-tile ends cost about as much again
-// (PERF.md). Selection overlapped with the next sub-tile's products and
-// multicast of the corpus slice across a cluster of query tiles are the
-// next steps (ROADMAP).
+// memory at one query (0.1223 ms). Both batch routes move the corpus and
+// the query slices from L2 once per query tile and sub-tile (at B 512, QT
+// 128: 3.28 GB): on an H100 80GB HBM3 at 700 W the TMA ring and wgmma
+// products take about 0.52 ms for it, cp.async and mma.sync 1.05-1.11; the
+// selection's stops at the 48 sub-tile ends cost about as much again. At
+// one query phase 1 streams the corpus at about 2.5 TB/s (0.164-0.169 ms)
+// and phase 2 adds about 0.035 ms, its launch and k rounds one after the
+// other (PERF.md). Selection overlapped with the next sub-tile's products,
+// multicast of the corpus slice across a cluster of query tiles, and phase
+// 2 folded into phase 1 at small batch are the next steps (ROADMAP).
 #include <cuda.h>
 
 #include "common.cuh"
@@ -74,37 +79,42 @@ namespace {
 constexpr int kRows = 128;             // corpus rows per sub-tile
 constexpr int kMaxK = 1024;
 
-// Slices of 128 bytes of D; rows of 144 bytes keep 16-byte alignment for
-// cp.async and ldmatrix and put the 8 rows of a fragment on distinct banks.
-template <typename T> struct Layout;
-template <> struct Layout<__nv_bfloat16> {
-  static constexpr int kDk = 64;
+// Slices of D a ring stage holds: 128 bytes at the 64-query tile, 256 (bf16)
+// at the 16-query tile, whose few query rows leave room for deeper corpus
+// slices; rows padded by 16 bytes keep 16-byte alignment for cp.async and
+// ldmatrix and put the 8 rows of a fragment on distinct banks.
+template <typename T, int QT> struct Layout;
+template <int QT> struct Layout<__nv_bfloat16, QT> {
+  static constexpr int kDk = QT == 16 ? 128 : 64;
   static constexpr int kStride = kDk + 8;
   static constexpr int kVec = 8;                 // elements in 16 bytes
 };
-template <> struct Layout<float> {
+template <int QT> struct Layout<float, QT> {
   static constexpr int kDk = 32;
   static constexpr int kStride = kDk + 4;
   static constexpr int kVec = 4;
 };
 
-// The warps' share of a QT x 128 tile: kWarpsQ warps down the queries,
-// kWarpsR across the rows; kMT m-tiles of 16 queries and kNT n-tiles of 8
-// rows a warp.
+// The warps' share of a QT x 128 tile (QT 64 or 16): kWarpsQ warps down the
+// queries, kWarpsR across the rows; kMT m-tiles of 16 queries and kNT
+// n-tiles of 8 rows a warp. LK: k above 512 (16-query tiles only).
 template <int QT, bool LK = false> struct Tile {
-  static constexpr int kWarpsQ = QT >= 64 ? 4 : 1;
-  static constexpr int kWarpsR = QT >= 64 ? 4 : 8;
+  static constexpr int kWarpsQ = QT == 64 ? 4 : 1;
+  static constexpr int kWarpsR = QT == 64 ? 4 : 8;
   static constexpr int kWarps = kWarpsQ * kWarpsR;
   static constexpr int kThreads = 32 * kWarps;
   static constexpr int kMT = QT / 16 / kWarpsQ;
   static constexpr int kWarpRows = kRows / kWarpsR;
   static constexpr int kNT = kWarpRows / 8;
   static constexpr int kVals = kMT * kNT * 4;    // scores a thread holds
-  static constexpr int kStages = QT != 16 ? 3 : LK ? 4 : 6;
-  static constexpr int kMaxK = QT == 128 ? 32 : QT == 64 ? 128 : LK ? ::kMaxK : 512;
+  static constexpr int kMaxK = QT == 64 ? 128 : LK ? ::kMaxK : 512;
   static constexpr int kCand = QT == 64 ? 128 : 64;   // candidate slots a query
-  static_assert(kMT >= 1 && kNT % 2 == 0 && kVals <= 64, "warp tiles");
+  static_assert((QT == 64 || QT == 16) && kNT % 2 == 0 && kVals <= 64, "warp tiles");
 };
+
+// Ring stages: what fits beside the lists of the tile's largest k.
+template <typename T, int QT, bool LK>
+constexpr int kStages = QT == 64 ? 3 : sizeof(T) == 2 ? (LK ? 2 : 4) : (LK ? 4 : 6);
 
 template <typename T> __device__ __forceinline__ T zero();
 template <> __device__ __forceinline__ float zero<float>() { return 0.0f; }
@@ -113,14 +123,15 @@ template <> __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
 }
 
 // Stage columns [c0, c0 + kDk) of rows [row0, row0 + R) of src (n_rows, D)
-// into dst (row stride kStride). Columns at or past D are zeros; rows at or
-// past n_rows are zeros (kSkip: left alone, the caller zeroed them once).
-// vec: 16-byte cp.async (D and the base 16-byte multiples); else plain loads.
-template <typename T, int R, bool kSkip, int kThreads>
+// into dst (row stride kStride of Layout<T, QT>). Columns at or past D are
+// zeros; rows at or past n_rows are zeros (kSkip: left alone, the caller
+// zeroed them once). vec: 16-byte cp.async (D and the base 16-byte
+// multiples); else plain loads.
+template <typename T, int QT, int R, bool kSkip, int kThreads>
 __device__ __forceinline__ void stage(const T* __restrict__ src, int64_t row0,
                                       int64_t n_rows, int D, int c0, bool vec,
                                       T* dst) {
-  using L = Layout<T>;
+  using L = Layout<T, QT>;
   const T* base = src + row0 * D + c0;
   const int rows = n_rows - row0 < R ? (int)(n_rows - row0) : R;
   if (vec) {
@@ -147,15 +158,16 @@ __device__ __forceinline__ void stage(const T* __restrict__ src, int64_t row0,
 
 // One slice's products in the accumulator layout of mma.sync m16n8k16:
 // warp w owns queries 16 kMT (w % kWarpsQ) + [0, 16 kMT) and rows
-// kWarpRows (w / kWarpsQ) + [0, kWarpRows); acc[m][j][i] is query
+// kWarpRows (w / kWarpsQ) + [0, kWarpRows); acc[(m kNT + j) 4 + i] is query
 // 16 (kMT (w % kWarpsQ) + m) + g + 8 (i >> 1) against row
 // kWarpRows (w / kWarpsQ) + 8 j + 2 t4 + (i & 1), g = lane / 4, t4 = lane % 4.
 template <int QT>
 __device__ __forceinline__ void slice_scores(const __nv_bfloat16* __restrict__ qs,
                                              const __nv_bfloat16* __restrict__ es,
-                                             float (&acc)[Tile<QT>::kMT][Tile<QT>::kNT][4]) {
+                                             float (&acc)[Tile<QT>::kVals]) {
   using Tl = Tile<QT>;
-  constexpr int S = Layout<__nv_bfloat16>::kStride;
+  using Ly = Layout<__nv_bfloat16, QT>;
+  constexpr int S = Ly::kStride;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wq = warp % Tl::kWarpsQ, wr = warp / Tl::kWarpsQ;
   // ldmatrix row addresses: lanes 8m..8m+7 give the rows of matrix m
@@ -164,7 +176,7 @@ __device__ __forceinline__ void slice_scores(const __nv_bfloat16* __restrict__ q
   const __nv_bfloat16* eb =
       es + (Tl::kWarpRows * wr + (lane & 7) + 8 * (lane >> 4)) * S + 8 * ((lane >> 3) & 1);
 #pragma unroll
-  for (int kk = 0; kk < Layout<__nv_bfloat16>::kDk; kk += 16) {
+  for (int kk = 0; kk < Ly::kDk; kk += 16) {
     uint32_t a[Tl::kMT][4];
 #pragma unroll
     for (int m = 0; m < Tl::kMT; ++m) ldmatrix_x4(a[m], qa + 16 * m * S + kk);
@@ -174,8 +186,8 @@ __device__ __forceinline__ void slice_scores(const __nv_bfloat16* __restrict__ q
       ldmatrix_x4(b, eb + 8 * j * S + kk);       // n-tiles j and j + 1, both k halves
 #pragma unroll
       for (int m = 0; m < Tl::kMT; ++m) {
-        mma_bf16(acc[m][j], a[m], b[0], b[1]);
-        mma_bf16(acc[m][j + 1], a[m], b[2], b[3]);
+        mma_bf16(&acc[(m * Tl::kNT + j) * 4], a[m], b[0], b[1]);
+        mma_bf16(&acc[(m * Tl::kNT + j + 1) * 4], a[m], b[2], b[3]);
       }
     }
   }
@@ -184,26 +196,28 @@ __device__ __forceinline__ void slice_scores(const __nv_bfloat16* __restrict__ q
 template <int QT>
 __device__ __forceinline__ void slice_scores(const float* __restrict__ qs,
                                              const float* __restrict__ es,
-                                             float (&acc)[Tile<QT>::kMT][Tile<QT>::kNT][4]) {
+                                             float (&acc)[Tile<QT>::kVals]) {
   using Tl = Tile<QT>;
-  constexpr int S = Layout<float>::kStride;
+  using Ly = Layout<float, QT>;
+  constexpr int S = Ly::kStride;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t4 = lane & 3;
   const int wq = warp % Tl::kWarpsQ, wr = warp / Tl::kWarpsQ;
   const float* q0 = qs + (16 * Tl::kMT * wq + g) * S;
   const float* e0 = es + (Tl::kWarpRows * wr + 2 * t4) * S;
 #pragma unroll 4
-  for (int c = 0; c < Layout<float>::kDk; ++c) {
+  for (int c = 0; c < Ly::kDk; ++c) {
 #pragma unroll
     for (int m = 0; m < Tl::kMT; ++m) {
       const float a0 = q0[16 * m * S + c], a1 = q0[(16 * m + 8) * S + c];
 #pragma unroll
       for (int j = 0; j < Tl::kNT; ++j) {
         const float x0 = e0[8 * j * S + c], x1 = e0[(8 * j + 1) * S + c];
-        acc[m][j][0] = fmaf(a0, x0, acc[m][j][0]);
-        acc[m][j][1] = fmaf(a0, x1, acc[m][j][1]);
-        acc[m][j][2] = fmaf(a1, x0, acc[m][j][2]);
-        acc[m][j][3] = fmaf(a1, x1, acc[m][j][3]);
+        float* d = &acc[(m * Tl::kNT + j) * 4];
+        d[0] = fmaf(a0, x0, d[0]);
+        d[1] = fmaf(a0, x1, d[1]);
+        d[2] = fmaf(a1, x0, d[2]);
+        d[3] = fmaf(a1, x1, d[3]);
       }
     }
   }
@@ -326,10 +340,10 @@ __device__ __forceinline__ void prefetch_bias(const float* bias, int64_t ldb, in
 // Per-query state of a unit in shared memory.
 struct Lists {
   Entry* list;       // QT x k, sorted
-  Entry* cand;       // QT x Tile<QT>::kCand
+  Entry* cand;       // QT x kCand
   int* cnt;          // candidates taken (may pass kCand: the surplus waits)
   int* fill;         // list length
-  Entry* tail;       // the list's tail once full, else (kNegInf, -1)
+  Entry* tail;       // the list's tail once full, else the seed bar or (kNegInf, -1)
 };
 
 // Merge query slot s's buffer of kCand into its list; warp-wide.
@@ -346,15 +360,213 @@ __device__ __forceinline__ void merge_slot(const Lists& L, int s, int k) {
   __syncwarp();
 }
 
+// ------------------------------------- the selection both routes share
+// A thread's scores of a sub-tile, in mma's accumulator layout on both
+// routes: acc[(m NT + j) 4 + 2 h + c] is the tile's query slot
+// q_base + 16 m + g + 8 h against row row0 + r_base + 8 j + 2 t4 + c
+// (g = lane / 4, t4 = lane % 4), and the same bit of a pending mask stands
+// for it. Query slot's bar: tl[m][h], the tail of its sorted list.
+struct Frag {
+  int q_base, r_base, g, t4;
+  __device__ __forceinline__ int slot(int m, int h) const { return q_base + 16 * m + g + 8 * h; }
+  __device__ __forceinline__ int row(int j, int c) const { return r_base + 8 * j + 2 * t4 + c; }
+};
+
+// Add bias_weight * bias (multiplied, then added, as the plain version
+// rounds it) to the scores of the tile's nq queries (from q0), rows from
+// row0; float2 loads in the fragment's layout where bias_vec.
+template <int MT, int NT>
+__device__ __forceinline__ void add_bias(float (&acc)[MT * NT * 4], const Frag& f,
+                                         const float* __restrict__ bias, int64_t ldb,
+                                         float bias_weight, int bias_vec, int q0, int nq,
+                                         int row0, int N) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int rb = row0 + f.row(j, 0);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int slot = f.slot(m, h);
+        if (slot >= nq) continue;
+        const float* bp = bias + (int64_t)(q0 + slot) * ldb + rb;
+        float b0 = 0.0f, b1 = 0.0f;
+        if (bias_vec && rb + 1 < N) {
+          const float2 t = *reinterpret_cast<const float2*>(bp);
+          b0 = t.x;
+          b1 = t.y;
+        } else {
+          if (rb < N) b0 = bp[0];
+          if (rb + 1 < N) b1 = bp[1];
+        }
+        float* d = &acc[(m * NT + j) * 4 + 2 * h];
+        d[0] = __fadd_rn(d[0], __fmul_rn(bias_weight, b0));
+        d[1] = __fadd_rn(d[1], __fmul_rn(bias_weight, b1));
+      }
+    }
+}
+
+// Drop the pending scores that do not beat their query's bar by the full
+// rule (score, then row).
+template <int MT, int NT>
+__device__ __forceinline__ uint64_t retest(uint64_t pend, const float (&acc)[MT * NT * 4],
+                                           const Frag& f, const Entry (&tl)[MT][2],
+                                           int row0) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int b = (m * NT + j) * 4 + i;
+        if ((pend >> b & 1) &&
+            !beats(acc[b], row0 + f.row(j, i & 1), tl[m][i >> 1].v, tl[m][i >> 1].i))
+          pend &= ~(1ull << b);
+      }
+  return pend;
+}
+
+// The pending-mask bits of query slot (m, h): (m NT + j) 4 + 2 h + c for
+// every j and c.
+template <int NT>
+__device__ __forceinline__ uint64_t query_bits(int m, int h) {
+  uint64_t b = 0;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) b |= 3ull << ((m * NT + j) * 4 + 2 * h);
+  return b;
+}
+
+// Survivors to their query's candidate buffer: the 4 lanes of a query take
+// their slots with one update of its count (Rounds::take), which may pass
+// kCand; a survivor that finds no slot stays pending. Warp-wide.
+template <int MT, int NT, class Rounds>
+__device__ __forceinline__ void insert(uint64_t& pend, const float (&acc)[MT * NT * 4],
+                                       const Frag& f, int row0, const Lists& L,
+                                       const Rounds& rounds) {
+  constexpr int kCand = Rounds::kCand;
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint64_t mask = query_bits<NT>(m, h);
+      if (!__any_sync(kFull, (pend & mask) != 0)) continue;
+      const int mine = __popcll(pend & mask);
+      int upto = mine;                             // inclusive scan over t4
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        const int y = __shfl_up_sync(kFull, upto, off, 4);
+        if (f.t4 >= off) upto += y;
+      }
+      const int total = __shfl_sync(kFull, upto, 3, 4);
+      const int slot = f.slot(m, h);
+      int pos = 0;
+      if (f.t4 == 0 && total > 0) pos = rounds.take(&L.cnt[slot], total);
+      pos = __shfl_sync(kFull, pos, 0, 4) + upto - mine;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int b = (m * NT + j) * 4 + 2 * h + c;
+          if (!(pend >> b & 1)) continue;
+          if (pos < kCand) {
+            L.cand[slot * kCand + pos] = Entry{acc[b], row0 + f.row(j, c)};
+            pend &= ~(1ull << b);
+          }
+          ++pos;
+        }
+    }
+}
+
+// How the warps that hold a query's scores share its buffer and meet for
+// merge rounds. topk_partial_kernel spreads a query's scores over 4 warps:
+// they take buffer slots by a shared-memory atomic, every warp takes part
+// in a round, merges slots warp, warp + kWarps, ... and meets the others
+// at a CTA barrier.
+template <int QT, int kWarps, int kCand_> struct CtaRounds {
+  static constexpr int kCand = kCand_;
+  __device__ __forceinline__ int take(int* cnt, int n) const { return atomicAdd(cnt, n); }
+  __device__ __forceinline__ bool any(bool p) const { return __syncthreads_or(p); }
+  __device__ __forceinline__ void merge(const Lists& L, int k) const {
+    for (int s = threadIdx.x >> 5; s < QT; s += kWarps)
+      if (L.cnt[s] >= kCand / 2) merge_slot<kCand>(L, s, k);
+    __syncthreads();
+  }
+};
+
+// topk_wgmma_kernel: a warp holds all scores of its 16 queries (from
+// q_base): one lane of a query updates its count, and the warp merges
+// their buffers alone.
+template <int kCand_> struct WarpRounds {
+  static constexpr int kCand = kCand_;
+  int q_base;
+  __device__ __forceinline__ int take(int* cnt, int n) const {
+    const int pos = *cnt;
+    *cnt = pos + n;
+    return pos;
+  }
+  __device__ __forceinline__ bool any(bool p) const { return __any_sync(kFull, p); }
+  __device__ __forceinline__ void merge(const Lists& L, int k) const {
+    __syncwarp();
+    for (int s = q_base; s < q_base + 16; ++s)
+      if (L.cnt[s] >= kCand / 2) merge_slot<kCand>(L, s, k);
+  }
+};
+
+// Select on a complete sub-tile's scores (rows from row0; whole: no row or
+// query masked). A score survives when it beats its query's bar: a query
+// whose largest score is below its bar is skipped, the others compared (at
+// least the bar), then the few that pass tested by the full rule. Survivors
+// go to their buffers; while one waits for a free slot, every buffer at
+// least half full is merged (a bitonic sort, then merge path: exact under
+// ties), the bars refreshed from the lists' tails and the waiting survivors
+// tested again, so a burst of ties, or more survivors than slots, drops
+// nothing. Scores never pass through shared memory.
+template <int MT, int NT, class Rounds>
+__device__ __forceinline__ void select_sub(const float (&acc)[MT * NT * 4], Entry (&tl)[MT][2],
+                                           const Frag& f, const Lists& L, const Rounds& rounds,
+                                           int k, int row0, int N, int nq, bool whole) {
+  uint64_t pend = 0;
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float top = acc[m * NT * 4 + 2 * h];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        top = fmaxf(top, fmaxf(acc[(m * NT + j) * 4 + 2 * h], acc[(m * NT + j) * 4 + 2 * h + 1]));
+      if (top < tl[m][h].v) continue;
+      const bool live = f.slot(m, h) < nq;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int b = (m * NT + j) * 4 + 2 * h + c;
+          if (acc[b] >= tl[m][h].v && (whole || (live && row0 + f.row(j, c) < N)))
+            pend |= 1ull << b;
+        }
+    }
+  if (pend) pend = retest<MT, NT>(pend, acc, f, tl, row0);
+  while (true) {
+    if (__any_sync(kFull, pend != 0)) insert<MT, NT>(pend, acc, f, row0, L, rounds);
+    if (!rounds.any(pend != 0)) break;
+    rounds.merge(L, k);
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) tl[m][h] = L.tail[f.slot(m, h)];
+    pend = retest<MT, NT>(pend, acc, f, tl, row0);
+  }
+}
+
 template <typename T, int QT, bool LK>
 constexpr size_t smem_bytes(int k) {
-  return (size_t)Tile<QT, LK>::kStages * (QT + kRows) * Layout<T>::kStride * sizeof(T) +
+  return (size_t)kStages<T, QT, LK> * (QT + kRows) * Layout<T, QT>::kStride * sizeof(T) +
          (size_t)QT * k * sizeof(Entry) + (size_t)QT * Tile<QT, LK>::kCand * sizeof(Entry) +
          (size_t)QT * (8 + sizeof(Entry));
 }
 
-// Phase 1: unit blockIdx.x = split * q_tiles + query tile; the split is
-// sub-tiles [split * per, (split + 1) * per) of the corpus.
+// Phase 1 on mma.sync: unit blockIdx.x = split * q_tiles + query tile; the
+// split is sub-tiles [split * per, (split + 1) * per) of the corpus.
 template <typename T, int QT, bool LK>
 __global__ void __launch_bounds__(Tile<QT, LK>::kThreads, 1)
 topk_partial_kernel(const T* __restrict__ q, const T* __restrict__ e,
@@ -362,9 +574,9 @@ topk_partial_kernel(const T* __restrict__ q, const T* __restrict__ e,
                     int bias_vec, const float* __restrict__ seed, int B, int N, int D,
                     int k, int vec, int per, float* __restrict__ part_v,
                     int32_t* __restrict__ part_i) {
-  using Ly = Layout<T>;
+  using Ly = Layout<T, QT>;
   using Tl = Tile<QT, LK>;
-  constexpr int kStages = Tl::kStages;
+  constexpr int kSt = kStages<T, QT, LK>;
   constexpr int kCand = Tl::kCand;
   constexpr int kStageElems = (QT + kRows) * Ly::kStride;
   const int q_tiles = (B + QT - 1) / QT;
@@ -379,7 +591,7 @@ topk_partial_kernel(const T* __restrict__ q, const T* __restrict__ e,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ring = reinterpret_cast<T*>(smem_raw);
   Lists L;
-  L.list = reinterpret_cast<Entry*>(smem_raw + (size_t)kStages * kStageElems * sizeof(T));
+  L.list = reinterpret_cast<Entry*>(smem_raw + (size_t)kSt * kStageElems * sizeof(T));
   L.cand = L.list + (size_t)QT * k;
   L.tail = L.cand + QT * kCand;
   L.cnt = reinterpret_cast<int*>(L.tail + QT);
@@ -402,7 +614,7 @@ topk_partial_kernel(const T* __restrict__ q, const T* __restrict__ e,
   };
   prefetch_sub(sub_lo);
   // query rows past B: zeroed once in every stage, never copied
-  for (int x = threadIdx.x; x < kStages * (QT - nq) * Ly::kStride; x += Tl::kThreads) {
+  for (int x = threadIdx.x; x < kSt * (QT - nq) * Ly::kStride; x += Tl::kThreads) {
     const int per_stage = (QT - nq) * Ly::kStride;
     ring[(x / per_stage) * kStageElems + nq * Ly::kStride + x % per_stage] = zero<T>();
   }
@@ -412,9 +624,9 @@ topk_partial_kernel(const T* __restrict__ q, const T* __restrict__ e,
   int ld_sub = sub_lo, ld_c0 = 0;              // the next (sub-tile, slice) to stage
   auto load_next = [&](int buf) {
     T* qs = ring + buf * kStageElems;
-    stage<T, QT, true, Tl::kThreads>(q, q0, B, D, ld_c0, vec, qs);
-    stage<T, kRows, false, Tl::kThreads>(e, (int64_t)ld_sub * kRows, N, D, ld_c0, vec,
-                                         qs + QT * Ly::kStride);
+    stage<T, QT, QT, true, Tl::kThreads>(q, q0, B, D, ld_c0, vec, qs);
+    stage<T, QT, kRows, false, Tl::kThreads>(e, (int64_t)ld_sub * kRows, N, D, ld_c0, vec,
+                                             qs + QT * Ly::kStride);
     ld_c0 += Ly::kDk;
     if (ld_c0 >= D) {
       ld_c0 = 0;
@@ -423,158 +635,45 @@ topk_partial_kernel(const T* __restrict__ q, const T* __restrict__ e,
   };
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
   const int wq = warp % Tl::kWarpsQ, wr = warp / Tl::kWarpsQ;
-  float acc[Tl::kMT][Tl::kNT][4];
+  const Frag f{16 * Tl::kMT * wq, Tl::kWarpRows * wr, lane >> 2, lane & 3};
+  const CtaRounds<QT, Tl::kWarps, kCand> rounds{};
+  float acc[Tl::kVals];
+#pragma unroll
+  for (int i = 0; i < Tl::kVals; ++i) acc[i] = 0.0f;
+  Entry tl[Tl::kMT][2];                        // this thread's queries' bars
 #pragma unroll
   for (int m = 0; m < Tl::kMT; ++m)
 #pragma unroll
-    for (int j = 0; j < Tl::kNT; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[m][j][i] = 0.0f;
-  // the tails of this thread's 2 kMT queries: the bar a score must beat
-  Entry tl[Tl::kMT][2];
-#pragma unroll
-  for (int m = 0; m < Tl::kMT; ++m)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) tl[m][h] = first_tail(16 * (Tl::kMT * wq + m) + g + 8 * h);
+    for (int h = 0; h < 2; ++h) tl[m][h] = first_tail(f.slot(m, h));
 
-  for (int s = 0; s < kStages - 1; ++s) {
+  for (int s = 0; s < kSt - 1; ++s) {
     if (s < steps) load_next(s);
     cp_async_commit();
   }
-  int buf_ld = kStages - 1, buf_use = 0, use_chunk = 0, use_sub = sub_lo;
+  int buf_ld = kSt - 1, buf_use = 0, use_chunk = 0, use_sub = sub_lo;
   for (int step = 0; step < steps; ++step) {
-    cp_async_wait<kStages - 2>();   // this thread's copies for `step` landed
+    cp_async_wait<kSt - 2>();       // this thread's copies for `step` landed
     __syncthreads();                // everyone's did; step - 1's buffer is free
-    if (step + kStages - 1 < steps) load_next(buf_ld);
+    if (step + kSt - 1 < steps) load_next(buf_ld);
     cp_async_commit();
-    buf_ld = buf_ld + 1 == kStages ? 0 : buf_ld + 1;
+    buf_ld = buf_ld + 1 == kSt ? 0 : buf_ld + 1;
     const T* qs = ring + buf_use * kStageElems;
     slice_scores<QT>(qs, qs + QT * Ly::kStride, acc);
-    buf_use = buf_use + 1 == kStages ? 0 : buf_use + 1;
+    buf_use = buf_use + 1 == kSt ? 0 : buf_use + 1;
     if (++use_chunk < n_chunks) continue;
     use_chunk = 0;
 
-    // The sub-tile is complete: select on the accumulators. A score
-    // survives when it beats its query's tail: first a plain compare (at
-    // least the tail), then the full rule for the few that pass.
+    // the sub-tile is complete: select on the accumulators
     const int row0 = use_sub * kRows;
     ++use_sub;
     prefetch_sub(use_sub);
-    const bool whole = row0 + kRows <= N && nq == QT;   // no row or query masked
-    uint64_t pend = 0;                         // bit (m kNT + j) 4 + i
+    if (bias != nullptr)
+      add_bias<Tl::kMT, Tl::kNT>(acc, f, bias, ldb, bias_weight, bias_vec, q0, nq, row0, N);
+    select_sub<Tl::kMT, Tl::kNT>(acc, tl, f, L, rounds, k, row0, N, nq,
+                                 row0 + kRows <= N && nq == QT);
 #pragma unroll
-    for (int m = 0; m < Tl::kMT; ++m)
-#pragma unroll
-      for (int j = 0; j < Tl::kNT; ++j) {
-        const int rb = row0 + Tl::kWarpRows * wr + 8 * j + 2 * t4;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int slot = 16 * (Tl::kMT * wq + m) + g + 8 * h;
-          if (bias != nullptr && slot < nq) {
-            const float* bp = bias + (int64_t)(q0 + slot) * ldb + rb;
-            float b0 = 0.0f, b1 = 0.0f;
-            if (bias_vec && rb + 1 < N) {
-              const float2 t = *reinterpret_cast<const float2*>(bp);
-              b0 = t.x;
-              b1 = t.y;
-            } else {
-              if (rb < N) b0 = bp[0];
-              if (rb + 1 < N) b1 = bp[1];
-            }
-            acc[m][j][2 * h] = __fadd_rn(acc[m][j][2 * h], __fmul_rn(bias_weight, b0));
-            acc[m][j][2 * h + 1] =
-                __fadd_rn(acc[m][j][2 * h + 1], __fmul_rn(bias_weight, b1));
-          }
-#pragma unroll
-          for (int c = 0; c < 2; ++c)
-            if (acc[m][j][2 * h + c] >= tl[m][h].v &&
-                (whole || (slot < nq && rb + c < N)))
-              pend |= 1ull << ((m * Tl::kNT + j) * 4 + 2 * h + c);
-        }
-      }
-    if (pend) {                                // ties with the tail: the full rule
-#pragma unroll
-      for (int m = 0; m < Tl::kMT; ++m)
-#pragma unroll
-        for (int j = 0; j < Tl::kNT; ++j)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const uint64_t bit = 1ull << ((m * Tl::kNT + j) * 4 + i);
-            const int row = row0 + Tl::kWarpRows * wr + 8 * j + 2 * t4 + (i & 1);
-            if ((pend & bit) && !beats(acc[m][j][i], row, tl[m][i >> 1].v, tl[m][i >> 1].i))
-              pend &= ~bit;
-          }
-    }
-    // Survivors to their buffers; while one waits for a free slot, merge
-    // the buffers at least half full, refresh the tails and test the
-    // waiting ones again. The 4 lanes of a query take their slots with one
-    // shared-memory atomic; a warp with no survivor skips this.
-    while (true) {
-      if (__any_sync(kFull, pend != 0)) {
-#pragma unroll
-        for (int m = 0; m < Tl::kMT; ++m)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            int mine = 0;
-#pragma unroll
-            for (int j = 0; j < Tl::kNT; ++j)
-              mine += __popcll(pend & (3ull << ((m * Tl::kNT + j) * 4 + 2 * h)));
-            if (!__any_sync(kFull, mine != 0)) continue;
-            int upto = mine;                       // inclusive scan over t4
-#pragma unroll
-            for (int off = 1; off < 4; off <<= 1) {
-              const int y = __shfl_up_sync(kFull, upto, off, 4);
-              if (t4 >= off) upto += y;
-            }
-            const int total = __shfl_sync(kFull, upto, 3, 4);
-            const int slot = 16 * (Tl::kMT * wq + m) + g + 8 * h;
-            int pos = 0;
-            if (t4 == 0 && total > 0) pos = atomicAdd(&L.cnt[slot], total);
-            pos = __shfl_sync(kFull, pos, 0, 4) + upto - mine;
-#pragma unroll
-            for (int j = 0; j < Tl::kNT; ++j)
-#pragma unroll
-              for (int c = 0; c < 2; ++c) {
-                const uint64_t bit = 1ull << ((m * Tl::kNT + j) * 4 + 2 * h + c);
-                if (!(pend & bit)) continue;
-                if (pos < kCand) {
-                  L.cand[slot * kCand + pos] =
-                      Entry{acc[m][j][2 * h + c],
-                            row0 + Tl::kWarpRows * wr + 8 * j + 2 * t4 + c};
-                  pend &= ~bit;
-                }
-                ++pos;
-              }
-          }
-      }
-      if (!__syncthreads_or(pend != 0)) break;
-      for (int s = warp; s < QT; s += Tl::kWarps)
-        if (L.cnt[s] >= kCand / 2) merge_slot<kCand>(L, s, k);
-      __syncthreads();
-#pragma unroll
-      for (int m = 0; m < Tl::kMT; ++m)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) tl[m][h] = L.tail[16 * (Tl::kMT * wq + m) + g + 8 * h];
-#pragma unroll
-      for (int m = 0; m < Tl::kMT; ++m)
-#pragma unroll
-        for (int j = 0; j < Tl::kNT; ++j)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const uint64_t bit = 1ull << ((m * Tl::kNT + j) * 4 + i);
-            const int row = row0 + Tl::kWarpRows * wr + 8 * j + 2 * t4 + (i & 1);
-            if ((pend & bit) && !beats(acc[m][j][i], row, tl[m][i >> 1].v, tl[m][i >> 1].i))
-              pend &= ~bit;
-          }
-    }
-#pragma unroll
-    for (int m = 0; m < Tl::kMT; ++m)
-#pragma unroll
-      for (int j = 0; j < Tl::kNT; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[m][j][i] = 0.0f;
+    for (int i = 0; i < Tl::kVals; ++i) acc[i] = 0.0f;
   }
   cp_async_wait<0>();
   __syncthreads();                  // every insertion (and the init) visible
@@ -634,13 +733,13 @@ int launch(const Args& a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// The kernel instance for (dtype, q_tile, k), called as fn<T, QT, LK>(args...).
+// The mma.sync instance for (dtype, q_tile 64 or 16, k), called as
+// fn<T, QT, LK>(args...).
 template <template <typename, int, bool> class Fn, typename... A>
 int dispatch(int dtype, int q_tile, int k, A... args) {
   const bool lk = k > Tile<16>::kMaxK;
   if (dtype == 1)
     return lk ? Fn<float, 16, true>::run(args...) : Fn<float, 16, false>::run(args...);
-  if (q_tile == 128) return Fn<__nv_bfloat16, 128, false>::run(args...);
   if (q_tile == 64) return Fn<__nv_bfloat16, 64, false>::run(args...);
   return lk ? Fn<__nv_bfloat16, 16, true>::run(args...)
             : Fn<__nv_bfloat16, 16, false>::run(args...);
@@ -661,6 +760,7 @@ template <typename T, int QT, bool LK> struct Launch {
 // rows of its 16 queries and selects on its accumulators without a CTA
 // barrier (the warp merges its own queries' buffers).
 constexpr int kWgStages = 4;
+constexpr int kWgMaxK = 32;                    // the lists beside the ring
 constexpr int kWgCand = 32;                    // candidate slots a query
 constexpr int kWgSlice = 64;                   // columns of D a stage
 constexpr int kWgRowBytes = kWgSlice * 2;      // a slice's row: 128 bytes
@@ -820,14 +920,14 @@ topk_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     return;
   }
 
-  // a consumer warp: queries qw + g and qw + g + 8 of the tile, all 128 rows
+  // a consumer warp: queries f.slot(0, 0) and f.slot(0, 1) of the tile, all 128 rows
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int qw = 16 * warp;                       // the warp's first query slot
+  const Frag f{16 * warp, 0, lane >> 2, lane & 3};
+  const WarpRounds<kWgCand> rounds{f.q_base};
   float acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
-  Entry tl[2] = {first_tail(qw + g), first_tail(qw + g + 8)};
+  Entry tl[1][2] = {{first_tail(f.slot(0, 0)), first_tail(f.slot(0, 1))}};
   for (int t = 0; t < steps; ++t) {
     const int st = t % kWgStages, chunk = t % n_chunks;
     mbar_wait(&full[st], (t / kWgStages) & 1);
@@ -854,108 +954,15 @@ topk_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       mbar_arrive(&empty[st]);
     }
 
-    // The sub-tile is complete: select on the accumulators, as
-    // topk_partial_kernel does, but within the warp. A thread tests its
-    // scores one by one only where the largest of a query's 32 reaches
-    // the bar: after the first sub-tiles, rarely.
+    // the sub-tile is complete: select on the accumulators, within the warp
     const int row0 = (sub_lo + t / n_chunks) * kRows;
-    const bool whole = row0 + kRows <= N && nq == QT;
-    if (bias != nullptr) {
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int rb = row0 + 8 * j + 2 * t4;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int slot = qw + g + 8 * h;
-          if (slot >= nq) continue;
-          const float* bp = bias + (int64_t)(q0 + slot) * ldb + rb;
-          float b0 = 0.0f, b1 = 0.0f;
-          if (bias_vec && rb + 1 < N) {
-            const float2 v = *reinterpret_cast<const float2*>(bp);
-            b0 = v.x;
-            b1 = v.y;
-          } else {
-            if (rb < N) b0 = bp[0];
-            if (rb + 1 < N) b1 = bp[1];
-          }
-          acc[4 * j + 2 * h] = __fadd_rn(acc[4 * j + 2 * h], __fmul_rn(bias_weight, b0));
-          acc[4 * j + 2 * h + 1] =
-              __fadd_rn(acc[4 * j + 2 * h + 1], __fmul_rn(bias_weight, b1));
-        }
-      }
-    }
-    uint64_t pend = 0;                            // bit 4 j + 2 h + c
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float top = acc[2 * h];
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-        top = fmaxf(top, fmaxf(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]));
-      if (top < tl[h].v) continue;
-      const int slot = qw + g + 8 * h;
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-#pragma unroll
-        for (int c = 0; c < 2; ++c)
-          if (acc[4 * j + 2 * h + c] >= tl[h].v &&
-              (whole || (slot < nq && row0 + 8 * j + 2 * t4 + c < N)))
-            pend |= 1ull << (4 * j + 2 * h + c);
-    }
-    if (pend) {                                   // ties with the bar: the full rule
-#pragma unroll
-      for (int i = 0; i < 64; ++i)
-        if ((pend >> i & 1) &&
-            !beats(acc[i], row0 + 8 * (i >> 2) + 2 * t4 + (i & 1), tl[(i >> 1) & 1].v,
-                   tl[(i >> 1) & 1].i))
-          pend &= ~(1ull << i);
-    }
-    // Survivors to their query's buffer (the query's 4 lanes share one
-    // count, written by one of them); while one waits, the warp merges its
-    // buffers at least half full and tests the waiting ones again.
-    while (__any_sync(kFull, pend != 0)) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const uint64_t mask = 0x3333333333333333ull << (2 * h);
-        if (!__any_sync(kFull, (pend & mask) != 0)) continue;
-        const int mine = __popcll(pend & mask);
-        int upto = mine;
-#pragma unroll
-        for (int off = 1; off < 4; off <<= 1) {
-          const int y = __shfl_up_sync(kFull, upto, off, 4);
-          if (t4 >= off) upto += y;
-        }
-        const int total = __shfl_sync(kFull, upto, 3, 4);
-        const int slot = qw + g + 8 * h;
-        const int taken = L.cnt[slot];
-        int pos = taken + upto - mine;
-#pragma unroll
-        for (int i = 0; i < 64; ++i) {
-          if (!((mask & pend) >> i & 1)) continue;
-          if (pos < kWgCand) {
-            L.cand[slot * kWgCand + pos] = Entry{acc[i], row0 + 8 * (i >> 2) + 2 * t4 + (i & 1)};
-            pend &= ~(1ull << i);
-          }
-          ++pos;
-        }
-        __syncwarp();
-        if (t4 == 0) L.cnt[slot] = taken + total;
-        __syncwarp();
-      }
-      if (!__any_sync(kFull, pend != 0)) break;
-      for (int s = qw; s < qw + 16; ++s)
-        if (L.cnt[s] >= kWgCand / 2) merge_slot<kWgCand>(L, s, k);
-      tl[0] = L.tail[qw + g];
-      tl[1] = L.tail[qw + g + 8];
-#pragma unroll
-      for (int i = 0; i < 64; ++i)
-        if ((pend >> i & 1) &&
-            !beats(acc[i], row0 + 8 * (i >> 2) + 2 * t4 + (i & 1), tl[(i >> 1) & 1].v,
-                   tl[(i >> 1) & 1].i))
-          pend &= ~(1ull << i);
-    }
+    if (bias != nullptr)
+      add_bias<1, 16>(acc, f, bias, ldb, bias_weight, bias_vec, q0, nq, row0, N);
+    select_sub<1, 16>(acc, tl, f, L, rounds, k, row0, N, nq, row0 + kRows <= N && nq == QT);
   }
   // the warp's queries: last merge and write-out
-  for (int s = qw; s < qw + 16 && s < nq; ++s) {
+  __syncwarp();
+  for (int s = f.q_base; s < f.q_base + 16 && s < nq; ++s) {
     if (L.cnt[s] > 0) merge_slot<kWgCand>(L, s, k);
     const int64_t out = ((int64_t)(q0 + s) * splits + split) * k;
     const int nf = L.fill[s];
@@ -1005,13 +1012,6 @@ int wgmma_set_smem(int k) {
                                    (int)wg_smem_bytes(k));
 }
 
-// The wgmma route takes bf16 128-query tiles (so k <= 32) with 16-byte
-// rows; 64-query tiles stay on topk_partial_kernel, where 16 warps share
-// the merges of k up to 128 (measured faster: PERF.md).
-bool wgmma_route(int dtype, int q_tile, int vec) {
-  return dtype == 0 && q_tile == 128 && vec;
-}
-
 int launch_wgmma(const Args& a, cudaStream_t s) {
   CUtensorMap qmap, emap;
   int err = make_map(&qmap, a.q, a.B, a.D, 128);
@@ -1025,12 +1025,13 @@ int launch_wgmma(const Args& a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// The tile takes (dtype, k): bf16 at 128 queries to k 32, at 64 to k 128,
-// at 16 to k 1024; f32 only at 16.
-bool bad_tile(int dtype, int q_tile, int k) {
+// The tile takes (dtype, k, vec): bf16 at 128 queries to k 32 with 16-byte
+// rows (the wgmma route, TMA's row stride), at 64 to k 128, at 16 to k
+// 1024; f32 only at 16 (ops/topk.py topk_tiles).
+bool bad_tile(int dtype, int q_tile, int k, int vec) {
   if (k < 1 || k > kMaxK) return true;
   if (dtype == 1) return q_tile != 16;
-  if (q_tile == 128) return k > Tile<128>::kMaxK;
+  if (q_tile == 128) return k > kWgMaxK || !vec;
   if (q_tile == 64) return k > Tile<64>::kMaxK;
   return q_tile != 16;
 }
@@ -1041,10 +1042,10 @@ bool bad_tile(int dtype, int q_tile, int k) {
 // (anorag_dense_topk's) that the card holds at once: per SM times the SMs.
 // Returns minus the CUDA error code on failure.
 extern "C" int anorag_topk_slots(int dtype, int q_tile, int k, int vec, int device) {
-  if (bad_tile(dtype, q_tile, k)) return -(int)cudaErrorInvalidValue;
+  if (bad_tile(dtype, q_tile, k, vec)) return -(int)cudaErrorInvalidValue;
   int err = (int)cudaSetDevice(device);
   int per_sm = 0, sms = 0;
-  if (!err && wgmma_route(dtype, q_tile, vec)) {
+  if (!err && q_tile == 128) {
     err = wgmma_set_smem(k);
     if (!err)
       err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -1073,7 +1074,7 @@ extern "C" int anorag_dense_topk(const void* q, const void* e, const void* bias,
                                  int device, void* stream) {
   if (B <= 0) return 0;
   const long long n_sub = (N + kRows - 1) / kRows;
-  if (bad_tile(dtype, q_tile, k) || D < 1 || N < 1 || N > 0x7fffff00LL ||
+  if (bad_tile(dtype, q_tile, k, vec) || D < 1 || N < 1 || N > 0x7fffff00LL ||
       B > 0x7fffffffLL || splits < 1 || splits > kMaxLists || per < 1 ||
       (long long)splits * per < n_sub || (long long)(splits - 1) * per >= n_sub ||
       (B + q_tile - 1) / q_tile * splits > 0x7fffffffLL || (bias && ldb < N))
@@ -1084,8 +1085,7 @@ extern "C" int anorag_dense_topk(const void* q, const void* e, const void* bias,
   const Args a{q, e, static_cast<const float*>(bias), ldb, bias_weight, bias_vec,
                static_cast<const float*>(seed), (int)B, (int)N, D, k, vec, splits, per,
                static_cast<float*>(part_v), static_cast<int32_t*>(part_i)};
-  err = wgmma_route(dtype, q_tile, vec) ? launch_wgmma(a, s)
-                                        : dispatch<Launch>(dtype, q_tile, k, &a, s);
+  err = q_tile == 128 ? launch_wgmma(a, s) : dispatch<Launch>(dtype, q_tile, k, &a, s);
   if (err) return err;
   return merge(a.part_v, a.part_i, B, splits, k, static_cast<float*>(out_v),
                static_cast<int32_t*>(out_i), s);

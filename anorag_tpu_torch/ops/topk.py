@@ -336,28 +336,39 @@ def dense_topk_ref(emb: torch.Tensor, queries: torch.Tensor, k: int,
 
 TOPK_ROWS = 128             # corpus rows of a sub-tile (csrc kRows)
 MAX_SPLITS = 256            # sorted partials one merge warp takes (csrc kMaxLists)
-# query tile -> the largest k it takes (csrc Tile<QT>::kMaxK): the 128- and
-# 64-query tiles hold their queries' lists beside the ring
+# query tile -> the largest k it takes (csrc kWgMaxK, Tile<QT>::kMaxK): the
+# 128- and 64-query tiles hold their queries' lists beside the ring
 TOPK_TILE_MAX_K = {128: 32, 64: 128, 16: MAX_K}
-# From this many queries a bf16 batch takes the 128-query tile (k <= 32) or
-# the 64-query tile (k <= 128); below, the 16-query tile, the memory-bound
-# route, where the larger tile would be mostly padding (topk_query_tile).
+# From this many queries a bf16 batch takes the 128-query tile or the
+# 64-query tile (the largest topk_tiles allows); below, the 16-query tile,
+# the memory-bound route, where the larger tile would be mostly padding
+# (topk_query_tile).
 TOPK_BATCH_FROM = {128: 48, 64: 64}
 # The batch route's seed pass scans the first TOPK_SEED_PER_K * k rows (at
 # most a sixteenth of the corpus) for each query's k-th best score.
 TOPK_SEED_PER_K = 512
 
 
-def topk_query_tile(b: int, k: int, code: int) -> int:
+def topk_tiles(code: int, k: int, vec: int) -> list:
+    """The query tiles the streaming top-k kernel takes at dtype code (0
+    bf16, 1 f32), k and vec (1: rows read 16 bytes at a time, vec_ok), in
+    ascending order, as csrc bad_tile decides: f32 only 16; bf16 16 to
+    MAX_K, 64 to k 128, and 128 (the wgmma route, whose TMA loads need
+    16-byte rows) to k 32."""
+    if code != 0:
+        return [16]
+    return [t for t, k_max in sorted(TOPK_TILE_MAX_K.items())
+            if k <= k_max and (t != 128 or vec)]
+
+
+def topk_query_tile(b: int, k: int, code: int, vec: int) -> int:
     """Queries a tile of the streaming top-k kernel for b queries at k, dtype
-    code 0 bf16 or 1 f32: 128 at k <= 32 and 64 at k <= 128 from
-    TOPK_BATCH_FROM's count of queries; else 16 (f32, k above 128, a small
+    code and vec as topk_tiles's: the largest tile topk_tiles allows from
+    TOPK_BATCH_FROM's count of queries, else 16 (f32, k above 128, a small
     batch). The thresholds are where the routes cross in chip_smoke.py's
     side-by-side timing (PERF.md)."""
-    if code != 0 or k > TOPK_TILE_MAX_K[64]:
-        return 16
-    big = 128 if k <= TOPK_TILE_MAX_K[128] else 64
-    return big if b >= TOPK_BATCH_FROM[big] else 16
+    big = topk_tiles(code, k, vec)[-1]
+    return big if big > 16 and b >= TOPK_BATCH_FROM[big] else 16
 
 
 class TopkPlan(NamedTuple):
@@ -538,8 +549,9 @@ def dense_topk_kernel(emb: torch.Tensor, queries: torch.Tensor, k: int,
     k_eff = min(k, n)
     if check_kernel_operands("dense_topk_kernel", k_eff, *operands):
         return dense_topk_ref(emb, queries, k_eff, bias, bias_weight)
+    vec = vec_ok(emb.shape[1], emb, queries)
     return _launch_topk(emb, queries, k_eff, bias, bias_weight,
-                        topk_query_tile(b, k_eff, code))
+                        topk_query_tile(b, k_eff, code, vec))
 
 
 dense_topk_kernel.launches = 0

@@ -95,7 +95,8 @@ def segment_plan(kind: str, n_docs: int, b: int, l: int
 # sub-tile; B 17, 65, 70, 129 and 513 cross a 16-, 64- or 128-query tile,
 # B 1 and 64 fill none or one; k 1, 16, 20, 32 (the 128-query tile's
 # largest), 128 (the 64-query tile's), 129 and 1024 (the kernel's limit);
-# at the 128-query tile D 64 and 72 take the wgmma route, D 100 the other.
+# D 100 rows are not 16-byte multiples, so the 128-query tile (the wgmma
+# route) does not take them: topk_tiles leaves it out.
 TOPK_CASES = (
     (7, 64, 3, 10, False),
     (300, 64, 5, 10, True),
@@ -120,6 +121,23 @@ TOPK_TIE_CASES = (
     (1300, 72, 3, 129, True),
     (900, 64, 130, 32, True),
 )
+
+
+def topk_case_tiles(emb, queries, k: int) -> list:
+    """The query tiles the streaming top-k kernel takes for these operands
+    at k (ops/topk.py topk_tiles)."""
+    from anorag_tpu_torch.ops import topk
+
+    return topk.topk_tiles(topk.kernel_dtype_code(emb), k,
+                           topk.vec_ok(emb.shape[1], emb, queries))
+
+
+def topk_seed_choices(n: int, k: int, q_tile: int) -> list:
+    """The seed passes checked at an odd shape of n rows: none, and one over
+    the first 256 rows where the tile takes seed passes (the batch tiles)
+    and they hold k; the odd shapes are too small for topk_seed_rows's
+    rule."""
+    return [0] + ([256] if q_tile > 16 and k <= 256 < n else [])
 
 
 def tie_rows(rng: np.random.Generator, n: int, d: int, b: int, bias: bool):

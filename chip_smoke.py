@@ -249,20 +249,13 @@ def _check_topk_odd_shapes(dev):
     import torch
 
     from anorag_tpu_torch.ops import ivf
-    from anorag_tpu_torch.ops.topk import (TOPK_TILE_MAX_K, _launch_topk,
-                                           dense_topk_kernel, dense_topk_ref)
+    from anorag_tpu_torch.ops.topk import (_launch_topk, dense_topk_kernel,
+                                           dense_topk_ref)
     from anorag_tpu_torch.testing import (ALL_IVF_CASES, TOPK_CASES,
                                           TOPK_TIE_CASES, check_topk,
                                           flat_scores, ivf_case, ivf_scores,
-                                          tie_rows, unit_rows)
-
-    def tiles(dtype, k):
-        if dtype == torch.float32:
-            return [16]
-        return [t for t, k_max in sorted(TOPK_TILE_MAX_K.items()) if k <= k_max]
-
-    def seeds(n, k, q_tile):   # the odd shapes are too small for the rule's
-        return [0] + ([256] if q_tile > 16 and k <= 256 < n else [])
+                                          tie_rows, topk_case_tiles,
+                                          topk_seed_choices, unit_rows)
 
     dense, scan, plans = [], [], 0
     for dtype in (torch.bfloat16, torch.float32):
@@ -278,8 +271,8 @@ def _check_topk_odd_shapes(dev):
                                     score_of))
             # both routes, whichever topk_query_tile picks for the case, the
             # batch route with and without a seed pass
-            for q_tile in tiles(dtype, min(k, n)):
-                for seed_rows in seeds(n, min(k, n), q_tile):
+            for q_tile in topk_case_tiles(emb, q, min(k, n)):
+                for seed_rows in topk_seed_choices(n, min(k, n), q_tile):
                     dense.append(check_topk(
                         _launch_topk(emb, q, min(k, n), bias, 0.7, q_tile, seed_rows),
                         want, score_of))
@@ -290,8 +283,8 @@ def _check_topk_odd_shapes(dev):
             q = torch.from_numpy(qn).to(dev, dtype)
             bias = None if bs is None else torch.from_numpy(bs).to(dev)
             want = dense_topk_ref(emb, q, k, bias, 0.7)
-            for q_tile in tiles(dtype, k):
-                for seed_rows in seeds(n, k, q_tile):
+            for q_tile in topk_case_tiles(emb, q, k):
+                for seed_rows in topk_seed_choices(n, k, q_tile):
                     got = _launch_topk(emb, q, k, bias, 0.7, q_tile, seed_rows)
                     if not (torch.equal(got[0], want[0])
                             and torch.equal(got[1], want[1])):
@@ -333,10 +326,10 @@ def _dense_real_shapes(dev, emb, queries, seed: int, smi_line: str):
     case)."""
     import torch
 
-    from anorag_tpu_torch.ops.topk import (SCAN_CHUNK, TOPK_TILE_MAX_K,
-                                           _dense_candidates, _launch_topk,
-                                           dense_topk_kernel, dense_topk_ref,
-                                           topk_query_tile)
+    from anorag_tpu_torch.ops.topk import (SCAN_CHUNK, _dense_candidates,
+                                           _launch_topk, dense_topk_kernel,
+                                           dense_topk_ref, topk_query_tile,
+                                           topk_tiles)
     from anorag_tpu_torch.testing import check_topk, flat_scores
 
     b, n, d = queries.shape[0], emb.shape[0], emb.shape[1]
@@ -379,7 +372,7 @@ def _dense_real_shapes(dev, emb, queries, seed: int, smi_line: str):
     # measured: the 16-query tile against the 128-query tile (k 20) or the
     # 64-query tile (k 128), each checked against the plain version.
     for k in (20, 128):
-        big = max(t for t, k_max in TOPK_TILE_MAX_K.items() if k <= k_max)
+        big = topk_tiles(0, k, 1)[-1]
         for bq in TOPK_ROUTE_BATCHES:
             q = queries[:bq].contiguous()
             want = dense_topk_ref(emb, q, k)
@@ -391,7 +384,7 @@ def _dense_real_shapes(dev, emb, queries, seed: int, smi_line: str):
                     lambda: _launch_topk(emb, q, k, None, 1.0, q_tile), n=3, reps=5)
             print(f"dense_topk route B {bq} k {k}: 16-query tile {times[16]:.4f} ms, "
                   f"{big}-query tile {times[big]:.4f} ms; topk_query_tile picks "
-                  f"{topk_query_tile(bq, k, 0)} | {smi_line}", flush=True)
+                  f"{topk_query_tile(bq, k, 0, 1)} | {smi_line}", flush=True)
 
     # The chunked route hybrid_fuse runs for its dense candidates, beside
     # the kernel at the same shape (the bench's hybrid: k 128).
@@ -1293,16 +1286,18 @@ def run(dev, seed: int = 0):
         "name": "dense_topk", "route": "cuda",
         "source": "anorag_tpu_torch/csrc/streaming_topk.cu",
         "design": "128-row sub-tiles; from 48 queries 128-query tiles at k <= "
-                  "32 on wgmma m64n128k16 (two consumer warpgroups) behind a "
-                  "4-stage TMA ring with a producer thread and mbarriers, "
-                  "from 64 queries 64-query tiles at k <= 128 on mma.sync (16 "
-                  "warps, 3-stage cp.async ring), both after a seed pass over "
-                  "512 k rows; else 16-query tiles on mma.sync (8 warps, 6 "
-                  "stages to k 512, 4 above); one CTA an SM; the selection "
-                  "on the "
-                  "accumulators, survivors to candidate buffers merged by a "
-                  "bitonic sort and merge path; units of one wave, the query "
-                  "tiles of a corpus range side by side",
+                  "32 with 16-byte rows on wgmma m64n128k16 (two consumer "
+                  "warpgroups) behind a 4-stage TMA ring of 64 columns with a "
+                  "producer thread and mbarriers; from 64 queries 64-query "
+                  "tiles at k <= 128 (and k <= 32 without 16-byte rows) on "
+                  "mma.sync (16 warps, 3-stage cp.async ring of 64 columns); "
+                  "both after a seed pass over 512 k rows; else 16-query tiles "
+                  "on mma.sync (8 warps; bf16 4 stages of 128 columns to k "
+                  "512, 2 above; f32 6 stages of 32, 4 above); one CTA an SM; "
+                  "one selection on the accumulators for both kernels, "
+                  "survivors to candidate buffers merged by a bitonic sort and "
+                  "merge path; units of one wave, the query tiles of a corpus "
+                  "range side by side",
         "replaces": "anorag_tpu/ops/topk.py:40",
         "launches": dense_launches, "max_abs_err": max(dense_errs), **dense_main,
     }, {

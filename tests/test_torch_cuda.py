@@ -18,7 +18,8 @@ from anorag_tpu_torch.testing import (ALL_IVF_CASES, BUCKET_CASES,
                                       WINDOW_CASES, check_bucket_winners,
                                       check_topk, clustered_corpus, flat_scores,
                                       ivf_case, ivf_scores, segment_plan,
-                                      sorted_plan, tie_rows, unit_rows)
+                                      sorted_plan, tie_rows, topk_case_tiles,
+                                      topk_seed_choices, unit_rows)
 
 DTYPES = [torch.bfloat16, torch.float32]
 
@@ -119,13 +120,6 @@ def test_segment_routes_on_the_card_launch_the_kernels(cuda_device):
         assert torch.equal(x.cpu(), y)
 
 
-def _topk_tiles(dtype, k):
-    """The query tiles the kernel takes at (dtype, k)."""
-    if dtype == torch.float32:
-        return [16]
-    return [t for t, k_max in sorted(topk.TOPK_TILE_MAX_K.items()) if k <= k_max]
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_dense_topk_kernel_matches_ref(cuda_device, dtype):
@@ -144,17 +138,12 @@ def test_dense_topk_kernel_matches_ref(cuda_device, dtype):
         check_topk(got, want, flat_scores(emb, q, bias, 0.7))
 
 
-def _seed_rows(n, k, q_tile):
-    """No seed pass, and one over the first 256 rows where the tile takes
-    one and they hold k (the odd shapes are too small for the rule's)."""
-    return [0] + ([256] if q_tile > 16 and k <= 256 < n else [])
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_dense_topk_kernel_matches_ref_at_every_tile(cuda_device, dtype):
-    """Both routes (the 16-query tile and the 128- or 64-query tile, where
-    k allows), with and without a seed pass, at every odd shape."""
+    """Every tile the kernel takes at the case (topk_case_tiles: 16, 64 and
+    128 where k and the rows allow), with and without a seed pass, at every
+    odd shape."""
     for n, d, b, k, has_bias in TOPK_CASES:
         rng = np.random.default_rng(n)
         emb = torch.from_numpy(unit_rows(rng, n, d)).to(cuda_device, dtype)
@@ -163,11 +152,27 @@ def test_dense_topk_kernel_matches_ref_at_every_tile(cuda_device, dtype):
                 .to(cuda_device) if has_bias else None)
         k_eff = min(k, n)
         want = topk.dense_topk_ref(emb, q, k_eff, bias=bias, bias_weight=0.7)
-        for q_tile in _topk_tiles(dtype, k_eff):
-            for seed_rows in _seed_rows(n, k_eff, q_tile):
+        for q_tile in topk_case_tiles(emb, q, k_eff):
+            for seed_rows in topk_seed_choices(n, k_eff, q_tile):
                 got = topk._launch_topk(emb, q, k_eff, bias, 0.7, q_tile, seed_rows)
                 torch.cuda.synchronize()
                 check_topk(got, want, flat_scores(emb, q, bias, 0.7))
+
+
+@pytest.mark.cuda
+def test_dense_topk_128_tile_takes_only_16_byte_rows(cuda_device):
+    """bf16 rows of D 100 (not 16-byte multiples) never reach the 128-query
+    tile: the wrapper routes a 70-query k 16 batch to the 64-query tile and
+    the library refuses the 128-query tile for them."""
+    rng = np.random.default_rng(5)
+    emb = torch.from_numpy(unit_rows(rng, 500, 100)).to(cuda_device, torch.bfloat16)
+    q = torch.from_numpy(unit_rows(rng, 70, 100)).to(cuda_device, torch.bfloat16)
+    assert topk_case_tiles(emb, q, 16) == [16, 64]
+    assert topk.topk_query_tile(70, 16, 0, topk.vec_ok(100, emb, q)) == 64
+    check_topk(topk.dense_topk_kernel(emb, q, 16), topk.dense_topk_ref(emb, q, 16),
+               flat_scores(emb, q))
+    with pytest.raises(RuntimeError):
+        topk._launch_topk(emb, q, 16, None, 1.0, 128, 0)
 
 
 @pytest.mark.cuda
@@ -181,8 +186,8 @@ def test_dense_topk_kernel_keeps_the_lowest_rows_among_ties(cuda_device, dtype):
         q = torch.from_numpy(qn).to(cuda_device, dtype)
         bias = None if bs is None else torch.from_numpy(bs).to(cuda_device)
         want = topk.dense_topk_ref(emb, q, k, bias=bias, bias_weight=0.7)
-        for q_tile in _topk_tiles(dtype, k):
-            for seed_rows in _seed_rows(n, k, q_tile):
+        for q_tile in topk_case_tiles(emb, q, k):
+            for seed_rows in topk_seed_choices(n, k, q_tile):
                 got = topk._launch_topk(emb, q, k, bias, 0.7, q_tile, seed_rows)
                 torch.cuda.synchronize()
                 assert torch.equal(got[1], want[1]), (n, b, k, q_tile, seed_rows)

@@ -3,12 +3,13 @@ CPU (csrc/streaming_topk.cu runs only on the card; tests/test_torch_cuda.py
 holds it there).
 
 topk_work_plan's units cover every (query, row) pair exactly once, in one
-wave where the card's slots allow; topk_query_tile follows the crossing
-measured on the card; and an emulation of the kernel's selection (a
-threshold per query from the tail of its running list, 64-entry candidate
-buffers filled in any order, survivors that wait for a merge, the sorted
-merge along diagonals, the seed pass's bar, phase 2) gives dense_topk_ref's result exactly, on TOPK_CASES and on
-the tie-heavy corpora, at every tile that takes the case's k.
+wave where the card's slots allow; topk_tiles gives the tiles the kernel
+takes and topk_query_tile follows the crossing measured on the card; and an
+emulation of the kernel's selection (a threshold per query from the tail of
+its running list, candidate buffers of the tile's size filled in any order,
+survivors that wait for a merge, the sorted merge along diagonals, the seed
+pass's bar, phase 2) gives dense_topk_ref's result exactly, on TOPK_CASES
+and on the tie-heavy corpora, at every tile that takes the case.
 """
 import numpy as np
 import pytest
@@ -64,24 +65,44 @@ def test_units_cover_every_row_once(shape):
     assert first == sorted(first)
 
 
+TILES = [
+    # (code, k, vec, tiles): csrc bad_tile's rule
+    (0, 1, 1, [16, 64, 128]),
+    (0, 32, 1, [16, 64, 128]),
+    (0, 32, 0, [16, 64]),          # the wgmma route's TMA needs 16-byte rows
+    (0, 33, 1, [16, 64]),
+    (0, 128, 0, [16, 64]),
+    (0, 129, 1, [16]),
+    (0, 1024, 1, [16]),
+    (1, 20, 1, [16]),              # f32: 16 only
+    (1, 1024, 0, [16]),
+]
+
+
+@pytest.mark.parametrize("code,k,vec,tiles", TILES, ids=lambda v: str(v))
+def test_topk_tiles(code, k, vec, tiles):
+    assert topk.topk_tiles(code, k, vec) == tiles
+
+
 def test_query_tile_follows_the_measured_crossing():
     # chip_smoke.py's route lines on an H100 (PERF.md): at k 20 the 16-query
     # tile led at B 32 and trailed the 128-query tile at B 48; at k 128 it
     # led at B 48 and trailed the 64-query tile at B 64
-    assert topk.topk_query_tile(32, 20, 0) == 16
-    assert topk.topk_query_tile(48, 20, 0) == 128
-    assert topk.topk_query_tile(48, 128, 0) == 16
-    assert topk.topk_query_tile(64, 128, 0) == 64
-    for k, big in ((1, 128), (20, 128), (32, 128), (33, 64), (128, 64)):
+    assert topk.topk_query_tile(32, 20, 0, 1) == 16
+    assert topk.topk_query_tile(48, 20, 0, 1) == 128
+    assert topk.topk_query_tile(48, 128, 0, 1) == 16
+    assert topk.topk_query_tile(64, 128, 0, 1) == 64
+    for k, vec, big in ((1, 1, 128), (20, 1, 128), (32, 1, 128), (33, 1, 64),
+                        (128, 1, 64), (20, 0, 64), (128, 0, 64)):
         edge = topk.TOPK_BATCH_FROM[big]
-        assert topk.topk_query_tile(edge - 1, k, 0) == 16
-        assert topk.topk_query_tile(edge, k, 0) == big
-        assert topk.topk_query_tile(512, k, 0) == big
-        assert topk.topk_query_tile(1, k, 0) == 16
+        assert topk.topk_query_tile(edge - 1, k, 0, vec) == 16
+        assert topk.topk_query_tile(edge, k, 0, vec) == big
+        assert topk.topk_query_tile(512, k, 0, vec) == big
+        assert topk.topk_query_tile(1, k, 0, vec) == 16
     for b in (1, 64, 512):
-        assert topk.topk_query_tile(b, 129, 0) == 16     # only 16 holds k > 128
-        assert topk.topk_query_tile(b, 1024, 0) == 16
-        assert topk.topk_query_tile(b, 20, 1) == 16      # f32: 16 only
+        assert topk.topk_query_tile(b, 129, 0, 1) == 16      # only 16 holds k > 128
+        assert topk.topk_query_tile(b, 1024, 0, 1) == 16
+        assert topk.topk_query_tile(b, 20, 1, 1) == 16       # f32: 16 only
 
 
 def test_seed_rows_rule():
@@ -197,8 +218,10 @@ def emulate_kernel(emb, queries, k, bias, bias_weight, q_tile, cand=64, seed_row
     return vals, ids
 
 
-def _tiles(k):
-    return [t for t, k_max in sorted(topk.TOPK_TILE_MAX_K.items()) if k <= k_max]
+def _tiles(case, k):
+    """The tiles the kernel takes for the case's bf16 rows at k: 16-byte
+    rows where D is a multiple of 8."""
+    return topk.topk_tiles(0, k, int(case[1] % 8 == 0))
 
 
 def _case_inputs(case, ties):
@@ -213,13 +236,16 @@ def _case_inputs(case, ties):
             None if bs is None else torch.from_numpy(bs), min(k, n))
 
 
-CANDS = {128: 64, 64: 128, 16: 64}     # candidate slots of a tile (csrc Tile::kCand)
+# candidate slots a query of a tile: csrc kWgCand (the wgmma route's 128),
+# Tile<QT>::kCand (the mma.sync tiles)
+CANDS = {128: 32, 64: 128, 16: 64}
 
-EMULATED = ([(c, False, t, CANDS[t], 0) for c in TOPK_CASES for t in _tiles(min(c[3], c[0]))]
-            + [(c, True, t, cand, 0) for c in TOPK_TIE_CASES for t in _tiles(c[3])
+EMULATED = ([(c, False, t, CANDS[t], 0) for c in TOPK_CASES
+             for t in _tiles(c, min(c[3], c[0]))]
+            + [(c, True, t, cand, 0) for c in TOPK_TIE_CASES for t in _tiles(c, c[3])
                for cand in (CANDS[t], 4)]
-            + [(c, ties, 128, 64, 256) for c, ties in ((TOPK_CASES[6], False),
-                                                       (TOPK_TIE_CASES[0], True))])
+            + [(c, ties, 128, CANDS[128], 256) for c, ties in ((TOPK_CASES[6], False),
+                                                               (TOPK_TIE_CASES[0], True))])
 
 
 @pytest.mark.parametrize(
