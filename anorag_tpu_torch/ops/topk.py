@@ -344,6 +344,10 @@ TOPK_TILE_MAX_K = {128: 32, 64: 128, 16: MAX_K}
 # the memory-bound route, where the larger tile would be mostly padding
 # (topk_query_tile).
 TOPK_BATCH_FROM = {128: 48, 64: 64}
+# Rows that are not 16-byte aligned (vec_ok 0) are staged by plain loads,
+# which the 64-query tile shares among 4x the queries: it led the 16-query
+# tile from one query up (PERF.md), so it takes them from this many.
+TOPK_UNALIGNED_FROM = 1
 # The batch route's seed pass scans the first TOPK_SEED_PER_K * k rows (at
 # most a sixteenth of the corpus) for each query's k-th best score.
 TOPK_SEED_PER_K = 512
@@ -364,11 +368,14 @@ def topk_tiles(code: int, k: int, vec: int) -> list:
 def topk_query_tile(b: int, k: int, code: int, vec: int) -> int:
     """Queries a tile of the streaming top-k kernel for b queries at k, dtype
     code and vec as topk_tiles's: the largest tile topk_tiles allows from
-    TOPK_BATCH_FROM's count of queries, else 16 (f32, k above 128, a small
-    batch). The thresholds are where the routes cross in chip_smoke.py's
-    side-by-side timing (PERF.md)."""
+    TOPK_BATCH_FROM's count of queries (TOPK_UNALIGNED_FROM's without
+    16-byte rows), else 16 (f32, k above 128, a small batch). The
+    thresholds are where the routes cross in side-by-side timings on the
+    card (PERF.md)."""
     big = topk_tiles(code, k, vec)[-1]
-    return big if big > 16 and b >= TOPK_BATCH_FROM[big] else 16
+    if big == 16:
+        return 16
+    return big if b >= (TOPK_BATCH_FROM[big] if vec else TOPK_UNALIGNED_FROM) else 16
 
 
 class TopkPlan(NamedTuple):

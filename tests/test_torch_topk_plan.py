@@ -92,14 +92,20 @@ def test_query_tile_follows_the_measured_crossing():
     assert topk.topk_query_tile(48, 20, 0, 1) == 128
     assert topk.topk_query_tile(48, 128, 0, 1) == 16
     assert topk.topk_query_tile(64, 128, 0, 1) == 64
-    for k, vec, big in ((1, 1, 128), (20, 1, 128), (32, 1, 128), (33, 1, 64),
-                        (128, 1, 64), (20, 0, 64), (128, 0, 64)):
+    for k, big in ((1, 128), (20, 128), (32, 128), (33, 64), (128, 64)):
         edge = topk.TOPK_BATCH_FROM[big]
-        assert topk.topk_query_tile(edge - 1, k, 0, vec) == 16
-        assert topk.topk_query_tile(edge, k, 0, vec) == big
-        assert topk.topk_query_tile(512, k, 0, vec) == big
-        assert topk.topk_query_tile(1, k, 0, vec) == 16
+        assert topk.topk_query_tile(edge - 1, k, 0, 1) == 16
+        assert topk.topk_query_tile(edge, k, 0, 1) == big
+        assert topk.topk_query_tile(512, k, 0, 1) == big
+        assert topk.topk_query_tile(1, k, 0, 1) == 16
+    # rows that are not 16-byte aligned: the 64-query tile led the 16-query
+    # tile at every batch from one query, k 20 and 128
+    assert topk.TOPK_UNALIGNED_FROM == 1
+    for k in (1, 20, 32, 128):
+        for b in (1, 16, 64, 512):
+            assert topk.topk_query_tile(b, k, 0, 0) == 64
     for b in (1, 64, 512):
+        assert topk.topk_query_tile(b, 129, 0, 0) == 16
         assert topk.topk_query_tile(b, 129, 0, 1) == 16      # only 16 holds k > 128
         assert topk.topk_query_tile(b, 1024, 0, 1) == 16
         assert topk.topk_query_tile(b, 20, 1, 1) == 16       # f32: 16 only
