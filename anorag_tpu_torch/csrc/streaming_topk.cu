@@ -24,8 +24,8 @@
 //   its 16 queries, so it selects and merges without any CTA barrier.
 //   Everything else takes topk_partial_kernel, mma.sync m16n8k16 from
 //   ldmatrix (bf16) or FMAs (f32) behind a cp.async ring: 64-query tiles
-//   from 64 queries at k <= 128, and at k <= 32 for rows that are not
-//   16-byte multiples (16 warps, warp tiles 16 x 32, 3 stages of 64
+//   at k <= 128 from 64 queries, from one on rows that are not 16-byte
+//   aligned (plain loads; 16 warps, warp tiles 16 x 32, 3 stages of 64
 //   columns); 16-query tiles for smaller batches and for k to 1024 (8
 //   warps, 16 x 16; bf16 4 stages of 128 columns to k 512, 2 above; f32 6
 //   stages of 32 columns, 4 above). Query rows past B are zeroed once,

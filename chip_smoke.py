@@ -1288,9 +1288,10 @@ def run(dev, seed: int = 0):
         "design": "128-row sub-tiles; from 48 queries 128-query tiles at k <= "
                   "32 with 16-byte rows on wgmma m64n128k16 (two consumer "
                   "warpgroups) behind a 4-stage TMA ring of 64 columns with a "
-                  "producer thread and mbarriers; from 64 queries 64-query "
-                  "tiles at k <= 128 (and k <= 32 without 16-byte rows) on "
-                  "mma.sync (16 warps, 3-stage cp.async ring of 64 columns); "
+                  "producer thread and mbarriers; 64-query tiles at k <= 128 "
+                  "from 64 queries (from one on rows that are not 16-byte "
+                  "aligned) on mma.sync (16 warps, 3-stage cp.async ring of "
+                  "64 columns); "
                   "both after a seed pass over 512 k rows; else 16-query tiles "
                   "on mma.sync (8 warps; bf16 4 stages of 128 columns to k "
                   "512, 2 above; f32 6 stages of 32, 4 above); one CTA an SM; "
