@@ -11,36 +11,60 @@
 // increasing order). Rows >= n are masked. Buckets that saw no valid row
 // keep (-3.0e38, 0), the reference's initial state.
 //
-// Design (a first version: simple and exact, not yet fast): the grid runs
+// Two routes; the wrapper (ops/topk.py bucket_winners, bucket_route) picks
+// one from the shapes and dtypes alone.
+//
+// The wgmma route (bucket_wgmma_kernel): bf16, row-major 16-byte rows (TMA's
+// stride), W a multiple of 128, from BUCKET_BATCH_FROM queries. A unit is
+// (128-query tile, 128-bucket-column tile, split: a contiguous range of the
+// corpus tiles); the wrapper's plan (bucket_work_plan) cuts the tiles into
+// as many splits as fill one wave of CTAs, and the unit index runs over the
+// query tiles first, so the tiles of one (column tile, split) run side by
+// side and share the corpus rows in L2. One producer thread keeps a 4-stage
+// ring of TMA loads in flight behind mbarriers: for corpus tile t, 64-column
+// 128-byte-swizzled slices of the tile's queries and of rows
+// t W + cb + [0, 128), one box each (rows past n and B, columns past D:
+// zeros). Two consumer warpgroups of 64 queries run wgmma m64n128k16 on
+// them; after a tile's last slice each thread compares its 64 accumulators
+// with its winners' values, held in registers in the accumulator layout,
+// strictly (rows at or past n score -3.0e38); a winner's row goes to shared
+// memory (one slot a thread and accumulator, written only on a change, so
+// the registers hold accumulators and values alone). No candidate list, no
+// CTA barrier after the start. Each split writes its (B, W) winners to
+// scratch (the output itself when there is one split), and
+// bucket_merge_kernel takes, per (query, bucket), the largest value over
+// the splits by strict > in split order: an earlier split holds the earlier
+// tiles, so the earliest row keeps an exact tie, as in the reference.
+//
+// The mma.sync / FMA route (bucket_winners_kernel, the first version): f32
+// (FMAs, never TF32), the transposed (D, N) corpus, rows that are not
+// 16-byte aligned, W not a multiple of 128, small batches. The grid runs
 // over (32-query tile, 64-bucket-column tile), so each (query, bucket) pair
-// has one owner, which walks the corpus tiles t = 0, 1, ... in order and
-// keeps its winners in registers: no atomics, no merge. For tile t the CTA
-// stages rows t * W + [c0, c0 + 64) of the corpus and its 32 queries in
-// slices of D (128 columns for bf16, 64 for f32) through a ring of 3
-// shared-memory stages (cp.async for 16-byte-aligned row-major rows, plain
-// loads otherwise; zeros past n, past D and past the last query). bf16
-// slices go to the tensor cores: each of the 8 warps runs mma.sync
-// m16n8k16 for 16 queries x 16 columns with f32 accumulators; f32 slices
-// are summed with FMAs on the CUDA cores (never TF32). After the last slice
-// of a tile each thread compares its accumulators with its winners, in the
-// accumulator layout itself. Counters, not divisions, track the ring.
+// has one owner, which walks the corpus tiles in order and keeps its
+// winners in registers: no atomics, no merge. For tile t the CTA stages
+// rows t * W + [c0, c0 + 64) of the corpus and its 32 queries in slices of
+// D (128 columns for bf16, 64 for f32) through a ring of 3 shared-memory
+// stages (cp.async for 16-byte-aligned row-major rows, plain loads
+// otherwise; zeros past n, past D and past the last query). bf16 slices go
+// to the tensor cores: each of the 8 warps runs mma.sync m16n8k16 for 16
+// queries x 16 columns with f32 accumulators; f32 slices are summed with
+// FMAs. After the last slice of a tile each thread compares its
+// accumulators with its winners, in the accumulator layout itself.
 //
 // Bound: 2 * B * N * D operations on bf16 inputs, the corpus read once
 // (512 x 200,000 x 1024: 209.7 GFLOP, 409.6 MB), so the tensor cores'
 // 989 TFLOP/s bound it (0.212 ms) above the 3.35 TB/s of device memory
-// (0.12 ms). This design reads the corpus once per query tile (16 times at
-// B 512, mostly from L2), re-stages the query slices for every tile, loads
-// mma fragments 32 bits at a time and uses mma.sync rather than wgmma; on
-// an H100 80GB HBM3 at 700 W it runs at about 15x the bound (PERF.md).
-// Resident queries, ldmatrix, wgmma with a TMA ring and corpus splits
-// merged by (value, earlier tile) are the next steps (ROADMAP).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// (0.12 ms). Both routes read the corpus once per query tile and the query
+// slices once per tile, from L2: the wgmma route at B 512, W 512 pulls
+// 3.28 GB (4 query tiles); the mma.sync route 16 query tiles' worth, with
+// 32-bit fragment loads and a CTA barrier every slice (PERF.md: times,
+// and the variants with one part cut out).
+#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr float kNegInf = -3.0e38f;
+// ---------------------------------------------- the mma.sync / FMA route
 constexpr int kThreads = 256;
 constexpr int kBQ = 32;                    // queries per CTA
 constexpr int kWT = 64;                    // bucket columns per CTA
@@ -74,22 +98,6 @@ template <typename T> __device__ __forceinline__ T zero();
 template <> __device__ __forceinline__ float zero<float>() { return 0.0f; }
 template <> __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
   return __float2bfloat16(0.0f);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int bytes = valid ? 16 : 0;        // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
 // Element (r, c) of a matrix is src[r * sr + c * sc]. Stage rows
@@ -287,6 +295,162 @@ int launch(const void* q, const void* e, long long esr, long long esc,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------- the wgmma route (bf16)
+constexpr int kBwStages = 4;
+constexpr int kBwTile = 128;                     // queries and bucket columns of a unit
+constexpr int kBwSliceBytes = kBwTile * kSliceCols * 2;   // one stage's slice of either
+constexpr int kBwConsumers = 256;                // 2 consumer warpgroups
+constexpr int kBwThreads = kBwConsumers + 128;   // + the producer warpgroup
+constexpr int kBwSmem = 1024 + kBwStages * 2 * kBwSliceBytes +
+                        64 * kBwConsumers * (int)sizeof(int32_t) + kBwStages * 2 * 8;
+constexpr int kMergeCells = 256;                 // (query, bucket) cells a merge CTA
+
+// Unit blockIdx.x = (split * c_tiles + column tile) * q_tiles + query tile;
+// the split is corpus tiles [split * per, (split + 1) * per). Writes the
+// unit's winners to out_v / out_i + split * B * W, (B, W) each.
+__global__ void __launch_bounds__(kBwThreads, 1)
+bucket_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap emap, int B, int n, int D, int W,
+                    int q_tiles, int c_tiles, int per, float* __restrict__ out_v,
+                    int32_t* __restrict__ out_i) {
+  const int q0 = (blockIdx.x % q_tiles) * kBwTile;
+  const int cb = (blockIdx.x / q_tiles % c_tiles) * kBwTile;     // first bucket column
+  const int split = blockIdx.x / q_tiles / c_tiles;
+  const int n_tiles = (int)(((long long)n + W - 1) / W);
+  const int t_lo = split * per;
+  const int t_hi = t_lo + per < n_tiles ? t_lo + per : n_tiles;
+  const int n_chunks = (D + kSliceCols - 1) / kSliceCols;
+  const int steps = t_lo < t_hi ? (t_hi - t_lo) * n_chunks : 0;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  unsigned char* qs = base;                                  // stages x 128 queries
+  unsigned char* es = base + kBwStages * kBwSliceBytes;      // stages x 128 rows
+  // win_row[i * 256 + thread]: the row of the thread's winner i
+  int32_t* win_row = reinterpret_cast<int32_t*>(es + kBwStages * kBwSliceBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(win_row + 64 * kBwConsumers);
+  uint64_t* empty = full + kBwStages;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kBwStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {                                  // the producer warpgroup
+    if (threadIdx.x != kBwConsumers) return;
+    for (int t = 0; t < steps; ++t) {
+      const int st = t % kBwStages;
+      if (t >= kBwStages) mbar_wait(&empty[st], ((t / kBwStages) & 1) ^ 1);
+      const int row0 = (t_lo + t / n_chunks) * W + cb, c0 = (t % n_chunks) * kSliceCols;
+      mbar_expect_tx(&full[st], 2 * kBwSliceBytes);
+      tma_load(qs + st * kBwSliceBytes, &qmap, &full[st], c0, q0);
+      tma_load(es + st * kBwSliceBytes, &emap, &full[st], c0, row0);
+    }
+    return;
+  }
+
+  // a consumer thread: acc[4 j + 2 h + c] is query 16 warp + g + 8 h of the
+  // tile against row 8 j + 2 t4 + c of the unit's 128 (g = lane / 4, t4 =
+  // lane % 4), and wv[4 j + 2 h + c] its winner's value
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r_lane = 2 * (lane & 3);
+  float acc[64], wv[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    acc[i] = 0.0f;
+    wv[i] = kNegInf;
+    win_row[i * kBwConsumers + threadIdx.x] = 0;
+  }
+  for (int t = 0; t < steps; ++t) {
+    const int st = t % kBwStages, chunk = t % n_chunks;
+    mbar_wait(&full[st], (t / kBwStages) & 1);
+    wgmma_fence_regs(acc);
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+    const uint64_t da = sw128_desc(qs + st * kBwSliceBytes + wg * 64 * kSliceCols * 2);
+    const uint64_t db = sw128_desc(es + st * kBwSliceBytes);
+#pragma unroll
+    for (int kk = 0; kk < kSliceCols / 16; ++kk)   // 32 bytes of K a step
+      wgmma_m64n128(acc, da + 2 * kk, db + 2 * kk, chunk != 0 || kk != 0);
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    // one slice's products in flight behind this one: the slice before is
+    // done, and its stage goes back to the producer
+    const bool leader = (threadIdx.x & 127) == 0;
+    if (chunk + 1 < n_chunks) {
+      asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+      if (leader && chunk > 0) mbar_arrive(&empty[(t - 1) % kBwStages]);
+      continue;
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    wgmma_fence_regs(acc);
+    if (leader) {
+      if (chunk > 0) mbar_arrive(&empty[(t - 1) % kBwStages]);
+      mbar_arrive(&empty[st]);
+    }
+
+    // the tile is complete: the bucket max on the accumulators
+    const int row0 = (t_lo + t / n_chunks) * W + cb + r_lane;
+    const bool whole = row0 - r_lane + kBwTile <= n;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int row = row0 + 8 * (i >> 2) + (i & 1);
+      const float s = whole || row < n ? acc[i] : kNegInf;
+      if (s > wv[i]) {                            // strict: the earlier tile keeps a tie
+        wv[i] = s;
+        win_row[i * kBwConsumers + threadIdx.x] = row;
+      }
+    }
+  }
+
+  // the thread's winners, two adjacent buckets a store
+  float* ov = out_v + (int64_t)split * B * W;
+  int32_t* oi = out_i + (int64_t)split * B * W;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = q0 + 16 * warp + (lane >> 2) + 8 * h;
+    if (qi >= B) continue;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int i = 4 * j + 2 * h;
+      const int64_t o = (int64_t)qi * W + cb + 8 * j + r_lane;
+      *reinterpret_cast<float2*>(ov + o) = make_float2(wv[i], wv[i + 1]);
+      *reinterpret_cast<int2*>(oi + o) =
+          make_int2(win_row[i * kBwConsumers + threadIdx.x],
+                    win_row[(i + 1) * kBwConsumers + threadIdx.x]);
+    }
+  }
+}
+
+// Per (query, bucket) cell: the largest value over the splits' tables
+// (splits x cells each) by strict > in split order, and its row.
+__global__ void __launch_bounds__(kMergeCells)
+bucket_merge_kernel(const float* __restrict__ part_v, const int32_t* __restrict__ part_i,
+                    int64_t cells, int splits, float* __restrict__ out_v,
+                    int32_t* __restrict__ out_i) {
+  const int64_t x = (int64_t)blockIdx.x * kMergeCells + threadIdx.x;
+  if (x >= cells) return;
+  float v = part_v[x];
+  int32_t id = part_i[x];
+  for (int s = 1; s < splits; ++s) {
+    const float u = part_v[s * cells + x];
+    if (u > v) {                                  // strict: the earlier split keeps a tie
+      v = u;
+      id = part_i[s * cells + x];
+    }
+  }
+  out_v[x] = v;
+  out_i[x] = id;
+}
+
+int bucket_set_smem() {
+  return (int)cudaFuncSetAttribute(bucket_wgmma_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, kBwSmem);
+}
+
 }  // namespace
 
 // dtype 0 = bf16, 1 = f32. q is (B, D) row-major; corpus element (row r,
@@ -312,4 +476,68 @@ extern "C" int anorag_bucket_winners(const void* q, const void* e, long long esr
                                  out_v, out_i, s);
   return launch<float>(q, e, esr, esc, e_mode, q_mode, B, n, D, W, out_v,
                        out_i, s);
+}
+
+// CTAs of the wgmma route that card `device` holds at once: per SM times
+// the SMs. Returns minus the CUDA error code on failure.
+extern "C" int anorag_bucket_slots(int device) {
+  int err = (int)cudaSetDevice(device);
+  int per_sm = 0, sms = 0;
+  if (!err) err = bucket_set_smem();
+  if (!err)
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bucket_wgmma_kernel,
+                                                             kBwThreads, kBwSmem);
+  if (!err) err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err) return -err;
+  return per_sm * sms > 0 ? per_sm * sms : 1;
+}
+
+// The wgmma route. q (B, D) bf16 row-major, D a multiple of 8; corpus row
+// r at e + r * esr (esr a multiple of 8, at least D), n >= 1 rows read;
+// q and e 16-byte aligned; W a multiple of 128. The plan: splits of per
+// corpus tiles covering the ceil(n / W) tiles, none empty (ops/topk.py
+// bucket_work_plan). out_v / out_i: (splits, B, W) f32 / int32, one table a
+// split (with one split, the output). Returns the CUDA error code (0 on
+// success); launches on `stream` of CUDA device `device`.
+extern "C" int anorag_bucket_winners_wgmma(const void* q, const void* e, long long esr,
+                                           long long B, long long n, int D, int W,
+                                           int splits, int per, void* out_v, void* out_i,
+                                           int device, void* stream) {
+  if (B <= 0) return 0;
+  const long long n_tiles = n > 0 && W > 0 ? (n + W - 1) / W : 0;
+  const long long q_tiles = (B + kBwTile - 1) / kBwTile, c_tiles = W / kBwTile;
+  if (n < 1 || D < 1 || D % 8 != 0 || esr < D || esr % 8 != 0 || W < kBwTile ||
+      W % kBwTile != 0 || n + W > 0x7fffffffLL || B > 0x7fffffffLL || splits < 1 ||
+      per < 1 || (long long)splits * per < n_tiles || (long long)(splits - 1) * per >= n_tiles ||
+      q_tiles * c_tiles * splits > 0x7fffffffLL ||
+      (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(e)) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  int err = (int)cudaSetDevice(device);
+  CUtensorMap qmap, emap;
+  if (!err) err = make_map(&qmap, q, B, D, D, kBwTile);
+  if (!err) err = make_map(&emap, e, n, D, esr, kBwTile);
+  if (!err) err = bucket_set_smem();
+  if (err) return err;
+  bucket_wgmma_kernel<<<(unsigned)(q_tiles * c_tiles * splits), kBwThreads, kBwSmem,
+                        static_cast<cudaStream_t>(stream)>>>(
+      qmap, emap, (int)B, (int)n, D, W, (int)q_tiles, (int)c_tiles, per,
+      static_cast<float*>(out_v), static_cast<int32_t*>(out_i));
+  return (int)cudaGetLastError();
+}
+
+// The merge of the wgmma route's split tables: part_v / part_i (splits,
+// cells) f32 / int32 into out_v / out_i (cells). Returns the CUDA error
+// code; launches on `stream` of CUDA device `device`.
+extern "C" int anorag_bucket_merge(const void* part_v, const void* part_i, long long cells,
+                                   int splits, void* out_v, void* out_i, int device,
+                                   void* stream) {
+  if (cells <= 0) return 0;
+  if (splits < 1) return (int)cudaErrorInvalidValue;
+  int err = (int)cudaSetDevice(device);
+  if (err) return err;
+  bucket_merge_kernel<<<(unsigned)((cells + kMergeCells - 1) / kMergeCells), kMergeCells, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(part_v), static_cast<const int32_t*>(part_i), cells, splits,
+      static_cast<float*>(out_v), static_cast<int32_t*>(out_i));
+  return (int)cudaGetLastError();
 }

@@ -70,9 +70,8 @@
 // other (PERF.md). Selection overlapped with the next sub-tile's products,
 // multicast of the corpus slice across a cluster of query tiles, and phase
 // 2 folded into phase 1 at small batch are the next steps (ROADMAP).
-#include <cuda.h>
-
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -762,88 +761,9 @@ template <typename T, int QT, bool LK> struct Launch {
 constexpr int kWgStages = 4;
 constexpr int kWgMaxK = 32;                    // the lists beside the ring
 constexpr int kWgCand = 32;                    // candidate slots a query
-constexpr int kWgSlice = 64;                   // columns of D a stage
+constexpr int kWgSlice = kSliceCols;           // columns of D a stage
 constexpr int kWgRowBytes = kWgSlice * 2;      // a slice's row: 128 bytes
 constexpr int kWgThreads = 384;                // 2 consumer warpgroups + producer
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Wait for the completion of the barrier's phase of this parity; a wait
-// far past any launch's length traps, so a lost arrival fails the launch
-// instead of holding the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t a = smem_u32(bar);
-  for (long long spin = 0;; ++spin) {
-    uint32_t done;
-    asm volatile(
-        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; "
-        "selp.u32 %0, 1, 0, p; }"
-        : "=r"(done) : "r"(a), "r"(parity) : "memory");
-    if (done) return;
-    if (spin > (1LL << 26)) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int col, int row) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];"
-      ::"r"(smem_u32(dst)), "l"(map), "r"(smem_u32(bar)), "r"(col), "r"(row) : "memory");
-}
-
-// wgmma's shared-memory descriptor of a K-major tile of 128-byte rows in
-// TMA's 128-byte swizzle: 8-row groups 1024 bytes apart.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-  return ((uint64_t)(smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence_regs(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (+)= A (64 x 16, rows of a) . B^T (128 x 16, rows of b); scale_d 0
-// overwrites d.
-__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t a, uint64_t b,
-                                              int scale_d) {
-  asm volatile(
-      "{ .reg .pred p; setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0; }"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
 
 size_t wg_smem_bytes(int k) {
   return 1024 + (size_t)kWgStages * 2 * kRows * kWgRowBytes + (size_t)128 * k * sizeof(Entry) +
@@ -975,37 +895,6 @@ topk_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// A tensor map of `rows` bf16 rows of D (16-byte stride), boxes of 64
-// columns x box_rows rows, 128-byte swizzle, zeros outside.
-int make_map(CUtensorMap* map, const void* base, long long rows, int D, int box_rows) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return (int)cudaErrorNotSupported;
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
-  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)D * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)kWgSlice, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
-                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-                 CUDA_SUCCESS
-             ? 0
-             : (int)cudaErrorInvalidValue;
-}
-
 int wgmma_set_smem(int k) {
   return (int)cudaFuncSetAttribute(topk_wgmma_kernel,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1014,8 +903,8 @@ int wgmma_set_smem(int k) {
 
 int launch_wgmma(const Args& a, cudaStream_t s) {
   CUtensorMap qmap, emap;
-  int err = make_map(&qmap, a.q, a.B, a.D, 128);
-  if (!err) err = make_map(&emap, a.e, a.N, a.D, kRows);
+  int err = make_map(&qmap, a.q, a.B, a.D, a.D, 128);
+  if (!err) err = make_map(&emap, a.e, a.N, a.D, a.D, kRows);
   if (!err) err = wgmma_set_smem(a.k);
   if (err) return err;
   const int q_tiles = (a.B + 127) / 128;

@@ -11,8 +11,10 @@ The TPU kernel _topk_kernel (:40) is csrc/streaming_topk.cu, reached through
 dense_topk_kernel (method="kernel" / use_kernel=True, the counterpart of
 method="pallas" / use_pallas=True); dense_topk_ref is its plain version.
 The TPU kernel _bucket_kernel (:172) is csrc/bucket_winners.cu, reached
-through bucket_winners; bucket_winners_ref is its plain version, the
-counterpart of the oracle _bucket_winners_xla (:273).
+through bucket_winners (two routes, bucket_route; the wgmma route's split
+tables merged by bucket_merge); bucket_winners_ref is its plain version, the
+counterpart of the oracle _bucket_winners_xla (:273), and bucket_merge_ref
+the merge's.
 
 Tie rule: every route returns the exact top-k by (score descending, lower
 row first), lax.top_k's rule, as the reference's "exact" and "scan" methods
@@ -687,23 +689,91 @@ def bucket_winners_ref(emb: torch.Tensor, queries: torch.Tensor, n: int, w: int,
     return wv, wi
 
 
+BUCKET_TILE = 128           # queries and bucket columns of a wgmma unit (csrc kBwTile)
+# From this many queries a bf16 corpus of 16-byte rows with W a multiple of
+# BUCKET_TILE takes the wgmma route (bucket_route): where the routes cross
+# in side-by-side timings on the card (PERF.md).
+BUCKET_BATCH_FROM = 1
+
+
+class BucketPlan(NamedTuple):
+    """The wgmma route's units: q_tiles tiles of BUCKET_TILE queries x
+    c_tiles tiles of BUCKET_TILE bucket columns x splits ranges of `per`
+    corpus tiles (W rows each; the last range may be shorter, none is
+    empty); unit u is query tile u % q_tiles of (column tile, split)
+    u // q_tiles, so the query tiles that read the same corpus rows run side
+    by side."""
+    q_tiles: int
+    c_tiles: int
+    splits: int
+    per: int
+
+    @property
+    def units(self) -> int:
+        return self.q_tiles * self.c_tiles * self.splits
+
+
+def bucket_work_plan(b: int, w: int, n: int, slots: int) -> BucketPlan:
+    """About `slots` units (the CTAs the card holds at once, one wave): the
+    ceil(n / w) corpus tiles cut into slots // (q_tiles * c_tiles) splits of
+    equal whole tiles, at least one and at most one a tile."""
+    n_tiles = -(-n // w)
+    q_tiles, c_tiles = -(-b // BUCKET_TILE), w // BUCKET_TILE
+    want = max(1, min(n_tiles, slots // (q_tiles * c_tiles)))
+    per = -(-n_tiles // want)
+    return BucketPlan(q_tiles, c_tiles, -(-n_tiles // per), per)
+
+
+def bucket_merge_ref(part_v: torch.Tensor, part_i: torch.Tensor):
+    """Plain version of bucket_merge: per cell, the largest value over the
+    split tables (splits, B, W) by strict > in split order (an earlier split
+    keeps a tie) and its row. Returns ((B, W) f32, (B, W) int32)."""
+    v, i = part_v[0], part_i[0]
+    for s in range(1, part_v.shape[0]):
+        upd = part_v[s] > v
+        v = torch.where(upd, part_v[s], v)
+        i = torch.where(upd, part_i[s], i)
+    return v.clone(), i.clone()
+
+
 _bucket_lib = None
 
 
 def _load_bucket() -> ctypes.CDLL:
-    """csrc/bucket_winners.cu's library, built on first use, its C signature
-    set once."""
+    """csrc/bucket_winners.cu's library, built on first use, its C
+    signatures set once (bind_bucket)."""
     global _bucket_lib
     if _bucket_lib is None:
         from anorag_tpu_torch import _build
 
-        lib = _build.load("bucket_winners")
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.anorag_bucket_winners.argtypes = [p, p, ll, ll, i, i, i, ll, ll, i, i,
-                                              p, p, i, p]
-        lib.anorag_bucket_winners.restype = i
-        _bucket_lib = lib
+        _bucket_lib = bind_bucket(_build.load("bucket_winners"))
     return _bucket_lib
+
+
+def bind_bucket(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signatures of a csrc/bucket_winners.cu library."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.anorag_bucket_winners.argtypes = [p, p, ll, ll, i, i, i, ll, ll, i, i,
+                                          p, p, i, p]
+    lib.anorag_bucket_winners.restype = i
+    lib.anorag_bucket_slots.argtypes = [i]
+    lib.anorag_bucket_slots.restype = i
+    lib.anorag_bucket_winners_wgmma.argtypes = [p, p, ll, ll, ll, i, i, i, i,
+                                                p, p, i, p]
+    lib.anorag_bucket_winners_wgmma.restype = i
+    lib.anorag_bucket_merge.argtypes = [p, p, ll, i, p, p, i, p]
+    lib.anorag_bucket_merge.restype = i
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def bucket_slots(device_index: int) -> int:
+    """CTAs of the wgmma route that card device_index holds at once, from
+    the CUDA occupancy calculator."""
+    n = _load_bucket().anorag_bucket_slots(device_index)
+    if n <= 0:
+        raise RuntimeError(f"bucket_winners occupancy query failed: CUDA error {-n}")
+    return n
 
 
 def staging_mode(t: torch.Tensor) -> int:
@@ -719,6 +789,89 @@ def staging_mode(t: torch.Tensor) -> int:
     return 2 if sr == 1 and sc != 1 else 1
 
 
+def bucket_route(b: int, n: int, w: int, code: int, e_mode: int, q_mode: int) -> str:
+    """The bucket kernel's route for b queries over n rows into w buckets,
+    dtype code (0 bf16, 1 f32) and the operands' staging modes: "wgmma" for
+    bf16 with 16-byte rows (mode 0: TMA's strides) and w a multiple of
+    BUCKET_TILE from BUCKET_BATCH_FROM queries (rows and tile starts below
+    2^31); "mma" (the first kernel: mma.sync for bf16, FMAs for f32) for
+    everything else."""
+    if (code == 0 and e_mode == 0 and q_mode == 0 and w % BUCKET_TILE == 0
+            and 1 <= n and n + w < 2**31 and b >= BUCKET_BATCH_FROM):
+        return "wgmma"
+    return "mma"
+
+
+def bucket_merge(part_v: torch.Tensor, part_i: torch.Tensor):
+    """The largest value of each cell over the split tables (splits, B, W),
+    strict > in split order, and its row. CUDA tensors launch csrc/
+    bucket_winners.cu's merge kernel and count one launch in
+    bucket_merge.launches; CPU tensors run bucket_merge_ref. Returns ((B, W)
+    f32, (B, W) int32)."""
+    if part_v.dim() != 3 or part_i.shape != part_v.shape:
+        raise ValueError(f"bucket_merge: (splits, B, W) tables, got "
+                         f"{tuple(part_v.shape)} and {tuple(part_i.shape)}")
+    if part_v.dtype != torch.float32 or part_i.dtype != torch.int32:
+        raise TypeError("bucket_merge: f32 values and int32 rows")
+    if part_v.device.type == "cpu" and part_i.device.type == "cpu":
+        return bucket_merge_ref(part_v, part_i)
+    if not (part_v.is_cuda and part_i.device == part_v.device
+            and part_v.is_contiguous() and part_i.is_contiguous()):
+        raise ValueError("bucket_merge: contiguous tables on one CUDA device "
+                         "(or both on the CPU)")
+    splits, b, w = part_v.shape
+    dev = part_v.device
+    vals = torch.empty((b, w), dtype=torch.float32, device=dev)
+    idx = torch.empty((b, w), dtype=torch.int32, device=dev)
+    err = _load_bucket().anorag_bucket_merge(
+        part_v.data_ptr(), part_i.data_ptr(), b * w, splits, vals.data_ptr(),
+        idx.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"bucket_merge kernel launch failed: CUDA error {err}")
+    bucket_merge.launches += 1
+    return vals, idx
+
+
+bucket_merge.launches = 0
+
+
+def _launch_bucket(e: torch.Tensor, queries: torch.Tensor, n: int, w: int, route: str):
+    """bucket_winners's launch on checked CUDA operands (e the (N, D) view)
+    through `route`: bucket_winners passes bucket_route's, chip_smoke.py
+    times both routes through here. The wgmma route takes its plan from
+    bucket_work_plan and, with more than one split, merges the split tables
+    by bucket_merge. Counts one launch in bucket_winners.launches and in
+    bucket_winners.route_launches[route]."""
+    lib = _load_bucket()
+    b, d = queries.shape
+    dev = e.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if route == "wgmma":
+        plan = bucket_work_plan(b, w, n, bucket_slots(dev.index))
+        part_v = torch.empty((plan.splits, b, w), dtype=torch.float32, device=dev)
+        part_i = torch.empty((plan.splits, b, w), dtype=torch.int32, device=dev)
+        err = lib.anorag_bucket_winners_wgmma(
+            queries.data_ptr(), e.data_ptr(), e.stride(0), b, n, d, w, plan.splits,
+            plan.per, part_v.data_ptr(), part_i.data_ptr(), dev.index, stream)
+    elif route == "mma":
+        part_v = torch.empty((1, b, w), dtype=torch.float32, device=dev)
+        part_i = torch.empty((1, b, w), dtype=torch.int32, device=dev)
+        err = lib.anorag_bucket_winners(
+            queries.data_ptr(), e.data_ptr(), e.stride(0), e.stride(1),
+            staging_mode(e), staging_mode(queries), kernel_dtype_code(e), b, n, d, w,
+            part_v.data_ptr(), part_i.data_ptr(), dev.index, stream)
+    else:
+        raise ValueError(f"bucket_winners: unknown route {route!r}")
+    if err != 0:
+        raise RuntimeError(f"bucket_winners kernel ({route} route) launch failed: "
+                           f"CUDA error {err}")
+    bucket_winners.launches += 1
+    bucket_winners.route_launches[route] += 1
+    if part_v.shape[0] > 1:
+        return bucket_merge(part_v, part_i)
+    return part_v[0], part_i[0]
+
+
 def bucket_winners(emb: torch.Tensor, queries: torch.Tensor, n: int, w: int,
                    transposed: bool = False):
     """Bucketed winners of queries @ emb[:n].T: for each query and bucket c
@@ -726,9 +879,9 @@ def bucket_winners(emb: torch.Tensor, queries: torch.Tensor, n: int, w: int,
     c and that row (the earliest among exact ties); (NEG_INF, 0) where no
     row falls. emb is (N, D), or (D, N) with transposed, bf16 or f32, any
     strides (read in place, never copied); queries (B, D) contiguous in
-    emb's dtype. CUDA tensors launch csrc/bucket_winners.cu and count one
-    launch in bucket_winners.launches; CPU tensors run bucket_winners_ref.
-    Returns ((B, w) f32, (B, w) int32)."""
+    emb's dtype. CUDA tensors launch csrc/bucket_winners.cu through
+    bucket_route's route and count one launch in bucket_winners.launches;
+    CPU tensors run bucket_winners_ref. Returns ((B, w) f32, (B, w) int32)."""
     e = _corpus_rows(emb, transposed)
     if queries.dim() != 2 or queries.shape[1] != e.shape[1]:
         raise ValueError(f"bucket_winners: queries (B, D) with D = {e.shape[1]}, "
@@ -747,23 +900,13 @@ def bucket_winners(emb: torch.Tensor, queries: torch.Tensor, n: int, w: int,
                          "CUDA device (or both on the CPU)")
     if not queries.is_contiguous():
         raise ValueError("bucket_winners: queries must be contiguous")
-    lib = _load_bucket()
-    b, d = queries.shape
-    dev = e.device
-    vals = torch.empty((b, w), dtype=torch.float32, device=dev)
-    idx = torch.empty((b, w), dtype=torch.int32, device=dev)
-    err = lib.anorag_bucket_winners(
-        queries.data_ptr(), e.data_ptr(), e.stride(0), e.stride(1),
-        staging_mode(e), staging_mode(queries), code, b, n, d, w,
-        vals.data_ptr(), idx.data_ptr(), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"bucket_winners kernel launch failed: CUDA error {err}")
-    bucket_winners.launches += 1
-    return vals, idx
+    route = bucket_route(queries.shape[0], n, w, code, staging_mode(e),
+                         staging_mode(queries))
+    return _launch_bucket(e, queries, n, w, route)
 
 
 bucket_winners.launches = 0
+bucket_winners.route_launches = {"wgmma": 0, "mma": 0}
 
 
 def _bucket_finish(wv: torch.Tensor, wi: torch.Tensor, b: int, k: int, k_eff: int):

@@ -283,6 +283,36 @@ def check_bucket_winners(got, want, rows, q, atol: float = 1e-5) -> float:
     return max_err
 
 
+def bucket_split_tables(rows, q, n: int, w: int, plan):
+    """The split tables of the bucket kernel's wgmma route by plain
+    arithmetic: split s is bucket_winners_ref over corpus tiles [s per,
+    (s + 1) per) of rows (N, D), its rows numbered from 0 and empty buckets
+    (NEG_INF, 0). Returns ((splits, B, w) f32, (splits, B, w) int32)."""
+    import torch
+
+    from anorag_tpu_torch.ops.topk import bucket_winners_ref
+
+    vals, ids = [], []
+    for s in range(plan.splits):
+        lo = s * plan.per * w
+        v, i = bucket_winners_ref(rows[lo:], q, min(lo + plan.per * w, n) - lo, w)
+        vals.append(v)
+        ids.append(torch.where(v > -1e38, i + lo, 0))
+    return torch.stack(vals), torch.stack(ids).int()
+
+
+def copy_across_splits(rows: np.ndarray, row: np.ndarray, w: int, per: int,
+                       col: int) -> list:
+    """Write `row` into bucket col of the first two corpus tiles and of the
+    first tile of every split (per tiles of w rows each), where rows has
+    them: exact ties within a split and across every split boundary.
+    Returns the rows written, ascending; the first must win the bucket."""
+    at = sorted({col, col + w} | {col + s * per * w for s in range(len(rows) // w + 1)})
+    at = [r for r in at if r < len(rows)]
+    rows[at] = row
+    return at
+
+
 def unit_rows(rng: np.random.Generator, n: int, d: int) -> np.ndarray:
     x = rng.standard_normal((n, d)).astype(np.float32)
     return x / np.linalg.norm(x, axis=1, keepdims=True)

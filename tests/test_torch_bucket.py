@@ -14,11 +14,13 @@ import torch
 import jax.numpy as jnp
 
 from anorag_tpu.ops.topk import _bucket_winners_pallas as j_winners_pallas
+from anorag_tpu.ops.topk import _bucket_winners_xla as j_winners_xla
 from anorag_tpu.ops.topk import bucket_topk as j_bucket_topk
 from anorag_tpu.ops.topk import dense_topk_np
 from anorag_tpu_torch.ops import topk
-from anorag_tpu_torch.testing import (BUCKET_CASES, check_bucket_winners,
-                                      check_topk, flat_scores, unit_rows)
+from anorag_tpu_torch.testing import (BUCKET_CASES, bucket_split_tables,
+                                      check_bucket_winners, check_topk,
+                                      copy_across_splits, flat_scores, unit_rows)
 
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -191,3 +193,94 @@ def test_bucket_winners_rejects_what_the_kernel_does_not_take():
         topk.bucket_winners(e, q, 51, 64)
     with pytest.raises(ValueError):
         topk.bucket_winners(e, q, 50, 0)
+
+
+@pytest.mark.parametrize("n", [5, 1000, 6000, 200_000, 5_000_000])
+@pytest.mark.parametrize("w", [128, 512, 2048])
+@pytest.mark.parametrize("b", [1, 16, 129, 512])
+def test_bucket_work_plan_covers_every_tile_once_in_one_wave(b, w, n):
+    """The wgmma route's plan: contiguous, increasing splits of whole
+    corpus tiles that cover each of the ceil(n / w) tiles once, none empty,
+    and units that fit in one wave of 132 CTAs (one split when the
+    (query tile, column tile) pairs alone fill it)."""
+    slots = 132
+    plan = topk.bucket_work_plan(b, w, n, slots)
+    n_tiles = -(-n // w)
+    assert plan.q_tiles == -(-b // topk.BUCKET_TILE)
+    assert plan.c_tiles == w // topk.BUCKET_TILE
+    covered = [t for s in range(plan.splits)
+               for t in range(s * plan.per, min((s + 1) * plan.per, n_tiles))]
+    assert covered == list(range(n_tiles))
+    assert (plan.splits - 1) * plan.per < n_tiles          # no empty split
+    pairs = plan.q_tiles * plan.c_tiles
+    assert plan.units <= max(slots, pairs)
+    if pairs >= slots:
+        assert plan.splits == 1
+    elif n_tiles >= slots // pairs:
+        assert plan.units > slots // 2                     # the wave is mostly full
+
+
+# (n, d, b, w, per): several splits, a ragged last tile, buckets no row
+# reaches (n < w), one tile a split and several
+MERGE_CASES = [(6000, 64, 5, 512, 1), (6000, 64, 5, 512, 3), (1009, 48, 3, 128, 2),
+               (300, 32, 2, 512, 1), (2000, 16, 4, 128, 5), (4096, 32, 7, 256, 4)]
+
+
+@pytest.mark.parametrize("case", MERGE_CASES, ids=lambda c: "n{}-d{}-b{}-w{}-per{}".format(*c))
+@pytest.mark.parametrize("ties", [False, True])
+def test_bucket_merge_of_split_tables_equals_the_unsplit_winners(case, ties):
+    """bucket_merge_ref over per-split bucket_winners_ref tables equals the
+    unsplit bucket_winners_ref exactly, and both equal the reference's XLA
+    oracle; with ties, query 0's own vector sits in bucket 37 of tiles 0 and
+    1 and of the first tile of every split: the earliest row keeps it."""
+    n, d, b, w, per = case
+    emb, q = _inputs(n, d, b, seed=n + per)
+    at = copy_across_splits(emb, q[0], w, per, 37) if ties else []
+    e, qt = torch.from_numpy(emb), torch.from_numpy(q)
+    n_tiles = -(-n // w)
+    plan = topk.BucketPlan(1, w // topk.BUCKET_TILE, -(-n_tiles // per), per)
+    merged = topk.bucket_merge(*bucket_split_tables(e, qt, n, w, plan))
+    want = topk.bucket_winners_ref(e, qt, n, w)
+    assert torch.equal(merged[0], want[0]) and torch.equal(merged[1], want[1])
+    if at:
+        assert int(want[1][0, 37]) == at[0]
+    if n < w:
+        assert bool((want[0][:, n:] == topk.NEG_INF).all())
+        assert bool((want[1][:, n:] == 0).all())
+    n_pad = n_tiles * w
+    embp = np.zeros((n_pad, d), np.float32)
+    embp[:n] = emb
+    jv, ji = j_winners_xla(jnp.asarray(embp), jnp.asarray(q), jnp.asarray([n], jnp.int32), w)
+    assert torch.equal(want[1], torch.from_numpy(np.asarray(ji)))
+    np.testing.assert_allclose(want[0].numpy(), np.asarray(jv), atol=1e-5, rtol=0)
+
+
+def test_bucket_merge_rejects_what_the_kernel_does_not_take():
+    v = torch.zeros((2, 3, 128))
+    i = torch.zeros((2, 3, 128), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        topk.bucket_merge(v[0], i[0])
+    with pytest.raises(TypeError):
+        topk.bucket_merge(v.double(), i)
+    with pytest.raises(TypeError):
+        topk.bucket_merge(v, i.long())
+    assert all(torch.equal(x, y) for x, y in
+               zip(topk.bucket_merge(v, i), topk.bucket_merge_ref(v, i)))
+
+
+def test_bucket_route_from_shapes_and_dtypes():
+    """The wgmma route takes bf16 with 16-byte rows (staging mode 0 for both
+    operands), W a multiple of 128 and at least BUCKET_BATCH_FROM queries;
+    the first kernel everything else."""
+    at = topk.BUCKET_BATCH_FROM
+    assert topk.bucket_route(at, 200_000, 512, 0, 0, 0) == "wgmma"
+    assert topk.bucket_route(512, 200_000, 1024, 0, 0, 0) == "wgmma"
+    if at > 1:
+        assert topk.bucket_route(at - 1, 200_000, 512, 0, 0, 0) == "mma"
+    assert topk.bucket_route(512, 200_000, 512, 1, 0, 0) == "mma"      # f32
+    assert topk.bucket_route(512, 200_000, 512, 0, 2, 0) == "mma"      # (D, N)
+    assert topk.bucket_route(512, 200_000, 512, 0, 1, 0) == "mma"      # unaligned
+    assert topk.bucket_route(512, 200_000, 512, 0, 0, 1) == "mma"
+    assert topk.bucket_route(512, 200_000, 100, 0, 0, 0) == "mma"      # W % 128
+    assert topk.bucket_route(512, 0, 512, 0, 0, 0) == "mma"            # no rows
+    assert topk.bucket_route(0, 10, 512, 0, 0, 0) == "mma"             # no queries

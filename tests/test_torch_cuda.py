@@ -16,7 +16,8 @@ from anorag_tpu_torch.ops import bm25, ivf, topk
 from anorag_tpu_torch.testing import (ALL_IVF_CASES, BUCKET_CASES,
                                       SEGMENT_CASES, TOPK_CASES, TOPK_TIE_CASES,
                                       WINDOW_CASES, check_bucket_winners,
-                                      check_topk, clustered_corpus, flat_scores,
+                                      check_topk, clustered_corpus,
+                                      copy_across_splits, flat_scores,
                                       ivf_case, ivf_scores, segment_plan,
                                       sorted_plan, tie_rows, topk_case_tiles,
                                       topk_seed_choices, unit_rows)
@@ -311,8 +312,9 @@ def test_ivf_scan_on_the_card_asserts_on_offsets_past_the_corpus(cuda_device):
 def test_bucket_winners_kernel_matches_ref(cuda_device, dtype):
     """The kernel's (B, W) winners against bucket_winners_ref at every odd
     shape, in both corpus layouts; the transposed layout is staged
-    differently but summed in the same order, so it equals the row layout
-    exactly."""
+    differently by the first kernel but summed in the same order, so where
+    the row layout takes that kernel too the two are exactly equal (the
+    wgmma route sums in its own order and is held by check_bucket_winners)."""
     for n, d, b, w, tiles, k in BUCKET_CASES:
         rng = np.random.default_rng(n + d)
         emb = torch.from_numpy(unit_rows(rng, n, d)).to(cuda_device, dtype)
@@ -324,10 +326,96 @@ def test_bucket_winners_kernel_matches_ref(cuda_device, dtype):
         want = topk.bucket_winners_ref(emb, q, n, width)
         torch.cuda.synchronize()
         check_bucket_winners(got, want, emb, q)
+        route = topk.bucket_route(b, n, width, topk.kernel_dtype_code(emb),
+                                  topk.staging_mode(emb), topk.staging_mode(q))
         got_t = topk.bucket_winners(emb.T.contiguous(), q, n, width, transposed=True)
-        assert all(torch.equal(x, y) for x, y in zip(got_t, got)), (n, d, b, w)
         got_v = topk.bucket_winners(emb.T.contiguous().T, q, n, width)
-        assert all(torch.equal(x, y) for x, y in zip(got_v, got)), (n, d, b, w)
+        assert all(torch.equal(x, y) for x, y in zip(got_v, got_t)), (n, d, b, w)
+        if route == "mma":
+            assert all(torch.equal(x, y) for x, y in zip(got_t, got)), (n, d, b, w)
+        else:
+            check_bucket_winners(got_t, want, emb, q)
+
+
+def _bucket_cases_on_the_wgmma_route(dev):
+    """(name, n, d, b, w): several splits, n not a multiple of W, buckets
+    that no row reaches, B just under and at BUCKET_BATCH_FROM and past one
+    query tile, D not a multiple of the 64-column slices."""
+    at = topk.BUCKET_BATCH_FROM
+    cases = [("splits", 20_000, 256, 64, 512), ("ragged", 6001, 128, at, 256),
+             ("few rows", 300, 64, max(at, 3), 512), ("two q tiles", 9000, 96, 130, 128),
+             ("one split", 70_000, 128, 512, 2048), ("deep", 4000, 1024, 512, 512)]
+    if at > 1:
+        cases.append(("under the threshold", 6001, 128, at - 1, 256))
+    return cases
+
+
+@pytest.mark.cuda
+def test_bucket_winners_wgmma_route_matches_ref(cuda_device):
+    """bucket_winners on the wgmma route (bf16, 16-byte rows, W a multiple
+    of 128) against bucket_winners_ref, with the route that ran asserted:
+    the wgmma route from BUCKET_BATCH_FROM queries, the first kernel below;
+    the split tables' merge counted where the plan has several splits."""
+    for name, n, d, b, w in _bucket_cases_on_the_wgmma_route(cuda_device):
+        rng = np.random.default_rng(n + b)
+        emb = torch.from_numpy(unit_rows(rng, n, d)).to(cuda_device, torch.bfloat16)
+        q = torch.from_numpy(unit_rows(rng, b, d)).to(cuda_device, torch.bfloat16)
+        want_route = "wgmma" if b >= topk.BUCKET_BATCH_FROM else "mma"
+        routes = dict(topk.bucket_winners.route_launches)
+        merges = topk.bucket_merge.launches
+        got = topk.bucket_winners(emb, q, n, w)
+        torch.cuda.synchronize()
+        assert topk.bucket_winners.route_launches[want_route] == routes[want_route] + 1, name
+        plan = topk.bucket_work_plan(b, w, n, topk.bucket_slots(cuda_device.index or 0))
+        split_merge = want_route == "wgmma" and plan.splits > 1
+        assert topk.bucket_merge.launches == merges + split_merge, name
+        check_bucket_winners(got, topk.bucket_winners_ref(emb, q, n, w), emb, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["wgmma", "mma"])
+def test_bucket_winners_keeps_the_earliest_row_across_splits(cuda_device, route):
+    """A query's own vector in one bucket of every split's first tile (and
+    of tiles 0 and 1): both routes keep the earliest row, so the wgmma
+    route's merge keeps the earlier split's tie; every other bucket as the
+    plain version's."""
+    n, d, b, w = 30_000, 128, 64, 512
+    rng = np.random.default_rng(11)
+    rows, qn = unit_rows(rng, n, d), unit_rows(rng, b, d)
+    plan = topk.bucket_work_plan(b, w, n, topk.bucket_slots(cuda_device.index or 0))
+    assert plan.splits > 1
+    at = copy_across_splits(rows, qn[0], w, plan.per, 37)
+    emb = torch.from_numpy(rows).to(cuda_device, torch.bfloat16)
+    q = torch.from_numpy(qn).to(cuda_device, torch.bfloat16)
+    got = topk._launch_bucket(emb, q, n, w, route)
+    want = topk.bucket_winners_ref(emb, q, n, w)
+    torch.cuda.synchronize()
+    assert int(got[1][0, 37]) == at[0] == int(want[1][0, 37])
+    check_bucket_winners(got, want, emb, q)
+
+
+@pytest.mark.cuda
+def test_bucket_merge_kernel_matches_ref(cuda_device):
+    rng = np.random.default_rng(3)
+    v = torch.from_numpy(rng.integers(-3, 3, (6, 70, 256)).astype(np.float32))
+    i = torch.from_numpy(rng.integers(0, 1 << 30, (6, 70, 256)).astype(np.int32))
+    got = topk.bucket_merge(v.to(cuda_device), i.to(cuda_device))
+    want = topk.bucket_merge_ref(v, i)
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.cuda
+def test_bucket_wgmma_route_raises_on_what_it_does_not_take(cuda_device):
+    """Forced onto operands it does not take, the wgmma route raises: it
+    never runs the first kernel in its place."""
+    emb = torch.zeros((300, 64), dtype=torch.bfloat16, device=cuda_device)
+    q = torch.zeros((3, 64), dtype=torch.bfloat16, device=cuda_device)
+    before = dict(topk.bucket_winners.route_launches)
+    with pytest.raises(RuntimeError, match="wgmma"):
+        topk._launch_bucket(emb, q, 300, 100, "wgmma")            # W % 128
+    with pytest.raises(RuntimeError, match="wgmma"):
+        topk._launch_bucket(emb[:, :60], q[:, :60], 300, 128, "wgmma")  # 120-byte rows
+    assert topk.bucket_winners.route_launches == before
 
 
 @pytest.mark.cuda
