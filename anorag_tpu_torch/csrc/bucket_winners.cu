@@ -20,7 +20,7 @@
 // corpus tiles); the wrapper's plan (bucket_work_plan) cuts the tiles into
 // as many splits as fill one wave of CTAs, and the unit index runs over the
 // query tiles first, so the tiles of one (column tile, split) run side by
-// side and share the corpus rows in L2. One producer thread keeps a 4-stage
+// side and share the corpus rows in L2. One producer thread keeps a 5-stage
 // ring of TMA loads in flight behind mbarriers: for corpus tile t, 64-column
 // 128-byte-swizzled slices of the tile's queries and of rows
 // t W + cb + [0, 128), one box each (rows past n and B, columns past D:
@@ -296,7 +296,7 @@ int launch(const void* q, const void* e, long long esr, long long esc,
 }
 
 // ------------------------------------------------- the wgmma route (bf16)
-constexpr int kBwStages = 4;
+constexpr int kBwStages = 5;
 constexpr int kBwTile = 128;                     // queries and bucket columns of a unit
 constexpr int kBwSliceBytes = kBwTile * kSliceCols * 2;   // one stage's slice of either
 constexpr int kBwConsumers = 256;                // 2 consumer warpgroups
@@ -305,9 +305,24 @@ constexpr int kBwSmem = 1024 + kBwStages * 2 * kBwSliceBytes +
                         64 * kBwConsumers * (int)sizeof(int32_t) + kBwStages * 2 * 8;
 constexpr int kMergeCells = 256;                 // (query, bucket) cells a merge CTA
 
+// mbarrier arrival by the threads where `pred` holds, with no branch: a
+// branch around it would leave a divergent path that ptxas joins by
+// waiting for every wgmma in flight.
+__device__ __forceinline__ void mbar_arrive_if(uint64_t* bar, bool pred) {
+  asm volatile("{ .reg .pred p; setp.ne.b32 p, %1, 0; @p mbarrier.arrive.shared::cta.b64 _, [%0]; }"
+               ::"r"(smem_u32(bar)), "r"((int)pred) : "memory");
+}
+
+// A shared-memory store where `pred` holds, with no branch (as above).
+__device__ __forceinline__ void st_shared_if(uint32_t addr, int v, bool pred) {
+  asm volatile("{ .reg .pred p; setp.ne.b32 p, %2, 0; @p st.shared.b32 [%0], %1; }"
+               ::"r"(addr), "r"(v), "r"((int)pred) : "memory");
+}
+
 // Unit blockIdx.x = (split * c_tiles + column tile) * q_tiles + query tile;
 // the split is corpus tiles [split * per, (split + 1) * per). Writes the
-// unit's winners to out_v / out_i + split * B * W, (B, W) each.
+// unit's winners of queries < B to out_v / out_i + split * B * W, (B, W)
+// each (qmap may hold more rows: zeros past B).
 __global__ void __launch_bounds__(kBwThreads, 1)
 bucket_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap emap, int B, int n, int D, int W,
@@ -320,13 +335,10 @@ bucket_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int t_lo = split * per;
   const int t_hi = t_lo + per < n_tiles ? t_lo + per : n_tiles;
   const int n_chunks = (D + kSliceCols - 1) / kSliceCols;
-  const int steps = t_lo < t_hi ? (t_hi - t_lo) * n_chunks : 0;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  unsigned char* base = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
-  unsigned char* qs = base;                                  // stages x 128 queries
-  unsigned char* es = base + kBwStages * kBwSliceBytes;      // stages x 128 rows
+  unsigned char* qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* es = qs + kBwStages * kBwSliceBytes;        // stages x 128 rows
   // win_row[i * 256 + thread]: the row of the thread's winner i
   int32_t* win_row = reinterpret_cast<int32_t*>(es + kBwStages * kBwSliceBytes);
   uint64_t* full = reinterpret_cast<uint64_t*>(win_row + 64 * kBwConsumers);
@@ -340,16 +352,25 @@ bucket_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
   __syncthreads();
 
+  // registers: the producer warpgroup gives back what the consumers' 64
+  // accumulators and 64 winners need (128 x 40 + 256 x 232 <= 65,536)
   const int wg = threadIdx.x >> 7;
   if (wg == 2) {                                  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (threadIdx.x != kBwConsumers) return;
-    for (int t = 0; t < steps; ++t) {
-      const int st = t % kBwStages;
-      if (t >= kBwStages) mbar_wait(&empty[st], ((t / kBwStages) & 1) ^ 1);
-      const int row0 = (t_lo + t / n_chunks) * W + cb, c0 = (t % n_chunks) * kSliceCols;
-      mbar_expect_tx(&full[st], 2 * kBwSliceBytes);
-      tma_load(qs + st * kBwSliceBytes, &qmap, &full[st], c0, q0);
-      tma_load(es + st * kBwSliceBytes, &emap, &full[st], c0, row0);
+    int st = 0, phase = 0, t = 0;                 // ring position, slices issued
+    for (int tile = t_lo; tile < t_hi; ++tile) {
+      const int row0 = tile * W + cb;
+      for (int c0 = 0; c0 < D; c0 += kSliceCols, ++t) {
+        if (t >= kBwStages) mbar_wait(&empty[st], phase ^ 1);
+        mbar_expect_tx(&full[st], 2 * kBwSliceBytes);
+        tma_load(qs + st * kBwSliceBytes, &qmap, &full[st], c0, q0);
+        tma_load(es + st * kBwSliceBytes, &emap, &full[st], c0, row0);
+        if (++st == kBwStages) {
+          st = 0;
+          phase ^= 1;
+        }
+      }
     }
     return;
   }
@@ -357,8 +378,11 @@ bucket_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   // a consumer thread: acc[4 j + 2 h + c] is query 16 warp + g + 8 h of the
   // tile against row 8 j + 2 t4 + c of the unit's 128 (g = lane / 4, t4 =
   // lane % 4), and wv[4 j + 2 h + c] its winner's value
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int r_lane = 2 * (lane & 3);
+  const bool leader = (threadIdx.x & 127) == 0;
+  const uint32_t my_rows = smem_u32(win_row + threadIdx.x);
   float acc[64], wv[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) {
@@ -366,43 +390,46 @@ bucket_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     wv[i] = kNegInf;
     win_row[i * kBwConsumers + threadIdx.x] = 0;
   }
-  for (int t = 0; t < steps; ++t) {
-    const int st = t % kBwStages, chunk = t % n_chunks;
-    mbar_wait(&full[st], (t / kBwStages) & 1);
-    wgmma_fence_regs(acc);
-    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-    const uint64_t da = sw128_desc(qs + st * kBwSliceBytes + wg * 64 * kSliceCols * 2);
-    const uint64_t db = sw128_desc(es + st * kBwSliceBytes);
+  int st = 0, phase = 0, prev = 0;                // ring position; the slice before's stage
+  for (int tile = t_lo; tile < t_hi; ++tile) {
+    for (int chunk = 0; chunk < n_chunks; ++chunk) {
+      mbar_wait(&full[st], phase);
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+      const uint64_t da = sw128_desc(qs + st * kBwSliceBytes + wg * 64 * kSliceCols * 2);
+      const uint64_t db = sw128_desc(es + st * kBwSliceBytes);
 #pragma unroll
-    for (int kk = 0; kk < kSliceCols / 16; ++kk)   // 32 bytes of K a step
-      wgmma_m64n128(acc, da + 2 * kk, db + 2 * kk, chunk != 0 || kk != 0);
-    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-    // one slice's products in flight behind this one: the slice before is
-    // done, and its stage goes back to the producer
-    const bool leader = (threadIdx.x & 127) == 0;
-    if (chunk + 1 < n_chunks) {
+      for (int kk = 0; kk < kSliceCols / 16; ++kk)   // 32 bytes of K a step
+        wgmma_m64n128(acc, da + 2 * kk, db + 2 * kk, chunk != 0 || kk != 0);
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      // one slice's products stay in flight behind this one: the slice
+      // before is done, and its stage goes back to the producer
       asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
-      if (leader && chunk > 0) mbar_arrive(&empty[(t - 1) % kBwStages]);
-      continue;
+      mbar_arrive_if(&empty[prev], leader && chunk > 0);
+      prev = st;
+      if (++st == kBwStages) {
+        st = 0;
+        phase ^= 1;
+      }
     }
+    // the tile's last slice: waited for after the loop, so no path through
+    // the loop leaves products in flight that ptxas must wait for there
     asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    mbar_arrive_if(&empty[prev], leader);
     wgmma_fence_regs(acc);
-    if (leader) {
-      if (chunk > 0) mbar_arrive(&empty[(t - 1) % kBwStages]);
-      mbar_arrive(&empty[st]);
-    }
 
-    // the tile is complete: the bucket max on the accumulators
-    const int row0 = (t_lo + t / n_chunks) * W + cb + r_lane;
-    const bool whole = row0 - r_lane + kBwTile <= n;
+    // the tile is complete: the bucket max on the accumulators (strict,
+    // so the earlier tile keeps a tie); rows at or past n only in the last
+    const int row0 = tile * W + cb + r_lane;
+    if (row0 - r_lane + kBwTile > n) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i)
+        if (row0 + 8 * (i >> 2) + (i & 1) >= n) acc[i] = kNegInf;
+    }
 #pragma unroll
     for (int i = 0; i < 64; ++i) {
-      const int row = row0 + 8 * (i >> 2) + (i & 1);
-      const float s = whole || row < n ? acc[i] : kNegInf;
-      if (s > wv[i]) {                            // strict: the earlier tile keeps a tie
-        wv[i] = s;
-        win_row[i * kBwConsumers + threadIdx.x] = row;
-      }
+      const bool up = acc[i] > wv[i];             // strict: the earlier tile keeps a tie
+      wv[i] = up ? acc[i] : wv[i];
+      st_shared_if(my_rows + 4 * i * kBwConsumers, row0 + 8 * (i >> 2) + (i & 1), up);
     }
   }
 
@@ -492,29 +519,32 @@ extern "C" int anorag_bucket_slots(int device) {
   return per_sm * sms > 0 ? per_sm * sms : 1;
 }
 
-// The wgmma route. q (B, D) bf16 row-major, D a multiple of 8; corpus row
+// The wgmma route. q (q_rows >= B, D) bf16 row-major, D a multiple of 8;
+// rows past B are read, never written out (the wrapper fills the last
+// query tile so: a tile read past the tensor's end, which TMA fills with
+// zeros, streams slower); corpus row
 // r at e + r * esr (esr a multiple of 8, at least D), n >= 1 rows read;
 // q and e 16-byte aligned; W a multiple of 128. The plan: splits of per
 // corpus tiles covering the ceil(n / W) tiles, none empty (ops/topk.py
 // bucket_work_plan). out_v / out_i: (splits, B, W) f32 / int32, one table a
 // split (with one split, the output). Returns the CUDA error code (0 on
 // success); launches on `stream` of CUDA device `device`.
-extern "C" int anorag_bucket_winners_wgmma(const void* q, const void* e, long long esr,
-                                           long long B, long long n, int D, int W,
-                                           int splits, int per, void* out_v, void* out_i,
-                                           int device, void* stream) {
+extern "C" int anorag_bucket_winners_wgmma(const void* q, long long q_rows, const void* e,
+                                           long long esr, long long B, long long n, int D,
+                                           int W, int splits, int per, void* out_v,
+                                           void* out_i, int device, void* stream) {
   if (B <= 0) return 0;
   const long long n_tiles = n > 0 && W > 0 ? (n + W - 1) / W : 0;
   const long long q_tiles = (B + kBwTile - 1) / kBwTile, c_tiles = W / kBwTile;
   if (n < 1 || D < 1 || D % 8 != 0 || esr < D || esr % 8 != 0 || W < kBwTile ||
-      W % kBwTile != 0 || n + W > 0x7fffffffLL || B > 0x7fffffffLL || splits < 1 ||
+      W % kBwTile != 0 || n + W > 0x7fffffffLL || B > 0x7fffffffLL || q_rows < B || splits < 1 ||
       per < 1 || (long long)splits * per < n_tiles || (long long)(splits - 1) * per >= n_tiles ||
       q_tiles * c_tiles * splits > 0x7fffffffLL ||
       (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(e)) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   int err = (int)cudaSetDevice(device);
   CUtensorMap qmap, emap;
-  if (!err) err = make_map(&qmap, q, B, D, D, kBwTile);
+  if (!err) err = make_map(&qmap, q, q_rows, D, D, kBwTile);
   if (!err) err = make_map(&emap, e, n, D, esr, kBwTile);
   if (!err) err = bucket_set_smem();
   if (err) return err;

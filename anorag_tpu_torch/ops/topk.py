@@ -690,10 +690,6 @@ def bucket_winners_ref(emb: torch.Tensor, queries: torch.Tensor, n: int, w: int,
 
 
 BUCKET_TILE = 128           # queries and bucket columns of a wgmma unit (csrc kBwTile)
-# From this many queries a bf16 corpus of 16-byte rows with W a multiple of
-# BUCKET_TILE takes the wgmma route (bucket_route): where the routes cross
-# in side-by-side timings on the card (PERF.md).
-BUCKET_BATCH_FROM = 1
 
 
 class BucketPlan(NamedTuple):
@@ -718,7 +714,7 @@ def bucket_work_plan(b: int, w: int, n: int, slots: int) -> BucketPlan:
     ceil(n / w) corpus tiles cut into slots // (q_tiles * c_tiles) splits of
     equal whole tiles, at least one and at most one a tile."""
     n_tiles = -(-n // w)
-    q_tiles, c_tiles = -(-b // BUCKET_TILE), w // BUCKET_TILE
+    q_tiles, c_tiles = -(-b // BUCKET_TILE), -(-w // BUCKET_TILE)
     want = max(1, min(n_tiles, slots // (q_tiles * c_tiles)))
     per = -(-n_tiles // want)
     return BucketPlan(q_tiles, c_tiles, -(-n_tiles // per), per)
@@ -758,7 +754,7 @@ def bind_bucket(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.anorag_bucket_winners.restype = i
     lib.anorag_bucket_slots.argtypes = [i]
     lib.anorag_bucket_slots.restype = i
-    lib.anorag_bucket_winners_wgmma.argtypes = [p, p, ll, ll, ll, i, i, i, i,
+    lib.anorag_bucket_winners_wgmma.argtypes = [p, ll, p, ll, ll, ll, i, i, i, i,
                                                 p, p, i, p]
     lib.anorag_bucket_winners_wgmma.restype = i
     lib.anorag_bucket_merge.argtypes = [p, p, ll, i, p, p, i, p]
@@ -793,11 +789,11 @@ def bucket_route(b: int, n: int, w: int, code: int, e_mode: int, q_mode: int) ->
     """The bucket kernel's route for b queries over n rows into w buckets,
     dtype code (0 bf16, 1 f32) and the operands' staging modes: "wgmma" for
     bf16 with 16-byte rows (mode 0: TMA's strides) and w a multiple of
-    BUCKET_TILE from BUCKET_BATCH_FROM queries (rows and tile starts below
-    2^31); "mma" (the first kernel: mma.sync for bf16, FMAs for f32) for
-    everything else."""
+    BUCKET_TILE, at any batch (the route lines on the card put it ahead
+    from one query, PERF.md), rows and tile starts below 2^31; "mma" (the
+    first kernel: mma.sync for bf16, FMAs for f32) for everything else."""
     if (code == 0 and e_mode == 0 and q_mode == 0 and w % BUCKET_TILE == 0
-            and 1 <= n and n + w < 2**31 and b >= BUCKET_BATCH_FROM):
+            and 1 <= n and n + w < 2**31 and b >= 1):
         return "wgmma"
     return "mma"
 
@@ -839,8 +835,9 @@ def _launch_bucket(e: torch.Tensor, queries: torch.Tensor, n: int, w: int, route
     """bucket_winners's launch on checked CUDA operands (e the (N, D) view)
     through `route`: bucket_winners passes bucket_route's, chip_smoke.py
     times both routes through here. The wgmma route takes its plan from
-    bucket_work_plan and, with more than one split, merges the split tables
-    by bucket_merge. Counts one launch in bucket_winners.launches and in
+    bucket_work_plan, reads the queries in whole BUCKET_TILE-row tiles (a
+    zero-filled copy when B is not a multiple) and, with more than one
+    split, merges the split tables by bucket_merge. Counts one launch in bucket_winners.launches and in
     bucket_winners.route_launches[route]."""
     lib = _load_bucket()
     b, d = queries.shape
@@ -848,10 +845,14 @@ def _launch_bucket(e: torch.Tensor, queries: torch.Tensor, n: int, w: int, route
     stream = torch.cuda.current_stream(dev).cuda_stream
     if route == "wgmma":
         plan = bucket_work_plan(b, w, n, bucket_slots(dev.index))
+        q = queries
+        if b % BUCKET_TILE:     # whole query tiles: TMA's fill past the end is slower
+            q = queries.new_zeros((plan.q_tiles * BUCKET_TILE, d))
+            q[:b] = queries
         part_v = torch.empty((plan.splits, b, w), dtype=torch.float32, device=dev)
         part_i = torch.empty((plan.splits, b, w), dtype=torch.int32, device=dev)
         err = lib.anorag_bucket_winners_wgmma(
-            queries.data_ptr(), e.data_ptr(), e.stride(0), b, n, d, w, plan.splits,
+            q.data_ptr(), q.shape[0], e.data_ptr(), e.stride(0), b, n, d, w, plan.splits,
             plan.per, part_v.data_ptr(), part_i.data_ptr(), dev.index, stream)
     elif route == "mma":
         part_v = torch.empty((1, b, w), dtype=torch.float32, device=dev)

@@ -4,10 +4,11 @@ Counterpart of anorag_tpu/serving.py (ServingEngine :37). One dispatcher
 thread owns the device: it encodes each sub-batch and enqueues its hybrid
 search (CUDA work is asynchronous, so the card computes while the host
 moves on), with at most `depth` sub-batches in flight. A host worker pool
-finalizes each sub-batch as its results land. Callers get a Future per
-request; sub-batch results re-assemble in request order. The host stage
-returns the retrieval rows: the reference's answer stages are not ported
-yet. close() drains the queue and joins every thread the engine started.
+finalizes each sub-batch as its results land and keeps the rows of the
+request's dataset namespace (QueryProcessor._assemble_batch). Callers get
+a Future per request; sub-batch results re-assemble in request order. The
+host stage returns the retrieval rows: the reference's answer stages are
+not ported yet. close() drains the queue and joins every thread the engine started.
 """
 from __future__ import annotations
 
@@ -37,11 +38,12 @@ class ServingEngine:
         self._dispatcher.start()
 
     # ------------------------------------------------------------ public
-    def submit(self, queries: Sequence[str],
-               top_k: Optional[int] = None) -> "Future[List[List[Dict[str, Any]]]]":
+    def submit(self, queries: Sequence[str], top_k: Optional[int] = None,
+               dataset: Optional[str] = None) -> "Future[List[List[Dict[str, Any]]]]":
         """Enqueue a request; returns a Future resolving to one row list per
-        query, in order. The request is split into sub_batch chunks that
-        pipeline with every other in-flight request's chunks."""
+        query, in order, of the dataset namespace `dataset` (all when None).
+        The request is split into sub_batch chunks that pipeline with every
+        other in-flight request's chunks."""
         if self._closed:
             raise RuntimeError("engine closed")
         queries = [str(q) for q in queries]
@@ -64,13 +66,14 @@ class ServingEngine:
 
         for chunk, sf in zip(chunks, subs):
             sf.add_done_callback(_one_done)
-            self._q.put((chunk, top_k, sf))
+            self._q.put((chunk, top_k, dataset, sf))
         return out
 
     def process(self, queries: Sequence[str], top_k: Optional[int] = None,
+                dataset: Optional[str] = None,
                 timeout: Optional[float] = None) -> List[List[Dict[str, Any]]]:
         """Blocking submit()."""
-        return self.submit(queries, top_k=top_k).result(timeout)
+        return self.submit(queries, top_k=top_k, dataset=dataset).result(timeout)
 
     def close(self) -> None:
         if not self._closed:
@@ -91,7 +94,7 @@ class ServingEngine:
             item = self._q.get()
             if item is _STOP:
                 break
-            chunk, top_k, sf = item
+            chunk, top_k, dataset, sf = item
             if not chunk:
                 sf.set_result([])
                 continue
@@ -104,11 +107,12 @@ class ServingEngine:
                 self._inflight.release()
                 sf.set_exception(e)
                 continue
-            self._host_pool.submit(self._host_stage, handle, sf)
+            self._host_pool.submit(self._host_stage, handle, chunk, dataset, sf)
 
-    def _host_stage(self, handle, sf: Future) -> None:
+    def _host_stage(self, handle, chunk, dataset, sf: Future) -> None:
         try:
-            sf.set_result(self.qp.retriever.hybrid_search_finalize(handle))
+            rows = self.qp.retriever.hybrid_search_finalize(handle)
+            sf.set_result(self.qp._assemble_batch(rows, chunk, dataset))
         except Exception as e:
             logger.exception("host stage failed")
             sf.set_exception(e)

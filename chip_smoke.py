@@ -30,17 +30,25 @@ Phases, each printing its seconds:
                 versions' device times (CUDA events around launches back
                 to back), the wrappers' host time, the bound, and
                 torch.matmul + torch.topk as the library yardstick;
-  5. bucket  -- the bucket-winners kernel against its plain version at the
-                CPU tests' odd shapes (bf16 and f32, the (N, D) and the
-                transposed (D, N) corpus): values to atol 1e-5, ids equal
+  5. bucket  -- the bucket-winners kernel's two routes (wgmma for bf16
+                with 16-byte rows and W a multiple of 128, the first
+                mma.sync / FMA kernel for the rest) against their plain
+                version at the CPU tests' odd shapes (bf16 and f32, the
+                (N, D) and the transposed (D, N) corpus; both routes where
+                the wgmma route applies): values to atol 1e-5, ids equal
                 outside near ties (testing.check_bucket_winners); then at
                 the bench shape, the served 200,000 x 1024 bf16 corpus and
                 512 encoder queries, k 100, w 512, tiles 1 and 2 (W 512):
-                checked the same way, timed beside its bound, its plain
-                version and the library chain (torch.mm with f32 output, a
-                pad to whole tiles, max over the (B, N/W, W) view,
-                torch.topk), and bucket_topk's recall@10 against exact f32
-                on 64 queries, with its launches counted;
+                both routes checked the same way, also on a copy whose
+                bucket 37 holds one tied row in every split (the earliest
+                must win), the merge of the wgmma route's split tables
+                exactly equal to bucket_merge_ref; each timed beside its
+                bound and plain version, the routes beside the library
+                chain (torch.mm with f32 output, a pad to whole tiles, max
+                over the (B, N/W, W) view, torch.topk) and side by side at
+                B 1 to 512; bucket_topk's recall@10 against exact f32 on
+                64 queries, with the launches of both routes and the merge
+                counted;
   6. segment -- the segment-totals and segment-winners kernels exactly equal
                 to their plain versions (values, ids, row max) at the odd
                 shapes and at the first served batch's (512, 32,768) plan,
@@ -119,6 +127,8 @@ N_IVF, IVF_CENTRES, IVF_BATCHES, IVF_SINGLES = 5_000_000, 1000, 4, 64
 IVF_TILE_BATCHES = (1, 4, 16, 32, 64, 96, 128, 192, 256, 512)
 # batch sizes at which the streaming top-k kernel's two routes are timed
 TOPK_ROUTE_BATCHES = (1, 4, 16, 32, 48, 64, 128, 512)
+# batch sizes at which the bucket-winners kernel's two routes are timed
+BUCKET_ROUTE_BATCHES = (1, 16, 32, 48, 64, 128, 512)
 N_RETRIEVE = 32
 
 
@@ -403,24 +413,39 @@ def _dense_real_shapes(dev, emb, queries, seed: int, smi_line: str):
 
 
 def _bucket_phase(dev, emb, queries, smi_line: str):
-    """The bucket-winners kernel against its plain version at the odd
-    shapes and at the bench shape (emb (N, D) bf16, queries (B, D)), timed
-    beside its bound, its plain version and the library chain; bucket_topk's
-    recall@10 against exact f32 on 64 queries. Returns (max abs error,
-    launches of the bench-shape bucket_topk calls, timing numbers)."""
+    """The bucket-winners kernel's two routes and the merge of the wgmma
+    route's split tables against their plain versions, at the odd shapes
+    and at the bench shape (emb (N, D) bf16, queries (B, D)), ties across
+    splits included; each timed beside its bound and plain version, the
+    routes beside the library chain and side by side at B 1 to 512;
+    bucket_topk's main-path run counted, and its recall@10 against exact
+    f32 on 64 queries. Returns (numbers by kernel: "wgmma", "mma", "merge",
+    each with its max abs error; their launches in the main-path run)."""
     import numpy as np
     import torch
 
-    from anorag_tpu_torch.ops.topk import (NEG_INF, bucket_topk, bucket_width,
+    from anorag_tpu_torch.ops.topk import (NEG_INF, _launch_bucket, bucket_merge,
+                                           bucket_merge_ref, bucket_route,
+                                           bucket_slots, bucket_topk, bucket_width,
                                            bucket_winners, bucket_winners_ref,
-                                           top_k)
-    from anorag_tpu_torch.testing import (BUCKET_CASES, check_bucket_winners,
-                                          check_topk, flat_scores, unit_rows)
+                                           bucket_work_plan, kernel_dtype_code,
+                                           staging_mode, top_k)
+    from anorag_tpu_torch.testing import (BUCKET_CASES, bucket_split_tables,
+                                          check_bucket_winners, check_topk,
+                                          copy_across_splits, flat_scores, unit_rows)
 
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("the plain versions need full f32 matmuls: "
                              "torch.backends.cuda.matmul.allow_tf32 is on")
-    errs = []
+
+    def route_of(e, q, n, w):
+        return bucket_route(q.shape[0], n, w, kernel_dtype_code(e), staging_mode(e),
+                            staging_mode(q))
+
+    # Every odd shape through the route bucket_winners picks, the first
+    # kernel again where that was the wgmma route, the transposed corpus
+    # (the first kernel) and bucket_topk.
+    errs = {"wgmma": [], "mma": [], "merge": []}
     for dtype in (torch.bfloat16, torch.float32):
         for n, d, b, w, tiles, k in BUCKET_CASES:
             rng = np.random.default_rng(n + d)
@@ -428,16 +453,22 @@ def _bucket_phase(dev, emb, queries, smi_line: str):
             q = torch.from_numpy(unit_rows(rng, b, d)).to(dev, dtype)
             width, _ = bucket_width(b, d, e.element_size(), w, tiles, min(k, n))
             want = bucket_winners_ref(e, q, n, width)
-            errs.append(check_bucket_winners(bucket_winners(e, q, n, width), want, e, q))
-            errs.append(check_bucket_winners(
+            route = route_of(e, q, n, width)
+            errs[route].append(check_bucket_winners(bucket_winners(e, q, n, width), want,
+                                                    e, q))
+            if route == "wgmma":
+                errs["mma"].append(check_bucket_winners(
+                    _launch_bucket(e, q, n, width, "mma"), want, e, q))
+            errs["mma"].append(check_bucket_winners(
                 bucket_winners(e.T.contiguous(), q, n, width, transposed=True),
                 want, e, q))
-            errs.append(check_topk(bucket_topk(e, q, k, w=w, tiles=tiles),
-                                   bucket_topk(e, q, k, w=w, tiles=tiles, use_xla=True),
-                                   flat_scores(e, q)))
+            errs[route].append(check_topk(
+                bucket_topk(e, q, k, w=w, tiles=tiles),
+                bucket_topk(e, q, k, w=w, tiles=tiles, use_xla=True), flat_scores(e, q)))
     torch.cuda.synchronize()
-    print(f"bucket check: {len(errs)} odd-shape comparisons agree (both dtypes, both "
-          f"layouts, and bucket_topk), max abs err {max(errs):.3g}", flush=True)
+    print(f"bucket check: {len(errs['wgmma'])} wgmma-route and {len(errs['mma'])} "
+          f"first-kernel odd-shape comparisons agree (both dtypes, both layouts, and "
+          f"bucket_topk), max abs err {max(errs['wgmma'] + errs['mma']):.3g}", flush=True)
 
     queries = queries.contiguous()
     (b, d), n, k = queries.shape, emb.shape[0], 100
@@ -446,12 +477,46 @@ def _bucket_phase(dev, emb, queries, smi_line: str):
     width = widths[1][0]
     if any(wt[0] != 512 for wt in widths.values()):
         raise AssertionError(f"the width rule gave {widths}, not W 512")
-    errs.append(check_bucket_winners(bucket_winners(emb, queries, n, width),
-                                     bucket_winners_ref(emb, queries, n, width),
-                                     emb, queries))
+    if route_of(emb, queries, n, width) != "wgmma":
+        raise AssertionError("the bench shape does not take the wgmma route")
+    plan = bucket_work_plan(b, width, n, bucket_slots(dev.index or 0))
+    want = bucket_winners_ref(emb, queries, n, width)
+    for route in ("wgmma", "mma"):
+        errs[route].append(check_bucket_winners(
+            _launch_bucket(emb, queries, n, width, route), want, emb, queries))
+    # the merge, on the split tables by plain arithmetic: exactly equal
+    part = bucket_split_tables(emb, queries, n, width, plan)
+    merged = bucket_merge(*part)
+    if not all(torch.equal(x, y) for x, y in zip(merged, bucket_merge_ref(*part))):
+        raise AssertionError("bucket_merge differs from bucket_merge_ref")
+    errs["merge"].append(check_bucket_winners(merged, want, emb, queries))
+    # ties across splits: query 0's own vector in bucket 37 of tiles 0 and 1
+    # and of every split's first tile; the earliest row must win
+    tied = emb.clone()
+    at = copy_across_splits(tied, queries[0], width, plan.per, 37)
+    want_t = bucket_winners_ref(tied, queries, n, width)
+    for route in ("wgmma", "mma"):
+        got = _launch_bucket(tied, queries, n, width, route)
+        errs[route].append(check_bucket_winners(got, want_t, tied, queries))
+        if int(got[1][0, 37]) != at[0] or int(want_t[1][0, 37]) != at[0]:
+            raise AssertionError(f"the {route} route lost the earliest of the tied rows "
+                                 f"{at[:4]}...: {int(got[1][0, 37])}")
+    del tied, want_t, want
+    print(f"bucket at the bench shape: both routes equal to the plain version, the "
+          f"merge of {plan.splits} split tables exactly equal to bucket_merge_ref, and "
+          f"a tie over {len(at)} rows across the splits kept by its earliest row on "
+          f"both routes", flush=True)
+
     ms, host_ms = _time_ms(lambda: bucket_winners(emb, queries, n, width), n=5, reps=7)
+    mma_ms, _ = _time_ms(lambda: _launch_bucket(emb, queries, n, width, "mma"),
+                         n=5, reps=7)
     plain_ms, _ = _time_ms(lambda: bucket_winners_ref(emb, queries, n, width),
                            n=1, reps=3, warm=1)
+    merge_ms, _ = _time_ms(lambda: bucket_merge(*part), n=5, reps=7)
+    merge_plain_ms, _ = _time_ms(lambda: bucket_merge_ref(*part), n=5, reps=7)
+    merge_bytes = part[0].numel() * 8 + b * width * 8
+    merge_bound_ms = 1e3 * merge_bytes / HBM_BYTES_PER_S
+    del part, merged
     n_pad = -(-n // width) * width
 
     def library():
@@ -461,14 +526,18 @@ def _bucket_phase(dev, emb, queries, smi_line: str):
         tv, tp = torch.topk(v, k)
         return tv, t.gather(1, tp) * width + tp
 
-    # bucket_topk at the bench shape, tiles 1 and 2, launches counted from 0
+    # bucket_topk at the bench shape, tiles 1 and 2: the main path, its
+    # kernels' launches counted from 0
     torch.cuda.synchronize()
-    bucket_winners.launches = 0
+    bucket_winners.launches = bucket_merge.launches = 0
+    bucket_winners.route_launches = {"wgmma": 0, "mma": 0}
     runs = [bucket_topk(emb, queries, k, w=512, tiles=tiles) for tiles in (1, 2)]
     torch.cuda.synchronize()
-    launches = bucket_winners.launches
-    if launches != 2 or not torch.equal(runs[0][1], runs[1][1]):
-        raise AssertionError(f"bucket_topk at tiles 1 and 2: {launches} launches, "
+    launches = dict(bucket_winners.route_launches, merge=bucket_merge.launches)
+    if (bucket_winners.launches != 2 or launches["wgmma"] != 2
+            or launches["merge"] != 2 * (plan.splits > 1)
+            or not torch.equal(runs[0][1], runs[1][1])):
+        raise AssertionError(f"bucket_topk at tiles 1 and 2: launches {launches}, "
                              f"ids equal {torch.equal(runs[0][1], runs[1][1])}")
     lib_gap = float((library()[0] - runs[0][0]).abs().max())
     if lib_gap > 1e-5:
@@ -476,12 +545,32 @@ def _bucket_phase(dev, emb, queries, smi_line: str):
                              f"bucket_topk's by {lib_gap}")
     lib_ms, _ = _time_ms(library, n=5, reps=7)
     bound_ms, bound_by = _topk_bound(b, n, d, width, emb.element_size())
-    print(f"bucket_winners {b} x {n} x {d} {emb.dtype} W {width}: kernel {ms:.4f} ms "
-          f"a launch, wrapper's host path {host_ms:.4f} ms a call, plain {plain_ms:.4f} "
-          f"ms, library chain (torch.mm f32 out, pad, max over the (B, N/W, W) view, "
-          f"torch.topk k {k}: four calls) {lib_ms:.4f} ms, its values equal "
-          f"bucket_topk's to {lib_gap:.3g}; bound {bound_ms:.4f} ms ({bound_by}) "
-          f"| {smi_line}", flush=True)
+    print(f"bucket_winners {b} x {n} x {d} {emb.dtype} W {width}: wgmma route "
+          f"{ms:.4f} ms a call ({plan.splits} splits of {plan.per} tiles, "
+          f"{plan.units} units, the merge included), wrapper's host path "
+          f"{host_ms:.4f} ms a call; first kernel {mma_ms:.4f} ms; plain "
+          f"{plain_ms:.4f} ms; library chain (torch.mm f32 out, pad, max over the "
+          f"(B, N/W, W) view, torch.topk k {k}: four calls) {lib_ms:.4f} ms, its "
+          f"values equal bucket_topk's to {lib_gap:.3g}; bound {bound_ms:.4f} ms "
+          f"({bound_by}) | {smi_line}", flush=True)
+    print(f"bucket_merge of {plan.splits} x {b} x {width} split tables: kernel "
+          f"{merge_ms:.4f} ms, plain {merge_plain_ms:.4f} ms, bound "
+          f"{merge_bound_ms:.4f} ms (bytes: {merge_bytes / 1e6:.1f} MB) | {smi_line}",
+          flush=True)
+
+    # both routes side by side, each checked, so BUCKET_BATCH_FROM is measured
+    for bq in BUCKET_ROUTE_BATCHES:
+        q = queries[:bq].contiguous()
+        want = bucket_winners_ref(emb, q, n, width)
+        times = {}
+        for route in ("mma", "wgmma"):
+            errs[route].append(check_bucket_winners(
+                _launch_bucket(emb, q, n, width, route), want, emb, q))
+            times[route], _ = _time_ms(lambda: _launch_bucket(emb, q, n, width, route),
+                                       n=5, reps=7)
+        print(f"bucket route B {bq} W {width}: first kernel {times['mma']:.4f} ms, "
+              f"wgmma route {times['wgmma']:.4f} ms; bucket_route picks "
+              f"{route_of(emb, q, n, width)} | {smi_line}", flush=True)
 
     # recall@10 of the tiles-1 run's first 64 queries against exact f32
     nq = 64
@@ -492,24 +581,31 @@ def _bucket_phase(dev, emb, queries, smi_line: str):
     print(f"bucket_topk k {k}, w 512, tiles 1 and 2 (W {width}): launches {launches}, "
           f"ids equal across tiles; recall@10 of {nq} queries against exact f32 "
           f"{recall:.4f} (expected about 1 - 9/1024 = 0.9912)", flush=True)
-    return max(errs), launches, dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                     bound_by=bound_by, library_ms=lib_ms)
+    chain = dict(plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 library_ms=lib_ms)
+    return {"wgmma": dict(ms=ms, max_abs_err=max(errs["wgmma"]), **chain),
+            "mma": dict(ms=mma_ms, max_abs_err=max(errs["mma"]), **chain),
+            "merge": dict(ms=merge_ms, max_abs_err=max(errs["merge"]),
+                          plain_ms=merge_plain_ms, bound_ms=merge_bound_ms,
+                          bound_by="bytes", library_ms=None)}, launches
 
 
-def _bench_phase(dev, smi_line: str) -> int:
+def _bench_phase(dev, smi_line: str) -> dict:
     """anorag_tpu_torch.bench in-process: kernel_parity, the 200,000-doc
     bench_hybrid with its recall gate, bench_encoder. Every kernel they
     reach (counted from 0 just before) must launch. Returns the
-    bucket-winners kernel's launches."""
+    bucket-winners routes' launches and the merge's."""
     import torch
 
     from anorag_tpu_torch import bench
     from anorag_tpu_torch.ops import bm25, topk
 
-    counted = (topk.bucket_winners, bm25.window_winners, bm25.segment_winners)
+    counted = (topk.bucket_winners, bm25.window_winners, bm25.segment_winners,
+               topk.bucket_merge)
     torch.cuda.synchronize()
     for fn in counted:
         fn.launches = 0
+    topk.bucket_winners.route_launches = {"wgmma": 0, "mma": 0}
     parity = bench.kernel_parity(dev)
     headline = bench.bench_hybrid(200_000, cpu_baseline=True, keep_ctx=True,
                                   device=dev)
@@ -525,10 +621,10 @@ def _bench_phase(dev, smi_line: str) -> int:
     if rec < bench.RECALL_GATE:
         raise AssertionError(f"bench recall@10 vs exact f32 {rec:.4f} < the gate "
                              f"{bench.RECALL_GATE}")
-    idle = [name for name, n in launches.items() if n < 1]
+    idle = [name for name, n in launches.items() if n < 1 and name != "bucket_merge"]
     if idle:
         raise AssertionError(f"the bench launched no {idle}")
-    return launches["bucket_winners"]
+    return dict(topk.bucket_winners.route_launches, merge=launches["bucket_merge"])
 
 
 def _search_phase(dev, em, notes, emb, requests, smi_line: str):
@@ -1143,7 +1239,7 @@ def run(dev, seed: int = 0):
     t = _phase("kernels", t)
 
     # 5. bucket: the bucket-winners kernel, odd shapes and the bench shape
-    bucket_err, bucket_launches, bucket_main = _bucket_phase(
+    bucket_main, bucket_launches = _bucket_phase(
         dev, retriever.index.flat_device_emb(), batch.q_emb, smi_line)
     t = _phase("bucket", t)
 
@@ -1266,7 +1362,12 @@ def run(dev, seed: int = 0):
     t = _phase("search", t)
 
     # 11. bench: the port's benchmark entry point, in-process
-    bucket_launches += _bench_phase(dev, smi_line)
+    for name, count in _bench_phase(dev, smi_line).items():
+        bucket_launches[name] += count
+    idle = [name for name, count in bucket_launches.items() if count < 1]
+    if idle:
+        raise AssertionError(f"the bucket phase and the bench launched no bucket "
+                             f"kernel {idle}: {bucket_launches}")
     t = _phase("bench", t)
 
     # 12. ivf: the default IVFFlat index at 5,000,000 rows
@@ -1322,8 +1423,31 @@ def run(dev, seed: int = 0):
     }, *segment_kernels, {
         "name": "bucket_winners", "route": "cuda",
         "source": "anorag_tpu_torch/csrc/bucket_winners.cu",
+        "design": "the wgmma route (bf16, 16-byte rows, W a multiple of 128): "
+                  "units of 128 queries x 128 bucket columns x a split of the "
+                  "corpus tiles filling one wave; a producer thread keeps a "
+                  "5-stage TMA ring of 64-column slices, two consumer "
+                  "warpgroups run wgmma m64n128k16 and take the bucket max on "
+                  "the accumulators (setmaxnreg: consumers 232 registers)",
         "replaces": "anorag_tpu/ops/topk.py:172",
-        "launches": bucket_launches, "max_abs_err": bucket_err, **bucket_main,
+        "launches": bucket_launches["wgmma"], **bucket_main["wgmma"],
+    }, {
+        "name": "bucket_winners_mma", "route": "cuda",
+        "source": "anorag_tpu_torch/csrc/bucket_winners.cu",
+        "design": "the first kernel, the route for f32 (FMAs), the transposed "
+                  "corpus, unaligned rows and W not a multiple of 128: 32-query "
+                  "x 64-column tiles, mma.sync m16n8k16, a 3-stage cp.async ring",
+        "part_of": "bucket_winners",
+        "replaces": "anorag_tpu/ops/topk.py:172",
+        "launches": bucket_launches["mma"], **bucket_main["mma"],
+    }, {
+        "name": "bucket_merge", "route": "cuda",
+        "source": "anorag_tpu_torch/csrc/bucket_winners.cu",
+        "design": "part of bucket_winners: the wgmma route's split tables "
+                  "merged per cell by strict > in split order",
+        "part_of": "bucket_winners",
+        "replaces": "anorag_tpu/ops/topk.py:172",
+        "launches": bucket_launches["merge"], **bucket_main["merge"],
     }]}, smi_line, kind
 
 

@@ -270,13 +270,12 @@ def test_bucket_merge_rejects_what_the_kernel_does_not_take():
 
 def test_bucket_route_from_shapes_and_dtypes():
     """The wgmma route takes bf16 with 16-byte rows (staging mode 0 for both
-    operands), W a multiple of 128 and at least BUCKET_BATCH_FROM queries;
-    the first kernel everything else."""
-    at = topk.BUCKET_BATCH_FROM
-    assert topk.bucket_route(at, 200_000, 512, 0, 0, 0) == "wgmma"
+    operands) and W a multiple of 128, from one query; the first kernel
+    everything else."""
+    assert topk.bucket_route(1, 200_000, 512, 0, 0, 0) == "wgmma"
     assert topk.bucket_route(512, 200_000, 1024, 0, 0, 0) == "wgmma"
-    if at > 1:
-        assert topk.bucket_route(at - 1, 200_000, 512, 0, 0, 0) == "mma"
+    assert topk.bucket_route(70, 5, 128, 0, 0, 0) == "wgmma"
+    assert topk.bucket_route(512, 2**31 - 256, 512, 0, 0, 0) == "mma"  # past 2^31
     assert topk.bucket_route(512, 200_000, 512, 1, 0, 0) == "mma"      # f32
     assert topk.bucket_route(512, 200_000, 512, 0, 2, 0) == "mma"      # (D, N)
     assert topk.bucket_route(512, 200_000, 512, 0, 1, 0) == "mma"      # unaligned

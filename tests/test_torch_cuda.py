@@ -337,38 +337,34 @@ def test_bucket_winners_kernel_matches_ref(cuda_device, dtype):
             check_bucket_winners(got_t, want, emb, q)
 
 
-def _bucket_cases_on_the_wgmma_route(dev):
-    """(name, n, d, b, w): several splits, n not a multiple of W, buckets
-    that no row reaches, B just under and at BUCKET_BATCH_FROM and past one
-    query tile, D not a multiple of the 64-column slices."""
-    at = topk.BUCKET_BATCH_FROM
-    cases = [("splits", 20_000, 256, 64, 512), ("ragged", 6001, 128, at, 256),
-             ("few rows", 300, 64, max(at, 3), 512), ("two q tiles", 9000, 96, 130, 128),
-             ("one split", 70_000, 128, 512, 2048), ("deep", 4000, 1024, 512, 512)]
-    if at > 1:
-        cases.append(("under the threshold", 6001, 128, at - 1, 256))
-    return cases
+# (name, n, d, b, w) on the wgmma route: several splits, n not a multiple
+# of W, buckets that no row reaches, one query, a batch past one query tile
+# and not a multiple of it, D not a multiple of the 64-column slices, one
+# split (the (query tile, column tile) pairs fill the wave)
+BUCKET_WGMMA_CASES = [("splits", 20_000, 256, 64, 512), ("ragged", 6001, 128, 1, 256),
+                      ("few rows", 300, 64, 3, 512), ("two q tiles", 9000, 96, 130, 128),
+                      ("one split", 70_000, 128, 1200, 2048), ("deep", 4000, 1024, 512, 512)]
 
 
 @pytest.mark.cuda
 def test_bucket_winners_wgmma_route_matches_ref(cuda_device):
     """bucket_winners on the wgmma route (bf16, 16-byte rows, W a multiple
-    of 128) against bucket_winners_ref, with the route that ran asserted:
-    the wgmma route from BUCKET_BATCH_FROM queries, the first kernel below;
-    the split tables' merge counted where the plan has several splits."""
-    for name, n, d, b, w in _bucket_cases_on_the_wgmma_route(cuda_device):
+    of 128) against bucket_winners_ref, with the route that ran asserted
+    and the split tables' merge counted where the plan has several
+    splits."""
+    for name, n, d, b, w in BUCKET_WGMMA_CASES:
         rng = np.random.default_rng(n + b)
         emb = torch.from_numpy(unit_rows(rng, n, d)).to(cuda_device, torch.bfloat16)
         q = torch.from_numpy(unit_rows(rng, b, d)).to(cuda_device, torch.bfloat16)
-        want_route = "wgmma" if b >= topk.BUCKET_BATCH_FROM else "mma"
         routes = dict(topk.bucket_winners.route_launches)
         merges = topk.bucket_merge.launches
         got = topk.bucket_winners(emb, q, n, w)
         torch.cuda.synchronize()
-        assert topk.bucket_winners.route_launches[want_route] == routes[want_route] + 1, name
+        assert topk.bucket_winners.route_launches == dict(routes, wgmma=routes["wgmma"] + 1), name
         plan = topk.bucket_work_plan(b, w, n, topk.bucket_slots(cuda_device.index or 0))
-        split_merge = want_route == "wgmma" and plan.splits > 1
-        assert topk.bucket_merge.launches == merges + split_merge, name
+        assert topk.bucket_merge.launches == merges + (plan.splits > 1), name
+        if name in ("splits", "one split"):
+            assert (plan.splits > 1) == (name == "splits"), (name, plan)
         check_bucket_winners(got, topk.bucket_winners_ref(emb, q, n, w), emb, q)
 
 

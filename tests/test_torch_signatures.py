@@ -20,6 +20,7 @@ from anorag_tpu.ops import ivf as jivf
 from anorag_tpu.ops import topk as jtopk
 from anorag_tpu.query import processor as jproc
 from anorag_tpu.retrieval import retriever as jret
+from anorag_tpu import serving as jserving
 from anorag_tpu_torch import bench as tbench
 from anorag_tpu_torch.index import bm25_index as tindex
 from anorag_tpu_torch.index import vector_index as tvi
@@ -28,6 +29,7 @@ from anorag_tpu_torch.ops import ivf as tivf
 from anorag_tpu_torch.ops import topk as ttopk
 from anorag_tpu_torch.query import processor as tproc
 from anorag_tpu_torch.retrieval import retriever as tret
+from anorag_tpu_torch import serving as tserving
 
 # The port's names for the reference's.
 RENAMES = {"use_pallas": "use_kernel"}   # the kernels are CUDA, not Pallas
@@ -49,10 +51,7 @@ PALLAS_ONLY = {
 }
 
 # Parameters still to come, by the function that lacks them.
-DEFERRED = {
-    ("QueryProcessor.process_batch", "dataset"):
-        "the answer stages behind _assemble_batch (ROADMAP queue 1 item 3)",
-}
+DEFERRED = {}
 
 # (label, reference callable, port callable)
 PAIRS = [
@@ -65,6 +64,8 @@ PAIRS = [
                 "hybrid_search_dispatch", "hybrid_search_finalize")],
     ("QueryProcessor.process_batch", jproc.QueryProcessor.process_batch,
      tproc.QueryProcessor.process_batch),
+    *[(f"ServingEngine.{m}", getattr(jserving.ServingEngine, m),
+       getattr(tserving.ServingEngine, m)) for m in ("__init__", "submit", "process")],
     *[(name, getattr(jtopk, name), getattr(ttopk, name))
       for name in ("dense_topk", "dense_topk_np", "hybrid_topk",
                    "hybrid_fuse", "hybrid_topk_bucketed",

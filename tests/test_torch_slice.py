@@ -26,9 +26,11 @@ import jax
 
 from anorag_tpu.config import ConfigLoader
 from anorag_tpu.query.processor import QueryProcessor as JQueryProcessor
+from anorag_tpu.query.processor import filter_notes_by_namespace as j_filter
 from anorag_tpu_torch.models.embedding_manager import EmbeddingManager
 from anorag_tpu_torch.models.encoder import EncoderConfig, params_from_jax
-from anorag_tpu_torch.query.processor import QueryProcessor
+from anorag_tpu_torch.query.processor import (QueryProcessor,
+                                              filter_notes_by_namespace)
 from anorag_tpu_torch.serving import ServingEngine
 
 from conftest import make_notes
@@ -149,6 +151,50 @@ def test_serving_engine_matches_process_batch_and_joins_threads():
         engine.submit(QUERIES)
 
 
+_CANDIDATES = [{"note_id": "a", "namespace": "ds1"}, {"note_id": "b", "dataset": "ds2"},
+               {"note_id": "c"}, {"note_id": "d", "namespace": 1, "dataset": "ds1"},
+               {"note_id": "e", "namespace": "ds2", "dataset": "ds1"}]
+
+
+@pytest.mark.parametrize("namespace", [None, "", "ds1", "ds2", 1, "other"])
+def test_filter_notes_by_namespace_equals_the_reference(namespace):
+    assert filter_notes_by_namespace(_CANDIDATES, namespace) == \
+        j_filter(_CANDIDATES, namespace)
+
+
+def test_process_batch_filters_by_dataset_as_the_reference_does():
+    """Notes of two namespaces ("namespace" and "dataset" keys) and notes of
+    none: the port's process_batch(queries, "ds1") gives each query the
+    reference's filter_notes_by_namespace over the reference retriever's
+    hybrid_search rows (top_k retrieved, then filtered, never more
+    retrieved), and ServingEngine carries dataset= through to the same
+    rows."""
+    notes = _notes(n_extra=200, seed=2)
+    for i, n in enumerate(notes):
+        if i % 3 == 0:
+            n["namespace"] = "ds1"
+        elif i % 3 == 1:
+            n["dataset"] = "ds2"
+    loader = _loader()
+    jqp = JQueryProcessor(notes, cfg=loader, llm=None)
+    qp = QueryProcessor(notes, cfg=loader.as_dict(), device="cpu")
+    top_k = loader.get("context.max_notes_for_llm")
+    want = [j_filter(rows, "ds1") for rows in jqp.retriever.hybrid_search(QUERIES, top_k=top_k)]
+    got = qp.process_batch(QUERIES, "ds1")
+    _assert_same_rows(got, want, atol=1e-5)
+    assert all(0 < len(rows) < top_k for rows in got)
+    assert all(n.get("namespace", "ds1") == "ds1" and "dataset" not in n
+               for rows in got for n in rows)
+    _assert_same_rows(qp.process_batch(QUERIES, None, 5), qp.process_batch(QUERIES, top_k=5),
+                      atol=0)
+    with ServingEngine(qp, sub_batch=3, depth=2) as engine:
+        served = engine.process(QUERIES, dataset="ds1", timeout=60)
+        unfiltered = engine.submit(QUERIES[:3], 4).result(timeout=60)
+    _assert_same_rows(served, [r for i in range(0, len(QUERIES), 3)
+                               for r in qp.process_batch(QUERIES[i:i + 3], "ds1")], atol=0)
+    _assert_same_rows(unfiltered, qp.process_batch(QUERIES[:3], top_k=4), atol=0)
+
+
 # ------------------------------------------------------------ package rules
 def _port_files():
     return sorted((ROOT / "anorag_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -174,7 +220,8 @@ def test_port_runs_with_jax_blocked():
         import sys
         sys.modules["jax"] = None
         sys.modules["anorag_tpu"] = None
-        from anorag_tpu_torch.query.processor import QueryProcessor
+        from anorag_tpu_torch.query.processor import (QueryProcessor,
+                                              filter_notes_by_namespace)
         notes = [{"note_id": f"n{i}", "title": f"t{i}",
                   "content": f"alpha beta item{i} gamma{i % 3}"} for i in range(40)]
         cfg = {"embedding": {"backend": "hash", "dim": 32},

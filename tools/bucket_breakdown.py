@@ -9,9 +9,10 @@ replacement must match exactly once, so an edit of the source fails here
 loudly instead of timing something else), built with the package's nvcc
 flags into anorag_tpu_torch/_build/variants/. Variants: the first kernel
 (route "mma") in full, loads alone (no products), products alone (no
-loads), no epilogue (no compare with the winners) and no CTA barrier per
-step (wrong results: timing only); the wgmma route in full, loads alone,
-products alone, no epilogue, and 3 or 5 ring stages. All run at 512 x
+loads), no epilogue (the compare with the winners on the last tile only)
+and no CTA barrier per step (wrong results: timing only); the wgmma route in full, loads alone,
+products alone, no epilogue, loads or products alone without the
+epilogue, without setmaxnreg, and 4 ring stages (5 shipped). All run at 512 x
 200,000 x 1024 bf16, W 512 (the bench shape of chip_smoke.py's bucket
 phase), in turns within one process, CUDA events around 5 launches back
 to back, median of --reps; then both shipped routes at B 1 to 512. Prints
@@ -31,6 +32,16 @@ sys.path.insert(0, str(ROOT))
 
 MMA = "mma"
 WG = "wgmma"
+LOADS_ALONE = [("      wgmma_m64n128(acc, da + 2 * kk, db + 2 * kk, chunk != 0 || kk != 0);\n",
+                "      ;\n")]
+PRODUCTS_ALONE = [("      mbar_expect_tx(&full[st], 2 * kBwSliceBytes);\n",
+                   "      mbar_arrive(&full[st]);\n"),
+                  ("      tma_load(qs + st * kBwSliceBytes, &qmap, &full[st], c0, q0);\n", ""),
+                  ("      tma_load(es + st * kBwSliceBytes, &emap, &full[st], c0, row0);\n", "")]
+# the bucket max on the last tile only: the accumulators stay live, so the
+# products are kept (with no use at all the compiler drops them)
+NO_EPILOGUE = [("      const bool up = acc[i] > wv[i];             // strict: the earlier tile keeps a tie\n",
+                "      const bool up = tile + 1 == t_hi && acc[i] > wv[i];\n")]
 VARIANTS = {
     "mma full": (MMA, []),
     "mma loads alone": (MMA, [("    slice_scores(qs, qs + kBQ * L::kStride, acc);\n", "")]),
@@ -39,29 +50,25 @@ VARIANTS = {
         ("    if (step + L::kStages - 1 < steps) load_next(buf_ld);\n", "")]),
     "mma no epilogue": (MMA, [
         ("          if (s > wv[j][i]) {                      // strict: earlier tile keeps ties\n",
-         "          if (false) {\n")]),
+         "          if (step + 1 == steps && s > wv[j][i]) {\n")]),
     "mma no barrier": (MMA, [
         ("    __syncthreads();                  // everyone's did; step - 1's buffer is free\n",
          "")]),
     "wgmma full": (WG, []),
-    "wgmma loads alone": (WG, [
-        ("      wgmma_m64n128(acc, da + 2 * kk, db + 2 * kk, chunk != 0 || kk != 0);\n",
-         "      ;\n")]),
-    "wgmma products alone": (WG, [
-        ("      mbar_expect_tx(&full[st], 2 * kBwSliceBytes);\n",
-         "      mbar_arrive(&full[st]);\n"),
-        ("      tma_load(qs + st * kBwSliceBytes, &qmap, &full[st], c0, q0);\n", ""),
-        ("      tma_load(es + st * kBwSliceBytes, &emap, &full[st], c0, row0);\n", "")]),
-    "wgmma no epilogue": (WG, [
-        ("      if (s > wv[i]) {                            // strict: the earlier tile keeps a tie\n",
-         "      if (false) {\n")]),
-    "wgmma 3 stages": (WG, [("constexpr int kBwStages = 4;", "constexpr int kBwStages = 3;")]),
-    "wgmma 5 stages": (WG, [("constexpr int kBwStages = 4;", "constexpr int kBwStages = 5;")]),
+    "wgmma loads alone": (WG, LOADS_ALONE),
+    "wgmma products alone": (WG, PRODUCTS_ALONE),
+    "wgmma no epilogue": (WG, NO_EPILOGUE),
+    "wgmma loads alone, no epilogue": (WG, LOADS_ALONE + NO_EPILOGUE),
+    "wgmma products alone, no epilogue": (WG, PRODUCTS_ALONE + NO_EPILOGUE),
+    "wgmma no setmaxnreg": (WG, [
+        ("    asm volatile(\"setmaxnreg.dec.sync.aligned.u32 40;\\n\" ::: \"memory\");\n", ""),
+        ("  asm volatile(\"setmaxnreg.inc.sync.aligned.u32 232;\\n\" ::: \"memory\");\n", "")]),
+    "wgmma 4 stages": (WG, [("constexpr int kBwStages = 5;", "constexpr int kBwStages = 4;")]),
 }
 ROUTE_BATCHES = (1, 16, 32, 48, 64, 128, 512)
 
 
-def build(name: str, edits) -> Path:
+def build(name: str, edits, sass_dir=None) -> Path:
     from anorag_tpu_torch import _build
 
     src = (_build.CSRC / "bucket_winners.cu").read_text()
@@ -79,16 +86,23 @@ def build(name: str, edits) -> Path:
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name!r}:\n{proc.stdout}")
-    if name.endswith("full"):
-        for line in proc.stdout.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                print(f"nvcc {name}: {line.strip()}")
+    for line in proc.stdout.splitlines():
+        if (name.endswith("full") and ("registers" in line or "spill" in line
+                                       or "Compiling entry" in line)) or "arning" in line:
+            print(f"nvcc {name}: {line.strip()}")
+    if sass_dir is not None and name.endswith("full"):
+        sass = subprocess.run([str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass",
+                               str(lib)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True).stdout
+        (Path(sass_dir) / f"{name.replace(' ', '_')}.sass").write_text(sass)
     return lib
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=7)
+    ap.add_argument("--sass", default=None,
+                    help="a directory for cuobjdump's SASS of the full variants")
     args = ap.parse_args(argv)
 
     import torch
@@ -102,7 +116,8 @@ def main(argv=None) -> int:
         return 2
     smi = card_line() or "nvidia-smi gave no output"
     with ThreadPoolExecutor(len(VARIANTS)) as pool:
-        libs = dict(zip(VARIANTS, pool.map(lambda kv: build(*kv), VARIANTS.items())))
+        libs = dict(zip(VARIANTS, pool.map(lambda kv: build(kv[0], kv[1][1], args.sass),
+                                           VARIANTS.items())))
     loaded = {name: topk.bind_bucket(ctypes.CDLL(str(p))) for name, p in libs.items()}
 
     dev = torch.device("cuda", 0)
@@ -160,6 +175,7 @@ def main(argv=None) -> int:
             ms, _, _ = time_ms(lambda: topk._launch_bucket(emb, qb, n, w, VARIANTS[name][0]),
                                args.reps)
             line.append(f"{VARIANTS[name][0]} {ms:.4f} ms")
+
         print(f"bucket route B {bq}: {', '.join(line)} | {smi}", flush=True)
     return 0
 
