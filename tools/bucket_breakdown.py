@@ -10,13 +10,16 @@ loudly instead of timing something else), built with the package's nvcc
 flags into anorag_tpu_torch/_build/variants/. Variants: the first kernel
 (route "mma") in full, loads alone (no products), products alone (no
 loads), no epilogue (the compare with the winners on the last tile only)
-and no CTA barrier per step (wrong results: timing only); the wgmma route in full, loads alone,
-products alone, no epilogue, loads or products alone without the
-epilogue, without setmaxnreg, and 4 ring stages (5 shipped). All run at 512 x
-200,000 x 1024 bf16, W 512 (the bench shape of chip_smoke.py's bucket
-phase), in turns within one process, CUDA events around 5 launches back
-to back, median of --reps; then both shipped routes at B 1 to 512. Prints
-one line a variant with the card's name and power limit.
+and no CTA barrier per step (wrong results: timing only); the wgmma route
+in full, loads alone, products alone, no epilogue, loads or products
+alone without the epilogue, without setmaxnreg, 4 ring stages (5
+shipped), and the wait for no products in flight chosen inside the slice
+loop. All run at 512 x 200,000 x 1024 bf16, W 512 (the bench shape of
+chip_smoke.py's bucket phase), in turns within one process, CUDA events
+around 5 launches back to back, median of --reps; then both shipped
+routes at B 1 to 512, and the wgmma route reading the query rows past B
+through TMA's fill instead of the wrapper's zero-filled copy. Prints one
+line a variant with the card's name and power limit, and ptxas's notes.
 """
 from __future__ import annotations
 
@@ -64,6 +67,20 @@ VARIANTS = {
         ("    asm volatile(\"setmaxnreg.dec.sync.aligned.u32 40;\\n\" ::: \"memory\");\n", ""),
         ("  asm volatile(\"setmaxnreg.inc.sync.aligned.u32 232;\\n\" ::: \"memory\");\n", "")]),
     "wgmma 4 stages": (WG, [("constexpr int kBwStages = 5;", "constexpr int kBwStages = 4;")]),
+    # the wait for none in flight chosen inside the loop at a tile's last
+    # slice, as first written: ptxas then waits for every product at each
+    # slice (its C7517 note)
+    "wgmma wait chosen in the loop": (WG, [
+        ("      asm volatile(\"wgmma.wait_group.sync.aligned 1;\" ::: \"memory\");\n"
+         "      mbar_arrive_if(&empty[prev], leader && chunk > 0);\n",
+         "      if (chunk + 1 < n_chunks)\n"
+         "        asm volatile(\"wgmma.wait_group.sync.aligned 1;\" ::: \"memory\");\n"
+         "      else\n"
+         "        asm volatile(\"wgmma.wait_group.sync.aligned 0;\" ::: \"memory\");\n"
+         "      mbar_arrive_if(&empty[prev], leader && chunk > 0);\n"),
+        ("    asm volatile(\"wgmma.wait_group.sync.aligned 0;\" ::: \"memory\");\n"
+         "    mbar_arrive_if(&empty[prev], leader);\n",
+         "    mbar_arrive_if(&empty[prev], leader);\n")]),
 }
 ROUTE_BATCHES = (1, 16, 32, 48, 64, 128, 512)
 
@@ -88,7 +105,8 @@ def build(name: str, edits, sass_dir=None) -> Path:
         raise RuntimeError(f"nvcc failed for {name!r}:\n{proc.stdout}")
     for line in proc.stdout.splitlines():
         if (name.endswith("full") and ("registers" in line or "spill" in line
-                                       or "Compiling entry" in line)) or "arning" in line:
+                                       or "Compiling entry" in line)) or "arning" in line \
+                or "C75" in line:
             print(f"nvcc {name}: {line.strip()}")
     if sass_dir is not None and name.endswith("full"):
         sass = subprocess.run([str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass",
@@ -175,6 +193,24 @@ def main(argv=None) -> int:
             ms, _, _ = time_ms(lambda: topk._launch_bucket(emb, qb, n, w, VARIANTS[name][0]),
                                args.reps)
             line.append(f"{VARIANTS[name][0]} {ms:.4f} ms")
+        if bq % topk.BUCKET_TILE:
+            # the query tile's rows past B by TMA's fill, not the wrapper's copy
+            plan = topk.bucket_work_plan(bq, w, n, topk.bucket_slots(0))
+            pv = torch.empty((plan.splits, bq, w), device=dev)
+            pi = torch.empty((plan.splits, bq, w), dtype=torch.int32, device=dev)
+
+            def unpadded():
+                err = loaded["wgmma full"].anorag_bucket_winners_wgmma(
+                    qb.data_ptr(), bq, emb.data_ptr(), d, bq, n, d, w, plan.splits,
+                    plan.per, pv.data_ptr(), pi.data_ptr(), 0,
+                    torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"CUDA error {err}")
+                return topk.bucket_merge(pv, pi)
+
+            check_bucket_winners(unpadded(), topk._launch_bucket(emb, qb, n, w, WG), emb, qb)
+            ms, _, _ = time_ms(unpadded, args.reps)
+            line.append(f"wgmma with TMA's fill past B {ms:.4f} ms")
 
         print(f"bucket route B {bq}: {', '.join(line)} | {smi}", flush=True)
     return 0
