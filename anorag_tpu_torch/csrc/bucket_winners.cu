@@ -15,7 +15,9 @@
 // one from the shapes and dtypes alone.
 //
 // The wgmma route (bucket_wgmma_kernel): bf16, row-major 16-byte rows (TMA's
-// stride), W a multiple of 128, from BUCKET_BATCH_FROM queries. A unit is
+// stride), W a multiple of 128, any batch (the route lines on the card put
+// it ahead from one query; the wrapper fills a short last query tile with
+// zeros, which TMA reads faster than its own fill past the end). A unit is
 // (128-query tile, 128-bucket-column tile, split: a contiguous range of the
 // corpus tiles); the wrapper's plan (bucket_work_plan) cuts the tiles into
 // as many splits as fill one wave of CTAs, and the unit index runs over the
@@ -28,9 +30,10 @@
 // them; after a tile's last slice each thread compares its 64 accumulators
 // with its winners' values, held in registers in the accumulator layout,
 // strictly (rows at or past n score -3.0e38); a winner's row goes to shared
-// memory (one slot a thread and accumulator, written only on a change, so
-// the registers hold accumulators and values alone). No candidate list, no
-// CTA barrier after the start. Each split writes its (B, W) winners to
+// memory (one slot a thread and accumulator, written only on a change), so
+// the registers hold 64 accumulators and 64 values, and setmaxnreg moves
+// registers from the producer warpgroup to the consumers. No candidate
+// list, no CTA barrier after the start. Each split writes its (B, W) winners to
 // scratch (the output itself when there is one split), and
 // bucket_merge_kernel takes, per (query, bucket), the largest value over
 // the splits by strict > in split order: an earlier split holds the earlier
@@ -38,7 +41,7 @@
 //
 // The mma.sync / FMA route (bucket_winners_kernel, the first version): f32
 // (FMAs, never TF32), the transposed (D, N) corpus, rows that are not
-// 16-byte aligned, W not a multiple of 128, small batches. The grid runs
+// 16-byte aligned, W not a multiple of 128. The grid runs
 // over (32-query tile, 64-bucket-column tile), so each (query, bucket) pair
 // has one owner, which walks the corpus tiles in order and keeps its
 // winners in registers: no atomics, no merge. For tile t the CTA stages
@@ -56,9 +59,12 @@
 // 989 TFLOP/s bound it (0.212 ms) above the 3.35 TB/s of device memory
 // (0.12 ms). Both routes read the corpus once per query tile and the query
 // slices once per tile, from L2: the wgmma route at B 512, W 512 pulls
-// 3.28 GB (4 query tiles); the mma.sync route 16 query tiles' worth, with
-// 32-bit fragment loads and a CTA barrier every slice (PERF.md: times,
-// and the variants with one part cut out).
+// 3.28 GB (4 query tiles) and on an H100 80GB HBM3 at 700 W takes about
+// 0.30 ms, its loads alone and its products alone about 0.25 each, so the
+// loads keep it from the bound; the mma.sync route pulls 16 query tiles'
+// worth and takes about 3.2 ms, two thirds of it the staging (PERF.md:
+// times, and the variants with one part cut out). TMA multicast of the
+// query slices over a cluster of column tiles is the next step (ROADMAP).
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -305,9 +311,9 @@ constexpr int kBwSmem = 1024 + kBwStages * 2 * kBwSliceBytes +
                         64 * kBwConsumers * (int)sizeof(int32_t) + kBwStages * 2 * 8;
 constexpr int kMergeCells = 256;                 // (query, bucket) cells a merge CTA
 
-// mbarrier arrival by the threads where `pred` holds, with no branch: a
-// branch around it would leave a divergent path that ptxas joins by
-// waiting for every wgmma in flight.
+// mbarrier arrival by the threads where `pred` holds, with no branch: the
+// wgmma loop keeps no divergent path, since ptxas may wait for every
+// product in flight where paths join (its note C7517).
 __device__ __forceinline__ void mbar_arrive_if(uint64_t* bar, bool pred) {
   asm volatile("{ .reg .pred p; setp.ne.b32 p, %1, 0; @p mbarrier.arrive.shared::cta.b64 _, [%0]; }"
                ::"r"(smem_u32(bar)), "r"((int)pred) : "memory");

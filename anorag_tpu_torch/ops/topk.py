@@ -737,29 +737,25 @@ _bucket_lib = None
 
 def _load_bucket() -> ctypes.CDLL:
     """csrc/bucket_winners.cu's library, built on first use, its C
-    signatures set once (bind_bucket)."""
+    signatures set once."""
     global _bucket_lib
     if _bucket_lib is None:
         from anorag_tpu_torch import _build
 
-        _bucket_lib = bind_bucket(_build.load("bucket_winners"))
+        lib = _build.load("bucket_winners")
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.anorag_bucket_winners.argtypes = [p, p, ll, ll, i, i, i, ll, ll, i, i,
+                                              p, p, i, p]
+        lib.anorag_bucket_winners.restype = i
+        lib.anorag_bucket_slots.argtypes = [i]
+        lib.anorag_bucket_slots.restype = i
+        lib.anorag_bucket_winners_wgmma.argtypes = [p, ll, p, ll, ll, ll, i, i, i, i,
+                                                    p, p, i, p]
+        lib.anorag_bucket_winners_wgmma.restype = i
+        lib.anorag_bucket_merge.argtypes = [p, p, ll, i, p, p, i, p]
+        lib.anorag_bucket_merge.restype = i
+        _bucket_lib = lib
     return _bucket_lib
-
-
-def bind_bucket(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Set the C signatures of a csrc/bucket_winners.cu library."""
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.anorag_bucket_winners.argtypes = [p, p, ll, ll, i, i, i, ll, ll, i, i,
-                                          p, p, i, p]
-    lib.anorag_bucket_winners.restype = i
-    lib.anorag_bucket_slots.argtypes = [i]
-    lib.anorag_bucket_slots.restype = i
-    lib.anorag_bucket_winners_wgmma.argtypes = [p, ll, p, ll, ll, ll, i, i, i, i,
-                                                p, p, i, p]
-    lib.anorag_bucket_winners_wgmma.restype = i
-    lib.anorag_bucket_merge.argtypes = [p, p, ll, i, p, p, i, p]
-    lib.anorag_bucket_merge.restype = i
-    return lib
 
 
 @functools.lru_cache(maxsize=None)
@@ -837,8 +833,8 @@ def _launch_bucket(e: torch.Tensor, queries: torch.Tensor, n: int, w: int, route
     times both routes through here. The wgmma route takes its plan from
     bucket_work_plan, reads the queries in whole BUCKET_TILE-row tiles (a
     zero-filled copy when B is not a multiple) and, with more than one
-    split, merges the split tables by bucket_merge. Counts one launch in bucket_winners.launches and in
-    bucket_winners.route_launches[route]."""
+    split, merges the split tables by bucket_merge. Counts one launch in
+    bucket_winners.launches and in bucket_winners.route_launches[route]."""
     lib = _load_bucket()
     b, d = queries.shape
     dev = e.device

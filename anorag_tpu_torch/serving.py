@@ -8,7 +8,8 @@ finalizes each sub-batch as its results land and keeps the rows of the
 request's dataset namespace (QueryProcessor._assemble_batch). Callers get
 a Future per request; sub-batch results re-assemble in request order. The
 host stage returns the retrieval rows: the reference's answer stages are
-not ported yet. close() drains the queue and joins every thread the engine started.
+not ported yet. close() drains the queue and joins every thread the
+engine started.
 """
 from __future__ import annotations
 

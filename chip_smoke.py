@@ -558,7 +558,8 @@ def _bucket_phase(dev, emb, queries, smi_line: str):
           f"{merge_bound_ms:.4f} ms (bytes: {merge_bytes / 1e6:.1f} MB) | {smi_line}",
           flush=True)
 
-    # both routes side by side, each checked, so BUCKET_BATCH_FROM is measured
+    # both routes side by side, each checked: bucket_route gives the wgmma route
+    # every batch, which these lines must keep showing faster
     for bq in BUCKET_ROUTE_BATCHES:
         q = queries[:bq].contiguous()
         want = bucket_winners_ref(emb, q, n, width)
