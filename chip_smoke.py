@@ -43,7 +43,8 @@ Phases, each printing its seconds:
                 bucket 37 holds one tied row in every split (the earliest
                 must win), the merge of the wgmma route's split tables
                 exactly equal to bucket_merge_ref; each timed beside its
-                bound and plain version, the routes beside the library
+                bound and plain version (the merge with its tables evicted
+                from L2 before each call), the routes beside the library
                 chain (torch.mm with f32 output, a pad to whole tiles, max
                 over the (B, N/W, W) view, torch.topk) and side by side at
                 B 1 to 512; bucket_topk's recall@10 against exact f32 on
@@ -120,6 +121,7 @@ import traceback
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 on the tensor cores
+L2_FLUSH_BYTES = 256 << 20     # written between timed calls to empty the 50 MB L2
 VOCAB, DOC_LEN, Q_LEN, MIN_RANK = 30_000, 40, 8, 100
 N_NOTES, N_REQUESTS, BATCH = 200_000, 4, 512
 N_IVF, IVF_CENTRES, IVF_BATCHES, IVF_SINGLES = 5_000_000, 1000, 4, 64
@@ -196,6 +198,34 @@ def _time_ms(fn, n: int = 20, reps: int = 21, warm: int = 3):
         times.append(start.elapsed_time(end) / n)
     times.sort()
     return times[len(times) // 2], host_ms
+
+
+def _time_cold_ms(fn, reps: int = 41, warm: int = 3) -> float:
+    """Device ms of one fn() call that finds its inputs out of the L2
+    cache: before each call a write of L2_FLUSH_BYTES (several times the
+    card's 50 MB L2) evicts them, outside the call's CUDA events. A sleep
+    kernel first holds the card while the rep is enqueued. Median of
+    `reps`."""
+    import torch
+
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(200_000)
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    times = sorted(s.elapsed_time(e) for s, e in pairs)
+    del flush
+    return times[len(times) // 2]
 
 
 def _busy_ms(events) -> float:
@@ -512,8 +542,11 @@ def _bucket_phase(dev, emb, queries, smi_line: str):
                          n=5, reps=7)
     plain_ms, _ = _time_ms(lambda: bucket_winners_ref(emb, queries, n, width),
                            n=1, reps=3, warm=1)
-    merge_ms, _ = _time_ms(lambda: bucket_merge(*part), n=5, reps=7)
-    merge_plain_ms, _ = _time_ms(lambda: bucket_merge_ref(*part), n=5, reps=7)
+    # the merge with its tables out of L2, against the HBM bound; on the
+    # main path it reads them warm, just written by the wgmma kernel
+    merge_ms = _time_cold_ms(lambda: bucket_merge(*part))
+    merge_plain_ms = _time_cold_ms(lambda: bucket_merge_ref(*part), reps=11)
+    merge_warm_ms, _ = _time_ms(lambda: bucket_merge(*part), n=5, reps=7)
     merge_bytes = part[0].numel() * 8 + b * width * 8
     merge_bound_ms = 1e3 * merge_bytes / HBM_BYTES_PER_S
     del part, merged
@@ -553,10 +586,11 @@ def _bucket_phase(dev, emb, queries, smi_line: str):
           f"(B, N/W, W) view, torch.topk k {k}: four calls) {lib_ms:.4f} ms, its "
           f"values equal bucket_topk's to {lib_gap:.3g}; bound {bound_ms:.4f} ms "
           f"({bound_by}) | {smi_line}", flush=True)
-    print(f"bucket_merge of {plan.splits} x {b} x {width} split tables: kernel "
-          f"{merge_ms:.4f} ms, plain {merge_plain_ms:.4f} ms, bound "
-          f"{merge_bound_ms:.4f} ms (bytes: {merge_bytes / 1e6:.1f} MB) | {smi_line}",
-          flush=True)
+    print(f"bucket_merge of {plan.splits} x {b} x {width} split tables, out of L2 "
+          f"before each call: kernel {merge_ms:.4f} ms, plain {merge_plain_ms:.4f} ms, "
+          f"bound {merge_bound_ms:.4f} ms (bytes: {merge_bytes / 1e6:.1f} MB at HBM's "
+          f"rate); back to back, tables in L2: kernel {merge_warm_ms:.4f} ms | "
+          f"{smi_line}", flush=True)
 
     # both routes side by side, each checked: bucket_route gives the wgmma route
     # every batch, which these lines must keep showing faster

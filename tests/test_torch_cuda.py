@@ -314,7 +314,8 @@ def test_bucket_winners_kernel_matches_ref(cuda_device, dtype):
     shape, in both corpus layouts; the transposed layout is staged
     differently by the first kernel but summed in the same order, so where
     the row layout takes that kernel too the two are exactly equal (the
-    wgmma route sums in its own order and is held by check_bucket_winners)."""
+    wgmma route sums in its own order and is held by check_bucket_winners,
+    and exactly against a second call of its own)."""
     for n, d, b, w, tiles, k in BUCKET_CASES:
         rng = np.random.default_rng(n + d)
         emb = torch.from_numpy(unit_rows(rng, n, d)).to(cuda_device, dtype)
@@ -335,6 +336,8 @@ def test_bucket_winners_kernel_matches_ref(cuda_device, dtype):
             assert all(torch.equal(x, y) for x, y in zip(got_t, got)), (n, d, b, w)
         else:
             check_bucket_winners(got_t, want, emb, q)
+            again = topk.bucket_winners(emb, q, n, width)
+            assert all(torch.equal(x, y) for x, y in zip(again, got)), (n, d, b, w)
 
 
 # (name, n, d, b, w) on the wgmma route: several splits, n not a multiple
@@ -366,6 +369,8 @@ def test_bucket_winners_wgmma_route_matches_ref(cuda_device):
         if name in ("splits", "one split"):
             assert (plan.splits > 1) == (name == "splits"), (name, plan)
         check_bucket_winners(got, topk.bucket_winners_ref(emb, q, n, w), emb, q)
+        again = topk.bucket_winners(emb, q, n, w)
+        assert all(torch.equal(x, y) for x, y in zip(again, got)), name
 
 
 @pytest.mark.cuda
