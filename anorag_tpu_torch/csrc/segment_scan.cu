@@ -5,7 +5,7 @@
 // (:184, via segment_totals_pallas :230) and ::_segment_winners_kernel
 // (:287, via segment_winners_pallas :342). Same function:
 //   input  a (B, L) int32 doc ids sorted per row (pad id = n_docs),
-//          w (B, L) f32 Okapi weights (0 on pads);
+//          w (B, L) f32 Okapi weights (>= 0; 0 on pads);
 //   each row is cut into blocks of bl = block_l <= 1024 positions, the last
 //   padded with id n_docs and weight 0; per block, in this order:
 //     x   = inclusive cumsum of w in Hillis-Steele log steps: at s = 1, 2,
@@ -20,31 +20,56 @@
 //   block keeps ties; empty buckets keep (-3.0e38, -1);
 //   mx[row] = max(0, every valid tot of the row).
 //
-// Design: the cumsum carries along a row, so rows are the parallel axis:
-// one CTA per row walks its blocks in order, one thread per position of a
-// block. The add scan keeps the reference's step order exactly: at steps
-// s < 32 lane l takes x[p - s] from lane l - s by a warp shuffle, and for
-// l < s from lane l - s + 32 of the previous warp, whose value each lane
-// tracks in a second register (the same steps applied to the weights 32
-// positions back; the lanes below s of that register are never read
-// again); at steps s >= 32 values go through shared memory (two buffers in
-// turn, one barrier a step). A Blelloch or thread-serial scan would add in
-// another order. The max scan is order-free: warp shuffles, then warp 0
-// combines the warps' maxima. So a 1024-wide block takes 8 barriers. The successor a[t + 1] is read
-// from global memory (the neighbour's load brought it to L1), so no third
-// (B, L) array is read. The next block's loads are issued before the
-// current block's scan. The winners table lives in registers (thread p
-// owns bucket p) and is written once; the (B, L) totals never reach memory
-// in the winners kernel. The row max is a per-thread max reduced across
-// the CTA at the end.
+// Segment totals (segment_totals_tiles): row tiles with an in-order carry
+// fold. The carry of block j is the serial chain cs_{j+1} = fl(x_last_j +
+// cs_j), cp_{j+1} = max(cp_j, cm_last_j). Rounding is monotone and every
+// c >= 0, so cm_last_j = fl(xe_j + cs_j), xe_j the largest x at an end of
+// block j (-inf with none), and inside a block cm[p - 1] = fl(xm[p] + cs)
+// with xm[p] the largest x at an end before p. So a block's local scan and
+// its summary (x_last, xe) need no carry; the carry is the same serial
+// fold of the summaries, in block order. A tile is one block of a row and
+// one warp's work; a persistent grid of 4-warp CTAs takes tiles from one
+// atomic counter in (row, block) order, so a tile's predecessors in its
+// row were handed out before it, to running warps. A warp takes a tile
+// only when it can scan and publish it without waiting (a tile held
+// through a wait would chain the waits). It stages the block through its
+// own 8 KB of shared memory (cp.async, 16 bytes a copy where the layout
+// allows; each input byte read once), scans it, publishes its summary as
+// one 64-bit word, then folds its row's summaries in block order from the
+// latest published carry of the row (each carry is itself that fold, so
+// the starting point does not change a bit; no partial aggregates are
+// combined), publishes its own carry and writes the totals. A tile waits
+// only on summaries, which need no carry, never on a chain of carries.
+// Lane l holds positions 128c + 4l + i of 8 rows c: the add scan keeps
+// the reference's step order, steps 1 and 2 inside the lane and from lane
+// l - 1, steps 4-64 by one warp shuffle a value (lanes below the distance
+// read the row below from the lanes that send it), steps 128-512 inside
+// the lane; no CTA barrier. The row max is an integer atomicMax of each
+// tile's maximum (all >= 0). The wrapper's scratch (summaries, carries,
+// the counter, mx) is set to all ones by one memset: unpublished, tile -1,
+// mx -1 as int.
+//
+// Segment winners (segment_scan_kernel<true>, PR 6's design; its <false>
+// instance is the first totals kernel, kept as the yardstick the redesign
+// is timed against): rows are the parallel axis, one CTA per row walks its
+// blocks in order, one thread per position of a block. At steps s < 32
+// lane l takes x[p - s] from lane l - s by a warp shuffle, and for l < s
+// from lane l - s + 32 of the previous warp, tracked in a second register;
+// at steps s >= 32 values go through shared memory (two buffers in turn,
+// one barrier a step). The max scan is order-free: warp shuffles, then warp
+// 0 combines the warps' maxima. The winners table lives in registers
+// (thread p owns bucket p) and is written once.
 //
 // Bound: memory. Each position reads 8 bytes; totals writes 4 more, winners
 // 8 * bl + 4 per row. About 20 adds, maxes and selects a position are far
 // below the card's rates. At the main path's plan (B = 512, L = 32,768;
 // chip_smoke.py) that is 201.3 MB (0.0601 ms at 3.35 TB/s) for totals and
-// 138.4 MB (0.0413 ms) for winners.
+// 138.4 MB (0.0413 ms) for winners; a 128-row bucket 32,768 wide moves
+// 50.3 MB (0.0150 ms).
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -186,6 +211,305 @@ segment_scan_kernel(const int32_t* __restrict__ a, const float* __restrict__ w,
   }
 }
 
+// ---------------------------------------------- segment totals: row tiles
+constexpr int kRows = 8;              // a 1024-wide block as 8 rows of 128
+constexpr int kTileWarps = 4;         // warps a CTA, each on its own tiles
+constexpr unsigned long long kUnpublished = ~0ull;
+constexpr unsigned kSpinLimit = 1u << 24;      // a lost publication traps
+
+__device__ __forceinline__ unsigned long long ld_gpu(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_gpu(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+// (lo, hi) as one word, published and read in one access
+__device__ __forceinline__ unsigned long long pack(float lo, float hi) {
+  return (unsigned long long)__float_as_uint(lo) |
+         ((unsigned long long)__float_as_uint(hi) << 32);
+}
+__device__ __forceinline__ float lo_of(unsigned long long v) {
+  return __uint_as_float((unsigned)v);
+}
+__device__ __forceinline__ float hi_of(unsigned long long v) {
+  return __uint_as_float((unsigned)(v >> 32));
+}
+
+// Warp-wide: the carry (cs, cp) into block jb of a row, folded in block
+// order over the summaries of blocks [start, jb), from the carry of block
+// start - 1, the latest published (or the row's start). One round trip
+// reads the carries and summaries of the last 32 blocks.
+__device__ __forceinline__ void fold_carry(const unsigned long long* summ,
+                                           const unsigned long long* carry,
+                                           int jb, int lane, float& cs,
+                                           float& cp) {
+  cs = 0.0f;
+  cp = 0.0f;
+  const int base = jb - 32, j = base + lane;   // lane l: block base + l
+  unsigned long long c = kUnpublished, s = kUnpublished;
+  if (j >= 0) {
+    c = ld_gpu(carry + j);
+    s = ld_gpu(summ + j);
+  }
+  int start = 0;
+  unsigned got = __ballot_sync(kFull, c != kUnpublished);
+  if (got) {
+    const int src = 31 - __clz(got);
+    c = __shfl_sync(kFull, c, src);
+    cs = lo_of(c);
+    cp = hi_of(c);
+    start = base + src + 1;
+  }
+  for (int hi = base; !got && hi > 0; hi -= 32) {   // none in the last 32
+    const int jj = hi - 32 + lane;
+    unsigned long long cc = jj >= 0 ? ld_gpu(carry + jj) : kUnpublished;
+    got = __ballot_sync(kFull, cc != kUnpublished);
+    if (got) {
+      const int src = 31 - __clz(got);
+      cc = __shfl_sync(kFull, cc, src);
+      cs = lo_of(cc);
+      cp = hi_of(cc);
+      start = hi - 32 + src + 1;
+    }
+  }
+  const int mid = max(start, base);
+  for (int lo = start; lo < mid; lo += 32) {   // summaries before the last 32
+    const int jj = lo + lane;
+    unsigned long long v = 0;
+    if (jj < mid) {
+      unsigned spins = 0;
+      while ((v = ld_gpu(summ + jj)) == kUnpublished)
+        if (++spins > kSpinLimit) __trap();
+    }
+    const int n = min(32, mid - lo);
+    for (int i = 0; i < n; ++i) {
+      const unsigned long long u = __shfl_sync(kFull, v, i);
+      cp = fmaxf(cp, hi_of(u) + cs);   // cm_last = fl(xe + cs), or none
+      cs = lo_of(u) + cs;
+    }
+  }
+  if (j >= mid && j < jb) {   // the last 32 blocks' summaries, read above
+    unsigned spins = 0;
+    while (s == kUnpublished) {
+      s = ld_gpu(summ + j);
+      if (++spins > kSpinLimit) __trap();
+    }
+  }
+  for (int i = mid - base; i < 32; ++i) {
+    const unsigned long long u = __shfl_sync(kFull, s, i);
+    cp = fmaxf(cp, hi_of(u) + cs);
+    cs = lo_of(u) + cs;
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)), "l"(src) : "memory");
+}
+
+// One warp a tile (one block of a row): lane l holds positions 128c + 4l +
+// i of the block, rows c = 0..7, i = 0..3. The block comes in through the
+// warp's own 8 KB of shared memory (cp.async), so the ids are read a row at
+// a time and never held whole in registers: 6 CTAs of 4 warps an SM.
+template <bool kVec>
+__global__ void __launch_bounds__(32 * kTileWarps, 6)
+segment_totals_tiles(const int32_t* __restrict__ a, const float* __restrict__ w,
+                     int64_t L, int bl, int nb, long long n_tiles, int n_docs,
+                     float* __restrict__ masked, unsigned long long* summ,
+                     unsigned long long* carry, unsigned* counter,
+                     int* mx_bits) {
+  __shared__ __align__(16) int32_t stage_id[kTileWarps][kRows * 128];
+  __shared__ __align__(16) float stage_w[kTileWarps][kRows * 128];
+  const int lane = threadIdx.x & 31;
+  int32_t* sid = stage_id[threadIdx.x >> 5];
+  float* sw = stage_w[threadIdx.x >> 5];
+  const float kInf = __int_as_float(0x7f800000);
+  // Tiles in (row, block) order from one counter, so a tile's predecessors
+  // in its row were handed out before it. A tile is taken only when the
+  // warp can scan and publish it without waiting (a tile held through a
+  // wait would chain the waits): first here, then right after the fold of
+  // the tile before. The counter starts at -1 (all ones): old + 1 counts
+  // from 0.
+  unsigned ticket = 0;
+  if (lane == 0) ticket = atomicAdd(counter, 1u) + 1u;
+  long long tile = __shfl_sync(kFull, ticket, 0);
+  while (tile < n_tiles) {
+    const int64_t row = tile / nb;
+    const int jb = (int)(tile % nb);
+    const int64_t b0 = (int64_t)jb * bl;            // the block's first position
+    const int32_t* ar = a + row * L;
+    const float* wr = w + row * L;
+#pragma unroll
+    for (int c = 0; c < kRows; ++c) {   // stage the block; pads past it
+      const int p0 = 128 * c + 4 * lane;
+      const int64_t t0 = b0 + p0;
+      if (kVec && p0 < bl && t0 < L) {   // L and bl multiples of 4
+        cp_async16(sid + p0, ar + t0);
+        cp_async16(sw + p0, wr + t0);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (p0 + i < bl && t0 + i < L) {
+            cp_async4(sid + p0 + i, ar + t0 + i);
+            cp_async4(sw + p0 + i, wr + t0 + i);
+          } else {
+            sid[p0 + i] = n_docs;
+            sw[p0 + i] = 0.0f;
+          }
+        }
+      }
+    }
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
+    __syncwarp();
+    // segment ends: a[t] != a[t + 1]; past the row's last block, -1
+    const int32_t after = jb + 1 < nb ? ar[b0 + bl] : -1;
+    float x[kRows][4];
+    unsigned end_bits = 0, valid_bits = 0;          // bit 4c + i
+#pragma unroll
+    for (int c = 0; c < kRows; ++c) {
+      const int p0 = 128 * c + 4 * lane;
+      const int4 iv = *reinterpret_cast<const int4*>(sid + p0);
+      const float4 wv = *reinterpret_cast<const float4*>(sw + p0);
+      x[c][0] = wv.x; x[c][1] = wv.y; x[c][2] = wv.z; x[c][3] = wv.w;
+      const int32_t id[4] = {iv.x, iv.y, iv.z, iv.w};
+      const int32_t send = lane == 0 ? (c + 1 < kRows ? sid[128 * (c + 1)] : after) : id[0];
+      const int32_t right = __shfl_sync(kFull, send, (lane + 1) & 31);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int p = p0 + i;
+        const int32_t s = p == bl - 1 ? after : (i < 3 ? id[i + 1] : right);
+        if (p < bl && id[i] != s) {
+          end_bits |= 1u << (4 * c + i);
+          if (id[i] < n_docs) valid_bits |= 1u << (4 * c + i);
+        }
+      }
+    }
+    __syncwarp();   // every lane's reads done before the next tile is staged
+
+    // add scan in the reference's step order, rows in descending order so
+    // that each step reads the rows below it before they change
+    const int left = (lane - 1) & 31;
+    if (bl > 1) {   // s = 1: lane 0 reads lane 31 of the row below
+#pragma unroll
+      for (int c = kRows - 1; c >= 0; --c) {
+        const float send = lane == 31 ? (c > 0 ? x[c - 1][3] : 0.0f) : x[c][3];
+        const float r = __shfl_sync(kFull, send, left);
+        x[c][3] = x[c][3] + x[c][2]; x[c][2] = x[c][2] + x[c][1];
+        x[c][1] = x[c][1] + x[c][0]; x[c][0] = x[c][0] + r;
+      }
+    }
+    if (bl > 2) {   // s = 2
+#pragma unroll
+      for (int c = kRows - 1; c >= 0; --c) {
+        const float s2 = lane == 31 ? (c > 0 ? x[c - 1][2] : 0.0f) : x[c][2];
+        const float s3 = lane == 31 ? (c > 0 ? x[c - 1][3] : 0.0f) : x[c][3];
+        const float r2 = __shfl_sync(kFull, s2, left);
+        const float r3 = __shfl_sync(kFull, s3, left);
+        x[c][3] = x[c][3] + x[c][1]; x[c][2] = x[c][2] + x[c][0];
+        x[c][1] = x[c][1] + r3; x[c][0] = x[c][0] + r2;
+      }
+    }
+    // s = 4m, m = 1..16: lane l - m of the row, or for l < m lane l - m + 32
+    // of the row below; a lane >= 32 - m is read only by those, so it sends
+    // the row below
+    for (int m = 1; m < 32 && 4 * m < bl; m <<= 1) {
+      const int from = (lane - m) & 31;
+      const bool low = lane >= 32 - m;
+#pragma unroll
+      for (int c = kRows - 1; c >= 0; --c) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float send = low ? (c > 0 ? x[c - 1][i] : 0.0f) : x[c][i];
+          x[c][i] = x[c][i] + __shfl_sync(kFull, send, from);
+        }
+      }
+    }
+#pragma unroll
+    for (int d = 1; d < kRows; d <<= 1) {   // s = 128d: row c - d, in the lane
+      if (128 * d < bl) {
+#pragma unroll
+        for (int c = kRows - 1; c >= d; --c) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) x[c][i] = x[c][i] + x[c - d][i];
+        }
+      }
+    }
+
+    // the largest x at an end before each position: before this lane's
+    // positions of row c, ex[c]; xe, the block's largest
+    float ex[kRows], xe = -kInf;
+#pragma unroll
+    for (int c = 0; c < kRows; ++c) {
+      float run = -kInf;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if ((end_bits >> (4 * c + i)) & 1u) run = fmaxf(run, x[c][i]);
+      for (int o = 1; o < 32; o <<= 1) {
+        const float v = __shfl_up_sync(kFull, run, o);
+        if (lane >= o) run = fmaxf(run, v);
+      }
+      const float before = __shfl_up_sync(kFull, run, 1);
+      ex[c] = fmaxf(xe, lane == 0 ? -kInf : before);
+      xe = fmaxf(xe, __shfl_sync(kFull, run, 31));
+    }
+    float mine = 0.0f;   // x at the block's last position
+#pragma unroll
+    for (int c = 0; c < kRows; ++c)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (128 * c + 4 * lane + i == bl - 1) mine = x[c][i];
+    const float xl = __shfl_sync(kFull, mine, ((bl - 1) & 127) >> 2);
+
+    // publish the summary, fold the carry, publish it, take the next tile
+    unsigned long long* srow = summ + row * nb;
+    unsigned long long* crow = carry + row * nb;
+    if (lane == 0 && jb + 1 < nb) st_gpu(srow + jb, pack(xl, xe));
+    float cs, cp;
+    fold_carry(srow, crow, jb, lane, cs, cp);
+    if (lane == 0) {
+      if (jb + 1 < nb) st_gpu(crow + jb, pack(xl + cs, fmaxf(cp, xe + cs)));
+      ticket = atomicAdd(counter, 1u) + 1u;
+    }
+
+    // totals: c - max(cp, cm[p - 1]), cm[p - 1] = fl(xm[p] + cs)
+    float m = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kRows; ++c) {
+      float run = ex[c], out[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float total = (x[c][i] + cs) - fmaxf(cp, run + cs);
+        const bool valid = (valid_bits >> (4 * c + i)) & 1u;
+        out[i] = valid ? total : kNegInf;
+        if (valid) m = fmaxf(m, total);
+        if ((end_bits >> (4 * c + i)) & 1u) run = fmaxf(run, x[c][i]);
+      }
+      const int p0 = 128 * c + 4 * lane;
+      float* dst = masked + row * L + b0 + p0;
+      if (kVec && p0 < bl && b0 + p0 < L) {
+        __stcs(reinterpret_cast<float4*>(dst), make_float4(out[0], out[1], out[2], out[3]));
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (p0 + i < bl && b0 + p0 + i < L) __stcs(dst + i, out[i]);
+      }
+    }
+    // row max: totals >= 0 compare as their bits; -0 counts as 0
+    const unsigned top = __reduce_max_sync(kFull, __float_as_uint(m) & 0x7fffffffu);
+    if (lane == 0) atomicMax(mx_bits + row, (int)top);
+    tile = __shfl_sync(kFull, ticket, 0);
+  }
+}
+
 template <bool kWinners>
 int launch(const void* a, const void* w, void* masked, void* wv, void* wd,
            void* mx, long long B, long long L, int block_l, int n_docs,
@@ -204,14 +528,66 @@ int launch(const void* a, const void* w, void* masked, void* wv, void* wd,
   return (int)cudaGetLastError();
 }
 
+template <bool kVec>
+int launch_tiles(const void* a, const void* w, void* masked, void* scratch,
+                 long long B, long long L, int bl, int n_docs, int device,
+                 cudaStream_t s) {
+  const int nb = (int)((L + bl - 1) / bl);
+  const long long n_tiles = B * nb;
+  int per_sm = 0, sms = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, segment_totals_tiles<kVec>, 32 * kTileWarps, 0);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  const long long grid = std::min<long long>((n_tiles + kTileWarps - 1) / kTileWarps,
+                                             (long long)std::max(per_sm, 1) * sms);
+  // scratch, int64 words: a summary and a carry a block, the tile counter,
+  // mx as B f32; all ones: unpublished, tile -1, mx -1 as int
+  unsigned long long* words = static_cast<unsigned long long*>(scratch);
+  const size_t n_words = 2 * n_tiles + 1 + (B + 1) / 2;
+  err = cudaMemsetAsync(scratch, 0xff, n_words * 8, s);
+  if (err != cudaSuccess) return (int)err;
+  segment_totals_tiles<kVec><<<(unsigned)grid, 32 * kTileWarps, 0, s>>>(
+      static_cast<const int32_t*>(a), static_cast<const float*>(w), L, bl, nb,
+      n_tiles, n_docs, static_cast<float*>(masked), words, words + n_tiles,
+      reinterpret_cast<unsigned*>(words + 2 * n_tiles),
+      reinterpret_cast<int*>(words + 2 * n_tiles + 1));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Both launch on `stream` of CUDA device `device` and return the CUDA error
+// All launch on `stream` of CUDA device `device` and return the CUDA error
 // code (0 on success). block_l is min(block_l, L), at most 1024.
+//
+// Segment totals, row tiles (a warp a block). `scratch` holds 2 * B *
+// ceil(L / block_l) + 1 + ceil(B / 2) int64 words; the kernel writes the
+// row max (B f32) at word 2 * B * ceil(L / block_l) + 1, where the caller
+// reads it.
 extern "C" int anorag_segment_totals(const void* a, const void* w, void* masked,
-                                     void* mx, long long B, long long L,
+                                     void* scratch, long long B, long long L,
                                      int block_l, int n_docs, int device,
                                      void* stream) {
+  if (B <= 0) return 0;
+  if (L < 1 || block_l < 1 || block_l > kMaxBlockL || block_l > L ||
+      B * ((L + block_l - 1) / block_l) >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = L % 4 == 0 && block_l % 4 == 0 &&
+                   ((uintptr_t)a | (uintptr_t)w | (uintptr_t)masked) % 16 == 0;
+  return vec ? launch_tiles<true>(a, w, masked, scratch, B, L, block_l, n_docs, device, s)
+             : launch_tiles<false>(a, w, masked, scratch, B, L, block_l, n_docs, device, s);
+}
+
+// Segment totals through PR 6's kernel, one CTA per row: the yardstick the
+// row tiles are timed against. mx is (B) f32.
+extern "C" int anorag_segment_totals_rows(const void* a, const void* w,
+                                          void* masked, void* mx, long long B,
+                                          long long L, int block_l, int n_docs,
+                                          int device, void* stream) {
   return launch<false>(a, w, masked, nullptr, nullptr, mx, B, L, block_l,
                        n_docs, device, stream);
 }

@@ -10,9 +10,11 @@ FieldWeightedPostings (:876), build_field_weighted (:898). Device:
     _segment_totals_kernel (:184) and _segment_winners_kernel (:287);
     segment_totals_ref and segment_winners_ref are their plain PyTorch
     versions, in the kernels' arithmetic (log-step block scans in the
-    reference's order, carried from block to block);
+    reference's order, carried from block to block); segment_tile_plan is
+    the totals kernel's row tiles and scratch;
   * window_winners -- wrapper of csrc/window_winners.cu, which replaces
-    _window_winners_kernel (:404); window_winners_ref is its plain version;
+    _window_winners_kernel (:404); window_winners_ref is its plain version,
+    window_plan the kernel's bucket ranges;
   * _winners_select (:665, exact branch), sparse_topm_winners (:695),
     sparse_topm_winners_bucketed (:639), sparse_topm_from_sorted (:730:
     segment totals, or the XLA chain as torch ops), sparse_lookup_sorted
@@ -26,8 +28,9 @@ empty slot id = -1.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -304,13 +307,16 @@ def segment_winners_ref(doc_rows: torch.Tensor, weight_rows: torch.Tensor,
     return wv, wd, mx
 
 
-def _check_plan(what: str, a: torch.Tensor, w: torch.Tensor) -> bool:
+def _check_plan(what: str, a: torch.Tensor, w: torch.Tensor,
+                dims: Tuple[int, ...] = (2,)) -> bool:
     """Raise on a plan the kernels do not take; True when both tensors lie
     on the CPU (the plain version runs), False when both lie on one CUDA
-    device, contiguous, as int32 ids and f32 weights."""
-    if a.dim() != 2 or a.shape != w.shape:
-        raise ValueError(f"{what}: doc_rows and weight_rows must be (B, L) of "
-                         f"one shape, got {tuple(a.shape)} and {tuple(w.shape)}")
+    device, contiguous, as int32 ids and f32 weights. dims: the layouts
+    taken, (B, L) and for the window kernel also (L / bl, Bp, bl)."""
+    if a.dim() not in dims or a.shape != w.shape:
+        raise ValueError(f"{what}: doc_rows and weight_rows must be one "
+                         f"{' or '.join(f'{d}-D' for d in dims)} shape, got "
+                         f"{tuple(a.shape)} and {tuple(w.shape)}")
     if a.device.type == "cpu" and w.device.type == "cpu":
         return True
     if a.dtype != torch.int32 or w.dtype != torch.float32:
@@ -321,6 +327,27 @@ def _check_plan(what: str, a: torch.Tensor, w: torch.Tensor) -> bool:
     if not (a.is_contiguous() and w.is_contiguous()):
         raise ValueError(f"{what}: plan tensors must be contiguous")
     return False
+
+
+class SegmentTilePlan(NamedTuple):
+    """The row-tiles segment-totals kernel's work: each row cut into
+    `blocks` blocks of bl positions, a tile (one warp's) each; its int64
+    scratch words (a summary and a carry per tile, the tile counter, then
+    the row max as B f32 from word mx_word)."""
+    bl: int
+    blocks: int
+    tiles: int
+    scratch_words: int
+    mx_word: int
+
+
+def segment_tile_plan(b: int, l: int, block_l: int = 1024) -> SegmentTilePlan:
+    """The tiles and scratch of csrc/segment_scan.cu's totals kernel for a
+    (b, l) plan (the layout anorag_segment_totals reads its scratch in)."""
+    bl = _scan_block_l(l, block_l)
+    blocks = -(-l // bl)
+    mx_word = 2 * b * blocks + 1
+    return SegmentTilePlan(bl, blocks, b * blocks, mx_word + -(-b // 2), mx_word)
 
 
 _scan_lib = None
@@ -335,36 +362,56 @@ def _load_scan() -> ctypes.CDLL:
 
         lib = _build.load("segment_scan")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.anorag_segment_totals.argtypes = [p, p, p, p, ll, ll, i, i, i, p]
-        lib.anorag_segment_totals.restype = i
+        for fn in (lib.anorag_segment_totals, lib.anorag_segment_totals_rows):
+            fn.argtypes = [p, p, p, p, ll, ll, i, i, i, p]
+            fn.restype = i
         lib.anorag_segment_winners.argtypes = [p, p, p, p, p, ll, ll, i, i, i, p]
         lib.anorag_segment_winners.restype = i
         _scan_lib = lib
     return _scan_lib
 
 
-def segment_totals(doc_rows: torch.Tensor, weight_rows: torch.Tensor,
-                   n_docs: int, block_l: int = 1024):
-    """Segment totals of a sorted (B, L) posting plan: (masked (B, L) f32 --
-    each doc's total at its segment end, NEG_INF elsewhere; per-row max
-    (B, 1) f32). CUDA tensors launch csrc/segment_scan.cu's totals kernel
-    and count one launch in segment_totals.launches; CPU tensors run
-    segment_totals_ref."""
-    if _check_plan("segment_totals", doc_rows, weight_rows):
-        return segment_totals_ref(doc_rows, weight_rows, n_docs, block_l)
-    b, l = doc_rows.shape
-    bl = _scan_block_l(l, block_l)
-    dev = doc_rows.device
+def _launch_totals(a: torch.Tensor, w: torch.Tensor, n_docs: int, block_l: int,
+                   route: str = "tiles"):
+    """Launch a segment-totals kernel on a checked CUDA plan: "tiles" (the
+    row tiles, segment_totals' kernel) or "rows" (PR 6's one CTA a row, the
+    yardstick chip_smoke.py times the tiles against). Counts nothing."""
+    b, l = a.shape
+    plan = segment_tile_plan(b, l, block_l)
+    dev = a.device
     masked = torch.empty((b, l), dtype=torch.float32, device=dev)
-    mx = torch.empty((b, 1), dtype=torch.float32, device=dev)
-    err = _load_scan().anorag_segment_totals(
-        doc_rows.data_ptr(), weight_rows.data_ptr(), masked.data_ptr(),
-        mx.data_ptr(), b, l, bl, n_docs, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _load_scan()
+    if route == "tiles":
+        scratch = torch.empty(plan.scratch_words, dtype=torch.int64, device=dev)
+        mx = scratch[plan.mx_word:].view(torch.float32)[:b].view(b, 1)
+        err = lib.anorag_segment_totals(a.data_ptr(), w.data_ptr(), masked.data_ptr(),
+                                        scratch.data_ptr(), b, l, plan.bl, n_docs,
+                                        dev.index, stream)
+    elif route == "rows":
+        mx = torch.empty((b, 1), dtype=torch.float32, device=dev)
+        err = lib.anorag_segment_totals_rows(a.data_ptr(), w.data_ptr(),
+                                             masked.data_ptr(), mx.data_ptr(), b, l,
+                                             plan.bl, n_docs, dev.index, stream)
+    else:
+        raise ValueError(f"unknown segment_totals route {route!r}")
     if err != 0:
         raise RuntimeError(f"segment_totals kernel launch failed: CUDA error {err}")
-    segment_totals.launches += 1
     return masked, mx
+
+
+def segment_totals(doc_rows: torch.Tensor, weight_rows: torch.Tensor,
+                   n_docs: int, block_l: int = 1024):
+    """Segment totals of a sorted (B, L) posting plan with weights >= 0:
+    (masked (B, L) f32 -- each doc's total at its segment end, NEG_INF
+    elsewhere; per-row max (B, 1) f32). CUDA tensors launch
+    csrc/segment_scan.cu's row-tiles kernel and count one launch in
+    segment_totals.launches; CPU tensors run segment_totals_ref."""
+    if _check_plan("segment_totals", doc_rows, weight_rows):
+        return segment_totals_ref(doc_rows, weight_rows, n_docs, block_l)
+    out = _launch_totals(doc_rows, weight_rows, n_docs, block_l)
+    segment_totals.launches += 1
+    return out
 
 
 segment_totals.launches = 0
@@ -475,6 +522,50 @@ def window_winners_ref(doc_rows: torch.Tensor, weight_rows: torch.Tensor,
     return _winners_plain(a, w, n_docs, max_seg, block_l, n_pos)
 
 
+class WindowPlan(NamedTuple):
+    """The staged window-winners kernel's grid: rows x splits CTAs, each a
+    range of `range` buckets (a multiple of 4) with threads = range / 4
+    rounded to a warp, and a 4-stage ring of `smem_bytes`."""
+    range: int
+    splits: int
+    threads: int
+    smem_bytes: int
+
+
+WINDOW_HALO = 32          # the staged kernel's left halo: max_seg taps back
+WINDOW_STAGES = 4
+
+
+def window_plan(rows: int, block_l: int, n_sm: int = 132) -> WindowPlan:
+    """Bucket ranges of csrc/window_winners.cu's staged walk: whole rows
+    when rows alone give two CTAs an SM, else each row's block_l buckets
+    split in ranges of at least 128 until they do."""
+    splits = min(-(-2 * n_sm // max(rows, 1)), max(1, block_l // 128))
+    per_split = -(-block_l // splits)
+    rng = min(1024, -(-per_split // 4) * 4)
+    splits = -(-block_l // rng)
+    return WindowPlan(rng, splits, -(-rng // 128) * 32,
+                      WINDOW_STAGES * (WINDOW_HALO + rng) * 8)
+
+
+def _window_layout(doc_rows: torch.Tensor, b_valid: Optional[int]):
+    """(rows, row stride, block stride, positions held, positions walked,
+    block_l) of either plan layout, as the staged kernel reads it in place:
+    (B, L) -- block_l min(1024, max(L, 256)), positions [1, L] with a
+    virtual pad at L; (L/bl, Bp, bl) -- block_l bl, positions [1, L)."""
+    if doc_rows.ndim == 3:
+        nj, bp, bl = doc_rows.shape
+        return b_valid or bp, bl, bp * bl, nj * bl, nj * bl, bl
+    b, l = doc_rows.shape
+    bl = min(1024, max(l, 256))
+    return b, l, bl, l, l + 1, bl
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 _winners_lib = None
 
 
@@ -485,35 +576,53 @@ def _load_winners() -> ctypes.CDLL:
         from anorag_tpu_torch import _build
 
         lib = _build.load("window_winners")
-        lib.anorag_window_winners.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 3
-            + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-        lib.anorag_window_winners.restype = ctypes.c_int
-        lib.anorag_window_winners_parts.argtypes = [ctypes.c_int]
-        lib.anorag_window_winners_parts.restype = ctypes.c_int
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.anorag_window_winners.argtypes = [p] * 5 + [ll] * 5 + [i] * 6 + [p]
+        lib.anorag_window_winners.restype = i
+        lib.anorag_window_winners_threads.argtypes = [p] * 6 + [ll] * 3 + [i] * 4 + [p]
+        lib.anorag_window_winners_threads.restype = i
+        lib.anorag_window_winners_threads_parts.argtypes = [i]
+        lib.anorag_window_winners_threads_parts.restype = i
         _winners_lib = lib
     return _winners_lib
 
 
-def _launch_winners(a: torch.Tensor, w: torch.Tensor, n_docs: int,
-                    max_seg: int, block_l: int, n_pos: int):
-    b, l = a.shape
-    if b > 65535:
-        raise ValueError(f"window_winners: at most 65535 rows, got {b}")
+def _launch_winners(doc_rows: torch.Tensor, weight_rows: torch.Tensor,
+                    n_docs: int, max_seg: int, b_valid: Optional[int] = None,
+                    route: str = "staged"):
+    """Launch a window-winners kernel on a checked CUDA plan: "staged" (the
+    staged walk, window_winners' kernel; either layout in place) or
+    "threads" (PR 4's one thread a bucket over a (B, L) copy of the plan,
+    the yardstick chip_smoke.py times the staged walk against). Counts
+    nothing."""
+    dev = doc_rows.device
     lib = _load_winners()
-    parts = lib.anorag_window_winners_parts(block_l)
-    dev = a.device
-    wv = torch.empty((b, block_l), dtype=torch.float32, device=dev)
-    wd = torch.empty((b, block_l), dtype=torch.int32, device=dev)
-    mx = torch.empty((b, 1), dtype=torch.float32, device=dev)
-    mx_part = torch.empty((b, parts), dtype=torch.float32, device=dev)
-    err = lib.anorag_window_winners(
-        a.data_ptr(), w.data_ptr(), wv.data_ptr(), wd.data_ptr(), mx.data_ptr(),
-        mx_part.data_ptr(), b, l, n_pos, block_l, n_docs, max_seg, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rows, sb, sj, held, n_pos, block_l = _window_layout(doc_rows, b_valid)
+    wv = torch.empty((rows, block_l), dtype=torch.float32, device=dev)
+    wd = torch.empty((rows, block_l), dtype=torch.int32, device=dev)
+    mx = torch.empty((rows, 1), dtype=torch.float32, device=dev)
+    if route == "staged":
+        plan = window_plan(rows, block_l, _sm_count(dev.index))
+        err = lib.anorag_window_winners(
+            doc_rows.data_ptr(), weight_rows.data_ptr(), wv.data_ptr(),
+            wd.data_ptr(), mx.data_ptr(), rows, sb, sj, held, n_pos, block_l,
+            n_docs, max_seg, plan.range, plan.splits, dev.index, stream)
+    elif route == "threads":
+        a, w, _, _ = _plan_rows(doc_rows, weight_rows, b_valid)
+        a, w = a.contiguous(), w.contiguous()
+        if rows > 65535:
+            raise ValueError(f"window_winners: at most 65535 rows, got {rows}")
+        parts = lib.anorag_window_winners_threads_parts(block_l)
+        mx_part = torch.empty((rows, parts), dtype=torch.float32, device=dev)
+        err = lib.anorag_window_winners_threads(
+            a.data_ptr(), w.data_ptr(), wv.data_ptr(), wd.data_ptr(), mx.data_ptr(),
+            mx_part.data_ptr(), rows, a.shape[1], n_pos, block_l, n_docs, max_seg,
+            dev.index, stream)
+    else:
+        raise ValueError(f"unknown window_winners route {route!r}")
     if err != 0:
         raise RuntimeError(f"window_winners kernel launch failed: CUDA error {err}")
-    window_winners.launches += 1
     return wv, wd, mx
 
 
@@ -522,13 +631,14 @@ def window_winners(doc_rows: torch.Tensor, weight_rows: torch.Tensor,
     """Scan-free BM25 winners over a sorted posting plan, (B, L) or the
     tiled (L/bl, Bp, bl) layout: returns (winner values (B, block_l),
     winner doc ids (B, block_l), per-row max (B, 1)). CUDA tensors run the
-    CUDA kernel and count one launch in window_winners.launches; CPU tensors
-    run window_winners_ref."""
+    staged kernel on the plan in place and count one launch in
+    window_winners.launches; CPU tensors run window_winners_ref."""
     _check_max_seg(max_seg)
-    a, w, block_l, n_pos = _plan_rows(doc_rows, weight_rows, b_valid)
-    if _check_plan("window_winners", a, w):
-        return _winners_plain(a, w, n_docs, max_seg, block_l, n_pos)
-    return _launch_winners(a, w, n_docs, max_seg, block_l, n_pos)
+    if _check_plan("window_winners", doc_rows, weight_rows, dims=(2, 3)):
+        return window_winners_ref(doc_rows, weight_rows, n_docs, max_seg, b_valid)
+    out = _launch_winners(doc_rows, weight_rows, n_docs, max_seg, b_valid)
+    window_winners.launches += 1
+    return out
 
 
 window_winners.launches = 0

@@ -15,7 +15,8 @@ Phases, each printing its seconds:
   4. kernels -- each kernel against its plain PyTorch version on the card,
                 at the odd shapes of the CPU tests and at the main path's
                 real shapes: window-winners ids equal and values to rtol
-                1e-6; the streaming top-k (512 x 200,000 x 1024 bf16 at k
+                1e-6 (PR 4's kernel too, on the main path, timed beside the
+                staged walk); the streaming top-k (512 x 200,000 x 1024 bf16 at k
                 20 and 128, with a bias, 1 query at k 30) and top-k values
                 to atol 1e-5, ids equal outside score ties (testing.
                 check_topk), at every odd shape through both routes, on
@@ -53,11 +54,14 @@ Phases, each printing its seconds:
   6. segment -- the segment-totals and segment-winners kernels exactly equal
                 to their plain versions (values, ids, row max) at the odd
                 shapes and at the first served batch's (512, 32,768) plan,
-                their times, plain times and bounds; the length-bucketed
-                hybrid query (make_bucketed_plan, 4 groups, and
-                hybrid_topk_bucketed) over the 4 served batches, its
-                segment-totals launches counted and its results equal to
-                the chain's outside score ties (scores to rtol 1e-4);
+                their times, plain times and bounds, PR 6's totals kernel
+                beside the row tiles; the length-bucketed hybrid query
+                (make_bucketed_plan, 4 groups, and hybrid_topk_bucketed)
+                over the 4 served batches, its segment-totals launches
+                counted and its results equal to the same routes over the
+                unbucketed plan; segment totals exactly equal at each
+                bucket shape it launched, timed there out of L2 beside PR
+                6's kernel, the plain version and the bound;
                 hybrid_topk with max_seg 0 through the segment-winners
                 kernel, its sparse top-m held against the chain (row max and
                 shared scores to rtol 1e-4, recall at least 0.9); the
@@ -828,12 +832,20 @@ def _segment_phase(dev, retriever, requests, top_k: int, smi_line: str):
         plain_ms, _ = _time_ms(lambda: ref(dr, wr, n_docs), n=2, reps=5, warm=1)
         bound_ms, bound_by, moved, ops = _scan_bound(b, l, min(1024, l),
                                                      name.endswith("winners"))
-        print(f"{name} at ({b}, {l}): kernel {ms:.4f} ms a launch (20 back to back), "
-              f"wrapper's host path {host_ms:.4f} ms a call, plain {plain_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by}: {moved / 1e6:.1f} MB, "
-              f"{ops / 1e6:.1f} M ops) | {smi_line}", flush=True)
+        old = ""
         numbers[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by, library_ms=None)
+        if name == "bm25_segment_totals":     # PR 6's kernel, the yardstick
+            exact(bm25._launch_totals(dr, wr, n_docs, 1024, "rows"),
+                  ref(dr, wr, n_docs), f"{name} PR 6 kernel, main path ({b}, {l})")
+            n += 1
+            old_ms, _ = _time_ms(lambda: bm25._launch_totals(dr, wr, n_docs, 1024, "rows"))
+            numbers[name]["old_ms"] = old_ms
+            old = f"PR 6's kernel {old_ms:.4f} ms, "
+        print(f"{name} at ({b}, {l}): kernel {ms:.4f} ms a launch (20 back to back), "
+              f"{old}wrapper's host path {host_ms:.4f} ms a call, plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}: {moved / 1e6:.1f} MB, "
+              f"{ops / 1e6:.1f} M ops) | {smi_line}", flush=True)
     torch.cuda.synchronize()
     print(f"segment kernel check: {n} comparisons exactly equal (values, ids, row max)")
 
@@ -879,6 +891,35 @@ def _segment_phase(dev, retriever, requests, top_k: int, smi_line: str):
           f"{t_bucketed:.4f} s; segment_totals launches {totals_launches} (routed "
           f"{routed}); scores and ids equal to the same routes over the unbucketed "
           f"plan | {smi_line}", flush=True)
+    # segment totals at each bucket shape the bucketed query launched, on
+    # its first bucket of that shape: exact, then timed with the plan out
+    # of L2 (under 50 MB: back to back it would stay there), beside PR 6's
+    # kernel and the bound
+    shapes = {}
+    for plan in plans:
+        for _, dr_, wr_ in plan.buckets:
+            if dr_.shape[1] >= 2048 and dr_.shape[0] >= 8:
+                shapes.setdefault(tuple(dr_.shape), (dr_, wr_))
+    bucket_numbers = []
+    for (bb, lb), (dr_, wr_) in sorted(shapes.items()):
+        want = bm25.segment_totals_ref(dr_, wr_, n_docs)
+        exact(bm25.segment_totals(dr_, wr_, n_docs), want, f"segment totals bucket ({bb}, {lb})")
+        exact(bm25._launch_totals(dr_, wr_, n_docs, 1024, "rows"), want,
+              f"segment totals PR 6 kernel, bucket ({bb}, {lb})")
+        n += 2
+        ms = _time_cold_ms(lambda: bm25.segment_totals(dr_, wr_, n_docs))
+        old_ms = _time_cold_ms(lambda: bm25._launch_totals(dr_, wr_, n_docs, 1024, "rows"))
+        warm_ms, _ = _time_ms(lambda: bm25.segment_totals(dr_, wr_, n_docs))
+        plain_ms, _ = _time_ms(lambda: bm25.segment_totals_ref(dr_, wr_, n_docs), n=2,
+                               reps=5, warm=1)
+        bound_ms, bound_by, moved, _ = _scan_bound(bb, lb, 1024, False)
+        print(f"bm25_segment_totals at bucket ({bb}, {lb}), out of L2: kernel {ms:.4f} ms, "
+              f"PR 6's kernel {old_ms:.4f} ms; back to back {warm_ms:.4f} ms; plain "
+              f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{moved / 1e6:.1f} MB) | {smi_line}", flush=True)
+        bucket_numbers.append(dict(shape=[bb, lb], ms=ms, old_ms=old_ms, warm_ms=warm_ms,
+                                   plain_ms=plain_ms, bound_ms=bound_ms))
+    numbers["bm25_segment_totals"]["buckets"] = bucket_numbers
 
     # Against the chain: both routes take totals as differences of f32
     # running sums, so each is off the exact total by a few units of
@@ -923,8 +964,16 @@ def _segment_phase(dev, retriever, requests, top_k: int, smi_line: str):
             raise AssertionError("bucketed tiled hybrid differs from the unbucketed one")
     print(f"bucketed tiled hybrid: {len(batches)} batches equal to the unbucketed "
           f"tiled path", flush=True)
+    designs = {"bm25_segment_totals": "row tiles: a warp a 1024-wide block staged "
+                                      "through shared memory, tiles from one counter "
+                                      "in (row, block) order; each publishes its "
+                                      "summary, folds its row's summaries in block "
+                                      "order from the latest published carry, "
+                                      "publishes its carry",
+               "bm25_segment_winners": "one CTA a row walks its blocks in order"}
     return [dict(name=name, route="cuda", source="anorag_tpu_torch/csrc/segment_scan.cu",
-                 replaces=replaces, launches=launches, max_abs_err=0.0, **numbers[name])
+                 design=designs[name], replaces=replaces, launches=launches,
+                 max_abs_err=0.0, **numbers[name])
             for name, replaces, launches in (
                 ("bm25_segment_totals", "anorag_tpu/ops/bm25.py:184", totals_launches),
                 ("bm25_segment_winners", "anorag_tpu/ops/bm25.py:287", winners_launches))]
@@ -1250,8 +1299,14 @@ def run(dev, seed: int = 0):
                                f"window_winners main path ({b}, {l})"))
     torch.cuda.synchronize()
     print(f"kernel check: {len(errs)} comparisons equal, max abs err {max(errs):.3g}")
+    errs.append(_check_winners(bm25._launch_winners(dr, wr, n_docs, max_seg, None, "threads"),
+                               window_winners_ref(dr, wr, n_docs, max_seg),
+                               f"window_winners PR 4 kernel, main path ({b}, {l})"))
+    torch.cuda.synchronize()
     kernel_ms, wrapper_host_ms = _time_ms(
         lambda: window_winners(dr, wr, n_docs, max_seg))
+    old_ms, _ = _time_ms(lambda: bm25._launch_winners(dr, wr, n_docs, max_seg, None,
+                                                      "threads"))
     plain_ms, _ = _time_ms(lambda: window_winners_ref(dr, wr, n_docs, max_seg))
     block_l = min(1024, max(l, 256))
     moved = 2 * 4 * b * l + 8 * b * block_l + 4 * b
@@ -1260,10 +1315,11 @@ def run(dev, seed: int = 0):
     ops = b * (l + 1) + starts * (2 * max_seg - 1)
     bound_ms = 1e3 * max(moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
     bound_by = "bytes" if moved / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else "operations"
-    print(f"window_winners at ({b}, {l}) max_seg {max_seg}: kernel {kernel_ms:.4f} ms "
-          f"a launch (20 back to back), wrapper's host path {wrapper_host_ms:.4f} ms "
-          f"a call, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-          f"{moved / 1e6:.1f} MB, {ops / 1e6:.1f} M ops) | {smi_line}")
+    print(f"window_winners at ({b}, {l}) max_seg {max_seg}: staged walk {kernel_ms:.4f} ms "
+          f"a launch (20 back to back), PR 4's kernel {old_ms:.4f} ms, wrapper's host "
+          f"path {wrapper_host_ms:.4f} ms a call, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {moved / 1e6:.1f} MB, {ops / 1e6:.1f} M ops) "
+          f"| {smi_line}")
     dense_errs, scan_errs, n_plans = _check_topk_odd_shapes(dev)
     print(f"streaming top-k check: {len(dense_errs)} dense and {len(scan_errs)} IVF "
           f"odd-shape comparisons agree, max abs err {max(dense_errs + scan_errs):.3g}; "
@@ -1380,8 +1436,7 @@ def run(dev, seed: int = 0):
             span = (e.time_range.end - e.time_range.start) / 1e3
             by_name[e.name] = by_name.get(e.name, 0.0) + span
         busy = _busy_ms(on_card)
-        ww = sum(v for k, v in by_name.items() if "window_winners_kernel" in k
-                 or "row_max_kernel" in k)
+        ww = sum(v for k, v in by_name.items() if "window_winners_staged" in k)
         print(f"trace of one {BATCH}-query request: wall {wall_ms:.2f} ms, device busy "
               f"{busy:.2f} ms, idle share {1 - busy / wall_ms:.4f}; window_winners "
               f"kernels {ww:.4f} ms | {smi_line}")
@@ -1415,9 +1470,13 @@ def run(dev, seed: int = 0):
         "name": "bm25_window_winners", "route": "cuda",
         "source": "anorag_tpu_torch/csrc/window_winners.cu",
         "replaces": "anorag_tpu/ops/bm25.py:404",
+        "design": "a staged walk per bucket range: a CTA a row and a range of "
+                  "buckets walks the blocks in order behind a 4-stage cp.async "
+                  "ring (the range and a 32-position halo), taps from registers "
+                  "and shared memory, the row max by atomicMax in the one launch",
         "launches": launches, "max_abs_err": max(errs),
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None,
+        "bound_by": bound_by, "library_ms": None, "old_ms": old_ms,
     }, {
         "name": "dense_topk", "route": "cuda",
         "source": "anorag_tpu_torch/csrc/streaming_topk.cu",

@@ -121,6 +121,72 @@ def test_segment_routes_on_the_card_launch_the_kernels(cuda_device):
         assert torch.equal(x.cpu(), y)
 
 
+def _bucket_plan(rng, b, l, n_docs):
+    """A bucket-like sorted plan on the CPU: row 0 empty, row 1 one doc
+    across every tile, the rest sorted ids over about 80% of the width with
+    weights spanning six decades."""
+    a = np.sort(rng.integers(0, n_docs, (b, l)), axis=1).astype(np.int32)
+    a[:, int(l * 0.8):] = n_docs
+    a[0] = n_docs
+    a[1, :l - 5] = 7
+    a[1, l - 5:] = n_docs
+    w = np.where(a < n_docs, 10.0 ** rng.uniform(-3, 3, (b, l)), 0.0).astype(np.float32)
+    return a, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l", [(128, 8192), (128, 16384), (128, 32768), (9, 3075)])
+def test_segment_totals_row_tiles_at_bucket_shapes(cuda_device, b, l):
+    """The row tiles at the bucketed query's shapes (and an L that is not a
+    multiple of 4: scalar loads), on rows that cross every tile and an
+    empty row; PR 6's kernel, the yardstick, gives the same."""
+    a, w = _bucket_plan(np.random.default_rng(l), b, l, 200_000)
+    at, wt = torch.from_numpy(a).to(cuda_device), torch.from_numpy(w).to(cuda_device)
+    want = bm25.segment_totals_ref(at, wt, 200_000)
+    for rep in range(3):        # tiles are handed out in another order each time
+        got = bm25.segment_totals(at, wt, 200_000)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, want)), rep
+    rows = bm25._launch_totals(at, wt, 200_000, 1024, "rows")
+    assert all(torch.equal(x, y) for x, y in zip(rows, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_seg", [1, 32])
+def test_window_winners_staged_reads_the_tiled_plan_in_place(cuda_device, max_seg):
+    """plan_tiles' layout read through its strides (b_valid below the
+    padded rows), rows of max_seg-long segments, an empty row; PR 4's
+    kernel over the copied rows gives the same."""
+    n_docs, b, l = 3000, 3, 2311
+    a, w = sorted_plan(np.random.default_rng(max_seg), n_docs, b, l, max_seg)
+    for block_l in (256, 1024):
+        a3, w3 = (torch.from_numpy(x).to(cuda_device)
+                  for x in bm25.plan_tiles(a, w, n_docs, block_l=block_l))
+        got = bm25.window_winners(a3, w3, n_docs, max_seg, b_valid=b)
+        want = bm25.window_winners_ref(a3, w3, n_docs, max_seg, b_valid=b)
+        old = bm25._launch_winners(a3, w3, n_docs, max_seg, b, "threads")
+        torch.cuda.synchronize()
+        for x in (got, old):
+            assert torch.equal(x[1], want[1]), block_l
+            torch.testing.assert_close(x[0], want[0], rtol=1e-6, atol=0)
+            torch.testing.assert_close(x[2], want[2], rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+def test_window_winners_staged_at_the_served_shape(cuda_device):
+    """(512, 32,768) at max_seg 8, whole rows a CTA; and 64 rows, where the
+    rows' buckets are split in ranges."""
+    for b in (512, 64):
+        a, w = _bucket_plan(np.random.default_rng(b), b, 32768, 200_000)
+        at, wt = torch.from_numpy(a).to(cuda_device), torch.from_numpy(w).to(cuda_device)
+        got = bm25.window_winners(at, wt, 200_000, 8)
+        want = bm25.window_winners_ref(at, wt, 200_000, 8)
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], want[1]), b
+        torch.testing.assert_close(got[0], want[0], rtol=1e-6, atol=0)
+        torch.testing.assert_close(got[2], want[2], rtol=1e-6, atol=0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_dense_topk_kernel_matches_ref(cuda_device, dtype):
