@@ -29,8 +29,8 @@
 // its summary (x_last, xe) need no carry; the carry is the same serial
 // fold of the summaries, in block order. A tile is one block of a row and
 // one warp's work; a persistent grid of 4-warp CTAs takes tiles from one
-// atomic counter in (row, block) order, so a tile's predecessors in its
-// row were handed out before it, to running warps. A warp takes a tile
+// atomic counter in (block, row) order, so a tile's predecessors in its
+// row were handed out before it, to running warps, B tiles apart. A warp takes a tile
 // only when it can scan and publish it without waiting (a tile held
 // through a wait would chain the waits). It stages the block through its
 // own 8 KB of shared memory (cp.async, 16 bytes a copy where the layout
@@ -333,8 +333,9 @@ segment_totals_tiles(const int32_t* __restrict__ a, const float* __restrict__ w,
   int32_t* sid = stage_id[threadIdx.x >> 5];
   float* sw = stage_w[threadIdx.x >> 5];
   const float kInf = __int_as_float(0x7f800000);
-  // Tiles in (row, block) order from one counter, so a tile's predecessors
-  // in its row were handed out before it. A tile is taken only when the
+  // Tiles in (block, row) order from one counter, so a tile's predecessors
+  // in its row were handed out before it, B tickets apart: by the time a
+  // tile folds, its predecessor has mostly published. A tile is taken only when the
   // warp can scan and publish it without waiting (a tile held through a
   // wait would chain the waits): first here, then right after the fold of
   // the tile before. The counter starts at -1 (all ones): old + 1 counts
@@ -342,9 +343,10 @@ segment_totals_tiles(const int32_t* __restrict__ a, const float* __restrict__ w,
   unsigned ticket = 0;
   if (lane == 0) ticket = atomicAdd(counter, 1u) + 1u;
   long long tile = __shfl_sync(kFull, ticket, 0);
+  const long long n_rows = n_tiles / nb;
   while (tile < n_tiles) {
-    const int64_t row = tile / nb;
-    const int jb = (int)(tile % nb);
+    const int64_t row = tile % n_rows;
+    const int jb = (int)(tile / n_rows);
     const int64_t b0 = (int64_t)jb * bl;            // the block's first position
     const int32_t* ar = a + row * L;
     const float* wr = w + row * L;
