@@ -49,9 +49,9 @@
 // the counter, mx) is set to all ones by one memset: unpublished, tile -1,
 // mx -1 as int.
 //
-// Segment winners (segment_scan_kernel<true>, PR 6's design; its <false>
-// instance is the first totals kernel, kept as the yardstick the redesign
-// is timed against): rows are the parallel axis, one CTA per row walks its
+// Segment winners (segment_scan_kernel<true>, the first design; its
+// <false> instance is the first totals kernel, kept as the yardstick the
+// row tiles are timed against): rows are the parallel axis, one CTA per row walks its
 // blocks in order, one thread per position of a block. At steps s < 32
 // lane l takes x[p - s] from lane l - s by a warp shuffle, and for l < s
 // from lane l - s + 32 of the previous warp, tracked in a second register;
@@ -584,7 +584,7 @@ extern "C" int anorag_segment_totals(const void* a, const void* w, void* masked,
              : launch_tiles<false>(a, w, masked, scratch, B, L, block_l, n_docs, device, s);
 }
 
-// Segment totals through PR 6's kernel, one CTA per row: the yardstick the
+// Segment totals through the first kernel, one CTA a row: the yardstick the
 // row tiles are timed against. mx is (B) f32.
 extern "C" int anorag_segment_totals_rows(const void* a, const void* w,
                                           void* masked, void* mx, long long B,

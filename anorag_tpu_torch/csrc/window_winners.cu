@@ -35,7 +35,7 @@
 // launch: all maxima are >= 0, so an integer atomicMax on their bits is
 // exact (mx zeroed by a memset first).
 //
-// anorag_window_winners_threads keeps PR 4's first kernel (one thread per
+// anorag_window_winners_threads keeps the first kernel (one thread per
 // (row, bucket), taps read from global memory, a second launch reducing
 // the row max) as the yardstick the staged walk is timed against.
 //
@@ -206,7 +206,7 @@ window_winners_staged(Plan g, float* __restrict__ wv, int32_t* __restrict__ wd,
   if ((threadIdx.x & 31) == 0 && top != 0u) atomicMax(mx_bits + row, (int)top);
 }
 
-// ------------------------------------------------ PR 4's kernel, the yardstick
+// ------------------------------------------- the first kernel, the yardstick
 constexpr int kThreads = 256;
 
 __global__ void __launch_bounds__(kThreads)
@@ -305,12 +305,12 @@ extern "C" int anorag_window_winners(const void* a, const void* w, void* wv,
   return (int)cudaGetLastError();
 }
 
-// Number of (B, parts) f32 scratch columns PR 4's kernel needs.
+// Number of (B, parts) f32 scratch columns the first kernel needs.
 extern "C" int anorag_window_winners_threads_parts(int block_l) {
   return (block_l + kThreads - 1) / kThreads;
 }
 
-// PR 4's kernel over a (B, L) plan, at most 65,535 rows.
+// The first kernel over a (B, L) plan, at most 65,535 rows.
 extern "C" int anorag_window_winners_threads(
     const void* a, const void* w, void* wv, void* wd, void* mx, void* mx_part,
     long long B, long long L, long long n_pos, int block_l, int n_docs,

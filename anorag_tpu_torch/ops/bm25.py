@@ -336,7 +336,6 @@ class SegmentTilePlan(NamedTuple):
     the row max as B f32 from word mx_word)."""
     bl: int
     blocks: int
-    tiles: int
     scratch_words: int
     mx_word: int
 
@@ -347,7 +346,7 @@ def segment_tile_plan(b: int, l: int, block_l: int = 1024) -> SegmentTilePlan:
     bl = _scan_block_l(l, block_l)
     blocks = -(-l // bl)
     mx_word = 2 * b * blocks + 1
-    return SegmentTilePlan(bl, blocks, b * blocks, mx_word + -(-b // 2), mx_word)
+    return SegmentTilePlan(bl, blocks, mx_word + -(-b // 2), mx_word)
 
 
 _scan_lib = None
@@ -374,8 +373,9 @@ def _load_scan() -> ctypes.CDLL:
 def _launch_totals(a: torch.Tensor, w: torch.Tensor, n_docs: int, block_l: int,
                    route: str = "tiles"):
     """Launch a segment-totals kernel on a checked CUDA plan: "tiles" (the
-    row tiles, segment_totals' kernel) or "rows" (PR 6's one CTA a row, the
-    yardstick chip_smoke.py times the tiles against). Counts nothing."""
+    row tiles, segment_totals' kernel) or "rows" (the first kernel, a CTA a
+    row, the yardstick chip_smoke.py times the tiles against). Counts
+    nothing."""
     b, l = a.shape
     plan = segment_tile_plan(b, l, block_l)
     dev = a.device
@@ -524,16 +524,9 @@ def window_winners_ref(doc_rows: torch.Tensor, weight_rows: torch.Tensor,
 
 class WindowPlan(NamedTuple):
     """The staged window-winners kernel's grid: rows x splits CTAs, each a
-    range of `range` buckets (a multiple of 4) with threads = range / 4
-    rounded to a warp, and a 4-stage ring of `smem_bytes`."""
+    range of `range` buckets (a multiple of 4)."""
     range: int
     splits: int
-    threads: int
-    smem_bytes: int
-
-
-WINDOW_HALO = 32          # the staged kernel's left halo: max_seg taps back
-WINDOW_STAGES = 4
 
 
 def window_plan(rows: int, block_l: int, n_sm: int = 132) -> WindowPlan:
@@ -543,9 +536,7 @@ def window_plan(rows: int, block_l: int, n_sm: int = 132) -> WindowPlan:
     splits = min(-(-2 * n_sm // max(rows, 1)), max(1, block_l // 128))
     per_split = -(-block_l // splits)
     rng = min(1024, -(-per_split // 4) * 4)
-    splits = -(-block_l // rng)
-    return WindowPlan(rng, splits, -(-rng // 128) * 32,
-                      WINDOW_STAGES * (WINDOW_HALO + rng) * 8)
+    return WindowPlan(rng, -(-block_l // rng))
 
 
 def _window_layout(doc_rows: torch.Tensor, b_valid: Optional[int]):
@@ -555,7 +546,11 @@ def _window_layout(doc_rows: torch.Tensor, b_valid: Optional[int]):
     virtual pad at L; (L/bl, Bp, bl) -- block_l bl, positions [1, L)."""
     if doc_rows.ndim == 3:
         nj, bp, bl = doc_rows.shape
-        return b_valid or bp, bl, bp * bl, nj * bl, nj * bl, bl
+        rows = b_valid or bp
+        if not 0 < rows <= bp:
+            raise ValueError(f"window_winners: b_valid {b_valid} past the plan's "
+                             f"{bp} rows")
+        return rows, bl, bp * bl, nj * bl, nj * bl, bl
     b, l = doc_rows.shape
     bl = min(1024, max(l, 256))
     return b, l, bl, l, l + 1, bl
@@ -592,9 +587,9 @@ def _launch_winners(doc_rows: torch.Tensor, weight_rows: torch.Tensor,
                     route: str = "staged"):
     """Launch a window-winners kernel on a checked CUDA plan: "staged" (the
     staged walk, window_winners' kernel; either layout in place) or
-    "threads" (PR 4's one thread a bucket over a (B, L) copy of the plan,
-    the yardstick chip_smoke.py times the staged walk against). Counts
-    nothing."""
+    "threads" (the first kernel, a thread a bucket, over a (B, L) copy of
+    the plan, the yardstick chip_smoke.py times the staged walk against).
+    Counts nothing."""
     dev = doc_rows.device
     lib = _load_winners()
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -15,7 +15,7 @@ Phases, each printing its seconds:
   4. kernels -- each kernel against its plain PyTorch version on the card,
                 at the odd shapes of the CPU tests and at the main path's
                 real shapes: window-winners ids equal and values to rtol
-                1e-6 (PR 4's kernel too, on the main path, timed beside the
+                1e-6 (the first kernel too, on the main path, timed beside the
                 staged walk); the streaming top-k (512 x 200,000 x 1024 bf16 at k
                 20 and 128, with a bias, 1 query at k 30) and top-k values
                 to atol 1e-5, ids equal outside score ties (testing.
@@ -54,14 +54,14 @@ Phases, each printing its seconds:
   6. segment -- the segment-totals and segment-winners kernels exactly equal
                 to their plain versions (values, ids, row max) at the odd
                 shapes and at the first served batch's (512, 32,768) plan,
-                their times, plain times and bounds, PR 6's totals kernel
+                their times, plain times and bounds, the first totals kernel
                 beside the row tiles; the length-bucketed hybrid query
                 (make_bucketed_plan, 4 groups, and hybrid_topk_bucketed)
                 over the 4 served batches, its segment-totals launches
                 counted and its results equal to the same routes over the
                 unbucketed plan; segment totals exactly equal at each
-                bucket shape it launched, timed there out of L2 beside PR
-                6's kernel, the plain version and the bound;
+                bucket shape it launched, timed there out of L2 beside the
+                first kernel, the plain version and the bound;
                 hybrid_topk with max_seg 0 through the segment-winners
                 kernel, its sparse top-m held against the chain (row max and
                 shared scores to rtol 1e-4, recall at least 0.9); the
@@ -835,13 +835,13 @@ def _segment_phase(dev, retriever, requests, top_k: int, smi_line: str):
         old = ""
         numbers[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by, library_ms=None)
-        if name == "bm25_segment_totals":     # PR 6's kernel, the yardstick
+        if name == "bm25_segment_totals":     # the first kernel, the yardstick
             exact(bm25._launch_totals(dr, wr, n_docs, 1024, "rows"),
-                  ref(dr, wr, n_docs), f"{name} PR 6 kernel, main path ({b}, {l})")
+                  ref(dr, wr, n_docs), f"{name} first kernel, main path ({b}, {l})")
             n += 1
             old_ms, _ = _time_ms(lambda: bm25._launch_totals(dr, wr, n_docs, 1024, "rows"))
             numbers[name]["old_ms"] = old_ms
-            old = f"PR 6's kernel {old_ms:.4f} ms, "
+            old = f"first kernel {old_ms:.4f} ms, "
         print(f"{name} at ({b}, {l}): kernel {ms:.4f} ms a launch (20 back to back), "
               f"{old}wrapper's host path {host_ms:.4f} ms a call, plain {plain_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}: {moved / 1e6:.1f} MB, "
@@ -893,7 +893,7 @@ def _segment_phase(dev, retriever, requests, top_k: int, smi_line: str):
           f"plan | {smi_line}", flush=True)
     # segment totals at each bucket shape the bucketed query launched, on
     # its first bucket of that shape: exact, then timed with the plan out
-    # of L2 (under 50 MB: back to back it would stay there), beside PR 6's
+    # of L2 (under 50 MB: back to back it would stay there), beside the first
     # kernel and the bound
     shapes = {}
     for plan in plans:
@@ -905,7 +905,7 @@ def _segment_phase(dev, retriever, requests, top_k: int, smi_line: str):
         want = bm25.segment_totals_ref(dr_, wr_, n_docs)
         exact(bm25.segment_totals(dr_, wr_, n_docs), want, f"segment totals bucket ({bb}, {lb})")
         exact(bm25._launch_totals(dr_, wr_, n_docs, 1024, "rows"), want,
-              f"segment totals PR 6 kernel, bucket ({bb}, {lb})")
+              f"segment totals first kernel, bucket ({bb}, {lb})")
         n += 2
         ms = _time_cold_ms(lambda: bm25.segment_totals(dr_, wr_, n_docs))
         old_ms = _time_cold_ms(lambda: bm25._launch_totals(dr_, wr_, n_docs, 1024, "rows"))
@@ -914,7 +914,7 @@ def _segment_phase(dev, retriever, requests, top_k: int, smi_line: str):
                                reps=5, warm=1)
         bound_ms, bound_by, moved, _ = _scan_bound(bb, lb, 1024, False)
         print(f"bm25_segment_totals at bucket ({bb}, {lb}), out of L2: kernel {ms:.4f} ms, "
-              f"PR 6's kernel {old_ms:.4f} ms; back to back {warm_ms:.4f} ms; plain "
+              f"first kernel {old_ms:.4f} ms; back to back {warm_ms:.4f} ms; plain "
               f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
               f"{moved / 1e6:.1f} MB) | {smi_line}", flush=True)
         bucket_numbers.append(dict(shape=[bb, lb], ms=ms, old_ms=old_ms, warm_ms=warm_ms,
@@ -1301,7 +1301,7 @@ def run(dev, seed: int = 0):
     print(f"kernel check: {len(errs)} comparisons equal, max abs err {max(errs):.3g}")
     errs.append(_check_winners(bm25._launch_winners(dr, wr, n_docs, max_seg, None, "threads"),
                                window_winners_ref(dr, wr, n_docs, max_seg),
-                               f"window_winners PR 4 kernel, main path ({b}, {l})"))
+                               f"window_winners first kernel, main path ({b}, {l})"))
     torch.cuda.synchronize()
     kernel_ms, wrapper_host_ms = _time_ms(
         lambda: window_winners(dr, wr, n_docs, max_seg))
@@ -1316,7 +1316,7 @@ def run(dev, seed: int = 0):
     bound_ms = 1e3 * max(moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
     bound_by = "bytes" if moved / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else "operations"
     print(f"window_winners at ({b}, {l}) max_seg {max_seg}: staged walk {kernel_ms:.4f} ms "
-          f"a launch (20 back to back), PR 4's kernel {old_ms:.4f} ms, wrapper's host "
+          f"a launch (20 back to back), first kernel {old_ms:.4f} ms, wrapper's host "
           f"path {wrapper_host_ms:.4f} ms a call, plain {plain_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({bound_by}: {moved / 1e6:.1f} MB, {ops / 1e6:.1f} M ops) "
           f"| {smi_line}")

@@ -139,7 +139,7 @@ def _bucket_plan(rng, b, l, n_docs):
 def test_segment_totals_row_tiles_at_bucket_shapes(cuda_device, b, l):
     """The row tiles at the bucketed query's shapes (and an L that is not a
     multiple of 4: scalar loads), on rows that cross every tile and an
-    empty row; PR 6's kernel, the yardstick, gives the same."""
+    empty row; the first kernel, the yardstick, gives the same."""
     a, w = _bucket_plan(np.random.default_rng(l), b, l, 200_000)
     at, wt = torch.from_numpy(a).to(cuda_device), torch.from_numpy(w).to(cuda_device)
     want = bm25.segment_totals_ref(at, wt, 200_000)
@@ -155,7 +155,7 @@ def test_segment_totals_row_tiles_at_bucket_shapes(cuda_device, b, l):
 @pytest.mark.parametrize("max_seg", [1, 32])
 def test_window_winners_staged_reads_the_tiled_plan_in_place(cuda_device, max_seg):
     """plan_tiles' layout read through its strides (b_valid below the
-    padded rows), rows of max_seg-long segments, an empty row; PR 4's
+    padded rows), rows of max_seg-long segments, an empty row; the first
     kernel over the copied rows gives the same."""
     n_docs, b, l = 3000, 3, 2311
     a, w = sorted_plan(np.random.default_rng(max_seg), n_docs, b, l, max_seg)

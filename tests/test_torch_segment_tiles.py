@@ -197,9 +197,9 @@ def test_tile_walk_on_random_plans(seed):
 ])
 def test_segment_tile_plan(b, l, block_l, bl, blocks):
     plan = bm25.segment_tile_plan(b, l, block_l)
-    assert (plan.bl, plan.blocks, plan.tiles) == (bl, blocks, b * blocks)
-    # a summary and a carry a tile, the counter, then B f32 of row max
-    assert plan.mx_word == 2 * plan.tiles + 1
+    assert (plan.bl, plan.blocks) == (bl, blocks)
+    # a summary and a carry a tile (block), the counter, then B f32 of row max
+    assert plan.mx_word == 2 * b * blocks + 1
     assert 2 * (plan.scratch_words - plan.mx_word) >= b
     assert 2 * (plan.scratch_words - plan.mx_word) <= b + 1
 
