@@ -11,7 +11,7 @@ FieldWeightedPostings (:876), build_field_weighted (:898). Device:
     segment_totals_ref and segment_winners_ref are their plain PyTorch
     versions, in the kernels' arithmetic (log-step block scans in the
     reference's order, carried from block to block); segment_tile_plan is
-    the totals kernel's row tiles and scratch;
+    the row tiles and scratch of both kernels;
   * window_winners -- wrapper of csrc/window_winners.cu, which replaces
     _window_winners_kernel (:404); window_winners_ref is its plain version,
     window_plan the kernel's bucket ranges;
@@ -329,24 +329,42 @@ def _check_plan(what: str, a: torch.Tensor, w: torch.Tensor,
     return False
 
 
+SEGMENT_GROUP_BLOCKS = 8   # csrc/segment_scan.cu's kGroupWarps
+
+
 class SegmentTilePlan(NamedTuple):
-    """The row-tiles segment-totals kernel's work: each row cut into
-    `blocks` blocks of bl positions, a tile (one warp's) each; its int64
-    scratch words (a summary and a carry per tile, the tile counter, then
-    the row max as B f32 from word mx_word)."""
+    """The row-tiles segment kernels' work: each row cut into `blocks`
+    blocks of bl positions, a tile (one warp's) each; their int64 scratch
+    words: a summary and a carry per tile, the tile counter, then the row
+    max as B f32 from word mx_word (scratch_words in all for totals). The
+    winners kernel takes a row's blocks in `groups` groups of
+    SEGMENT_GROUP_BLOCKS; its scratch adds a count of finished groups per
+    row (B u32), a key per bucket, (B, bl) from word keys_word, and an id
+    table per group, (B, groups, bl) int32 from word ids_word
+    (winners_words in all); the launch clears the words before ids_word."""
     bl: int
     blocks: int
     scratch_words: int
     mx_word: int
+    groups: int
+    keys_word: int
+    ids_word: int
+    winners_words: int
 
 
 def segment_tile_plan(b: int, l: int, block_l: int = 1024) -> SegmentTilePlan:
-    """The tiles and scratch of csrc/segment_scan.cu's totals kernel for a
-    (b, l) plan (the layout anorag_segment_totals reads its scratch in)."""
+    """The tiles and scratch of csrc/segment_scan.cu's row-tiles kernels for
+    a (b, l) plan (the layout anorag_segment_totals and
+    anorag_segment_winners read their scratch in)."""
     bl = _scan_block_l(l, block_l)
     blocks = -(-l // bl)
+    groups = -(-blocks // SEGMENT_GROUP_BLOCKS)
     mx_word = 2 * b * blocks + 1
-    return SegmentTilePlan(bl, blocks, mx_word + -(-b // 2), mx_word)
+    scratch_words = mx_word + -(-b // 2)
+    keys_word = scratch_words + -(-b // 2)
+    ids_word = keys_word + b * bl
+    return SegmentTilePlan(bl, blocks, scratch_words, mx_word, groups, keys_word, ids_word,
+                           ids_word + -(-(b * groups * bl) // 2))
 
 
 _scan_lib = None
@@ -364,8 +382,9 @@ def _load_scan() -> ctypes.CDLL:
         for fn in (lib.anorag_segment_totals, lib.anorag_segment_totals_rows):
             fn.argtypes = [p, p, p, p, ll, ll, i, i, i, p]
             fn.restype = i
-        lib.anorag_segment_winners.argtypes = [p, p, p, p, p, ll, ll, i, i, i, p]
-        lib.anorag_segment_winners.restype = i
+        for fn in (lib.anorag_segment_winners, lib.anorag_segment_winners_rows):
+            fn.argtypes = [p, p, p, p, p, ll, ll, i, i, i, p]
+            fn.restype = i
         _scan_lib = lib
     return _scan_lib
 
@@ -417,30 +436,48 @@ def segment_totals(doc_rows: torch.Tensor, weight_rows: torch.Tensor,
 segment_totals.launches = 0
 
 
+def _launch_segment_winners(a: torch.Tensor, w: torch.Tensor, n_docs: int,
+                            block_l: int, route: str = "tiles"):
+    """Launch a segment-winners kernel on a checked CUDA plan: "tiles" (the
+    row tiles with a per-bucket key merge, segment_winners' kernel) or
+    "rows" (the first kernel, a CTA a row, the yardstick chip_smoke.py
+    times the tiles against). Counts nothing."""
+    b, l = a.shape
+    plan = segment_tile_plan(b, l, block_l)
+    dev = a.device
+    wv = torch.empty((b, plan.bl), dtype=torch.float32, device=dev)
+    wd = torch.empty((b, plan.bl), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _load_scan()
+    if route == "tiles":
+        scratch = torch.empty(plan.winners_words, dtype=torch.int64, device=dev)
+        mx = scratch[plan.mx_word:].view(torch.float32)[:b].view(b, 1)
+        fn, out = lib.anorag_segment_winners, scratch
+    elif route == "rows":
+        mx = torch.empty((b, 1), dtype=torch.float32, device=dev)
+        fn, out = lib.anorag_segment_winners_rows, mx
+    else:
+        raise ValueError(f"unknown segment_winners route {route!r}")
+    err = fn(a.data_ptr(), w.data_ptr(), wv.data_ptr(), wd.data_ptr(), out.data_ptr(),
+             b, l, plan.bl, n_docs, dev.index, stream)
+    if err != 0:
+        raise RuntimeError(f"segment_winners kernel launch failed: CUDA error {err}")
+    return wv, wd, mx
+
+
 def segment_winners(doc_rows: torch.Tensor, weight_rows: torch.Tensor,
                     n_docs: int, block_l: int = 1024):
     """Segment totals with bucketed winner selection in one pass over a
     sorted (B, L) plan; the (B, L) totals never reach memory. Returns
     (winner values (B, bl) f32, winner doc ids (B, bl) int32, per-row max
     (B, 1) f32), bl = min(block_l, L). CUDA tensors launch
-    csrc/segment_scan.cu's winners kernel and count one launch in
+    csrc/segment_scan.cu's row-tiles winners kernel and count one launch in
     segment_winners.launches; CPU tensors run segment_winners_ref."""
     if _check_plan("segment_winners", doc_rows, weight_rows):
         return segment_winners_ref(doc_rows, weight_rows, n_docs, block_l)
-    b, l = doc_rows.shape
-    bl = _scan_block_l(l, block_l)
-    dev = doc_rows.device
-    wv = torch.empty((b, bl), dtype=torch.float32, device=dev)
-    wd = torch.empty((b, bl), dtype=torch.int32, device=dev)
-    mx = torch.empty((b, 1), dtype=torch.float32, device=dev)
-    err = _load_scan().anorag_segment_winners(
-        doc_rows.data_ptr(), weight_rows.data_ptr(), wv.data_ptr(),
-        wd.data_ptr(), mx.data_ptr(), b, l, bl, n_docs, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"segment_winners kernel launch failed: CUDA error {err}")
+    out = _launch_segment_winners(doc_rows, weight_rows, n_docs, block_l)
     segment_winners.launches += 1
-    return wv, wd, mx
+    return out
 
 
 segment_winners.launches = 0

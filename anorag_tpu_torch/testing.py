@@ -51,13 +51,17 @@ def sorted_plan(rng: np.random.Generator, n_docs: int, b: int, l: int,
 # L 700 not a multiple of the block) at block_l 128 and the default; "bench"
 # is bench.py's segment-winners check (4,000 docs, B 8, L 4,096); "straddle"
 # has a segment across the 1024-wide block edge in every row; "tiny" and
-# "single" are a one-row plan of 19 and a plan one position wide.
+# "single" are a one-row plan of 19 and a plan one position wide; "ties"
+# has row r cut into segments r + 1 long (at most 4) of weights 1.0 and
+# 2.0 over four 1024-wide blocks, so exact equal totals meet in one bucket
+# from every block and only the earliest block may win it.
 SEGMENT_CASES = (
     ("odd", 500, 9, 700, 128),
     ("odd", 500, 9, 700, 1024),
     ("bench", 4000, 8, 4096, 1024),
     ("tiny", 29, 1, 19, 1024),
     ("single", 5, 2, 1, 1024),
+    ("ties", 5000, 4, 3500, 1024),
     ("straddle", 300, 3, 2311, 1024),
 )
 
@@ -65,7 +69,8 @@ SEGMENT_CASES = (
 def segment_plan(kind: str, n_docs: int, b: int, l: int
                  ) -> Tuple[np.ndarray, np.ndarray]:
     """(doc_rows (B, L) int32 sorted per row, pad n_docs; weight_rows (B, L)
-    f32 in [0.01, 1.01), 0 on pads) of a SEGMENT_CASES kind, from a seed."""
+    f32 in [0.01, 1.01) (1.0 or 2.0 for "ties"), 0 on pads) of a
+    SEGMENT_CASES kind, from a seed."""
     rng = np.random.default_rng({"odd": 11, "bench": 7}.get(kind, l))
     rows = []
     for bi in range(b):
@@ -73,6 +78,9 @@ def segment_plan(kind: str, n_docs: int, b: int, l: int
             ids = np.full(l, n_docs)                          # empty row
         elif kind == "odd" and bi == 1:
             ids = np.concatenate([np.zeros(l - 3), np.full(3, n_docs)])
+        elif kind == "ties":
+            seg = min(bi + 1, 4)
+            ids = np.repeat(np.arange(-(-(l - 17) // seg)), seg)[:l - 17]
         elif kind == "straddle":
             docs = np.sort(rng.choice(n_docs, n_docs // 2, replace=False))
             ids = np.repeat(docs, rng.integers(1, 41, len(docs)))
@@ -84,9 +92,25 @@ def segment_plan(kind: str, n_docs: int, b: int, l: int
         ids = np.concatenate([ids, np.full(l - len(ids), n_docs)])
         rows.append(ids.astype(np.int32))
     a = np.stack(rows)
-    w = np.where(a < n_docs, rng.random((b, l)).astype(np.float32) + 0.01,
-                 0.0).astype(np.float32)
+    if kind == "ties":
+        weights = rng.integers(1, 3, (b, l)).astype(np.float32)
+    else:
+        weights = rng.random((b, l)).astype(np.float32) + 0.01
+    w = np.where(a < n_docs, weights, 0.0).astype(np.float32)
     return a, w
+
+
+def rounding_plan() -> Tuple[np.ndarray, np.ndarray, int, int]:
+    """(doc_rows (1, 8), weight_rows (1, 8), n_docs, block_l 4): weights over
+    nine decades, so the log-step sums round and doc 3 (weight 0) ends a few
+    ulps below the end before it: bucket 3's winner is the negative total
+    -2^-23 (an order of float bits that ignored the sign would rank it
+    above every positive total)."""
+    a = np.array([[0, 0, 0, 1, 1, 2, 2, 3]], np.int32)
+    w = np.array([[0.0, 1.2915201352825534e-07, 6.938005725487528e-09,
+                   0.0011496919905766845, 0.00513417599722743,
+                   1.6172699588423711e-06, 1.4274293184280396, 0.0]], np.float32)
+    return a, w, 10, 4
 
 
 # Odd shapes for the streaming top-k kernel: (N, D, B, k, bias). k > N pads;

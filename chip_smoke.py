@@ -7,7 +7,8 @@ Phases, each printing its seconds:
   1. device  -- nvidia-smi's name and power limit, torch's device name;
   2. build   -- nvcc builds the CUDA sources (window_winners,
                 streaming_topk, ivf_scan, segment_scan, bucket_winners) in
-                parallel (plain C interface, ctypes);
+                parallel (plain C interface, ctypes) and prints each
+                kernel's registers and spills (-Xptxas -v);
   3. setup   -- a 200,000-note corpus drawn from a 30,000-word Zipf
                 vocabulary (40 terms a note), 1024-wide unit embeddings
                 and the full-width encoder (24 layers, hidden 1024, bf16),
@@ -51,11 +52,14 @@ Phases, each printing its seconds:
                 B 1 to 512; bucket_topk's recall@10 against exact f32 on
                 64 queries, with the launches of both routes and the merge
                 counted;
-  6. segment -- the segment-totals and segment-winners kernels exactly equal
-                to their plain versions (values, ids, row max) at the odd
-                shapes and at the first served batch's (512, 32,768) plan,
-                their times, plain times and bounds, the first totals kernel
-                beside the row tiles; the length-bucketed hybrid query
+  6. segment -- the segment-totals and segment-winners kernels (row tiles)
+                and their first kernels (a CTA a row) exactly equal to their
+                plain versions (values, ids, row max) at the odd shapes (the
+                tie-heavy case included) and at the first served batch's
+                (512, 32,768) plan, their times beside the first kernels',
+                plain times and bounds; segment winners' route lines, both
+                kernels exact and timed on the plan's first 1, 16, 64, 128
+                and 512 rows; the length-bucketed hybrid query
                 (make_bucketed_plan, 4 groups, and hybrid_topk_bucketed)
                 over the 4 served batches, its segment-totals launches
                 counted and its results equal to the same routes over the
@@ -135,6 +139,9 @@ IVF_TILE_BATCHES = (1, 4, 16, 32, 64, 96, 128, 192, 256, 512)
 TOPK_ROUTE_BATCHES = (1, 4, 16, 32, 48, 64, 128, 512)
 # batch sizes at which the bucket-winners kernel's two routes are timed
 BUCKET_ROUTE_BATCHES = (1, 16, 32, 48, 64, 128, 512)
+# batch sizes at which segment winners' row tiles and first kernel are timed
+# (64: the served stream_batch)
+SEGMENT_ROUTE_BATCHES = (1, 16, 64, 128, 512)
 N_RETRIEVE = 32
 
 
@@ -163,6 +170,31 @@ def _query_terms(rng, b: int):
     p = 1.0 / (ranks + 1.0)
     p /= p.sum()
     return [rng.choice(ranks, size=Q_LEN, p=p) for _ in range(b)]
+
+
+def _kernel_name(symbol: str) -> str:
+    """A kernel's name from its mangled symbol, as ptxas -v names it:
+    namespaces dropped, integral template arguments kept
+    ('segment_winners_tiles<true>')."""
+    import re
+
+    i = 2 if symbol.startswith("_Z") else 0
+    nested = symbol[i:i + 1] == "N"
+    i += nested
+    name = symbol
+    while i < len(symbol) and symbol[i].isdigit():
+        j = i
+        while symbol[j].isdigit():
+            j += 1
+        name, i = symbol[j:j + int(symbol[i:j])], j + int(symbol[i:j])
+        if not nested:
+            break
+    args = re.match(r"I((?:L[a-z]n?\d+E)+)E", symbol[i:])
+    if args:
+        vals = re.findall(r"L([a-z])(n?\d+)E", args.group(1))
+        name += "<" + ", ".join({"0": "false", "1": "true"}[v] if t == "b" else
+                                v.replace("n", "-") for t, v in vals) + ">"
+    return name
 
 
 def _time_ms(fn, n: int = 20, reps: int = 21, warm: int = 3):
@@ -786,8 +818,9 @@ def _sparse_against_chain(got, chain, tol, what: str) -> float:
 
 
 def _segment_phase(dev, retriever, requests, top_k: int, smi_line: str):
-    """The segment-scan kernels against their plain versions (exact) at the
-    odd shapes and the served plan, their times and bounds; then the
+    """The segment-scan kernels and their first kernels against their plain
+    versions (exact) at the odd shapes and the served plan, their times and
+    bounds, and segment winners' route lines; then the
     length-bucketed hybrid query over every served batch (segment totals)
     against the same routes over the unbucketed plan, both segment routes'
     sparse tables against the chain, hybrid_topk with max_seg 0 (segment
@@ -811,13 +844,21 @@ def _segment_phase(dev, retriever, requests, top_k: int, smi_line: str):
                 bad = int((x != y).sum())
                 raise AssertionError(f"{what}: {bad} outputs differ from the plain version")
 
+    # the first kernels, one CTA a row: the yardsticks the row tiles are timed against
+    first = {"bm25_segment_totals": lambda a, w, n_docs, block_l=1024:
+             bm25._launch_totals(a, w, n_docs, block_l, "rows"),
+             "bm25_segment_winners": lambda a, w, n_docs, block_l=1024:
+             bm25._launch_segment_winners(a, w, n_docs, block_l, "rows")}
+
     n = 0
     for kind, n_docs, b, l, block_l in SEGMENT_CASES:
         a, w = (torch.from_numpy(x).to(dev) for x in segment_plan(kind, n_docs, b, l))
         for name, kernel, ref in kernels:
-            exact(kernel(a, w, n_docs, block_l=block_l),
-                  ref(a, w, n_docs, block_l=block_l), f"{name} {kind} ({b}, {l})")
-            n += 1
+            want = ref(a, w, n_docs, block_l=block_l)
+            exact(kernel(a, w, n_docs, block_l=block_l), want, f"{name} {kind} ({b}, {l})")
+            exact(first[name](a, w, n_docs, block_l=block_l), want,
+                  f"{name} first kernel, {kind} ({b}, {l})")
+            n += 2
     n_docs = len(retriever.notes)
     batches = [retriever.prepare(req, top_k=top_k) for req in requests]
     emb = retriever.index.flat_device_emb()
@@ -826,26 +867,40 @@ def _segment_phase(dev, retriever, requests, top_k: int, smi_line: str):
     b, l = dr.shape
     numbers = {}
     for name, kernel, ref in kernels:
-        exact(kernel(dr, wr, n_docs), ref(dr, wr, n_docs), f"{name} main path ({b}, {l})")
-        n += 1
+        want = ref(dr, wr, n_docs)
+        exact(kernel(dr, wr, n_docs), want, f"{name} main path ({b}, {l})")
+        exact(first[name](dr, wr, n_docs), want, f"{name} first kernel, main path ({b}, {l})")
+        n += 2
         ms, host_ms = _time_ms(lambda: kernel(dr, wr, n_docs))
+        old_ms, _ = _time_ms(lambda: first[name](dr, wr, n_docs))
         plain_ms, _ = _time_ms(lambda: ref(dr, wr, n_docs), n=2, reps=5, warm=1)
         bound_ms, bound_by, moved, ops = _scan_bound(b, l, min(1024, l),
                                                      name.endswith("winners"))
-        old = ""
         numbers[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, library_ms=None)
-        if name == "bm25_segment_totals":     # the first kernel, the yardstick
-            exact(bm25._launch_totals(dr, wr, n_docs, 1024, "rows"),
-                  ref(dr, wr, n_docs), f"{name} first kernel, main path ({b}, {l})")
-            n += 1
-            old_ms, _ = _time_ms(lambda: bm25._launch_totals(dr, wr, n_docs, 1024, "rows"))
-            numbers[name]["old_ms"] = old_ms
-            old = f"first kernel {old_ms:.4f} ms, "
+                             bound_by=bound_by, library_ms=None, old_ms=old_ms)
         print(f"{name} at ({b}, {l}): kernel {ms:.4f} ms a launch (20 back to back), "
-              f"{old}wrapper's host path {host_ms:.4f} ms a call, plain {plain_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by}: {moved / 1e6:.1f} MB, "
-              f"{ops / 1e6:.1f} M ops) | {smi_line}", flush=True)
+              f"first kernel {old_ms:.4f} ms, wrapper's host path {host_ms:.4f} ms a call, "
+              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{moved / 1e6:.1f} MB, {ops / 1e6:.1f} M ops) | {smi_line}", flush=True)
+    # segment winners' route lines: the first rows of the main path's plan,
+    # the row tiles beside the first kernel, each exact
+    routes = []
+    for rb in SEGMENT_ROUTE_BATCHES:
+        if rb > b:
+            continue
+        a_, w_ = dr[:rb].contiguous(), wr[:rb].contiguous()
+        want = bm25.segment_winners_ref(a_, w_, n_docs)
+        exact(bm25.segment_winners(a_, w_, n_docs), want, f"segment winners ({rb}, {l})")
+        exact(first["bm25_segment_winners"](a_, w_, n_docs), want,
+              f"segment winners first kernel ({rb}, {l})")
+        n += 2
+        t_ms, _ = _time_ms(lambda: bm25.segment_winners(a_, w_, n_docs))
+        o_ms, _ = _time_ms(lambda: first["bm25_segment_winners"](a_, w_, n_docs))
+        bound_ms = _scan_bound(rb, l, min(1024, l), True)[0]
+        print(f"bm25_segment_winners route line B {rb} x {l}: row tiles {t_ms:.4f} ms, "
+              f"first kernel {o_ms:.4f} ms, bound {bound_ms:.4f} ms | {smi_line}", flush=True)
+        routes.append(dict(b=rb, ms=t_ms, old_ms=o_ms, bound_ms=bound_ms))
+    numbers["bm25_segment_winners"]["routes"] = routes
     torch.cuda.synchronize()
     print(f"segment kernel check: {n} comparisons exactly equal (values, ids, row max)")
 
@@ -966,11 +1021,17 @@ def _segment_phase(dev, retriever, requests, top_k: int, smi_line: str):
           f"tiled path", flush=True)
     designs = {"bm25_segment_totals": "row tiles: a warp a 1024-wide block staged "
                                       "through shared memory, tiles from one counter "
-                                      "in (row, block) order; each publishes its "
+                                      "in (block, row) order; each publishes its "
                                       "summary, folds its row's summaries in block "
                                       "order from the latest published carry, "
                                       "publishes its carry",
-               "bm25_segment_winners": "one CTA a row walks its blocks in order"}
+               "bm25_segment_winners": "the same row tiles, a CTA of 8 warps a group "
+                                       "of 8 blocks of one row, groups from one "
+                                       "counter in (group, row) order; the group's "
+                                       "winners merged in shared memory, then one "
+                                       "64-bit atomicMin a bucket into the row's key "
+                                       "table (value, then earlier block); the CTA "
+                                       "that finishes a row's last group decodes it"}
     return [dict(name=name, route="cuda", source="anorag_tpu_torch/csrc/segment_scan.cu",
                  design=designs[name], replaces=replaces, launches=launches,
                  max_abs_err=0.0, **numbers[name])
@@ -1249,9 +1310,12 @@ def run(dev, seed: int = 0):
     with ThreadPoolExecutor(len(sources)) as pool:
         logs = dict(zip(sources, pool.map(_build.build, sources)))
     for name, log in logs.items():
+        kernel = ""
         for line in log.splitlines():
+            if "entry function '" in line:
+                kernel = _kernel_name(line.split("'")[1])
             if "registers" in line or "spill" in line or "error" in line:
-                print(f"nvcc {name}: {line.strip()}")
+                print(f"nvcc {name} {kernel}: {line.strip()}")
         print(f"built: {name}" if log else f"{name}: cached")
     t = _phase("build", t)
 

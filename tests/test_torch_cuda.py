@@ -18,9 +18,10 @@ from anorag_tpu_torch.testing import (ALL_IVF_CASES, BUCKET_CASES,
                                       WINDOW_CASES, check_bucket_winners,
                                       check_topk, clustered_corpus,
                                       copy_across_splits, flat_scores,
-                                      ivf_case, ivf_scores, segment_plan,
-                                      sorted_plan, tie_rows, topk_case_tiles,
-                                      topk_seed_choices, unit_rows)
+                                      ivf_case, ivf_scores, rounding_plan,
+                                      segment_plan, sorted_plan, tie_rows,
+                                      topk_case_tiles, topk_seed_choices,
+                                      unit_rows)
 
 DTYPES = [torch.bfloat16, torch.float32]
 
@@ -149,6 +150,34 @@ def test_segment_totals_row_tiles_at_bucket_shapes(cuda_device, b, l):
         assert all(torch.equal(x, y) for x, y in zip(got, want)), rep
     rows = bm25._launch_totals(at, wt, 200_000, 1024, "rows")
     assert all(torch.equal(x, y) for x, y in zip(rows, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["b1", "b64", "b512", "ties", "negative"])
+def test_segment_winners_row_tiles_exact(cuda_device, case):
+    """The row tiles' winners at B 1, 64 and 512 x 32,768 (rows that cross
+    every group, an empty row, weights over six decades: totals below 0 and
+    ties at 0), on the tie-heavy case (only the earliest block may win) and
+    on a bucket won by a total below 0: values, ids and row max equal to the
+    plain version, whatever order the groups finish in; the first kernel,
+    the yardstick, gives the same."""
+    if case.startswith("b"):
+        b, n_docs, block_l = int(case[1:]), 200_000, 1024
+        a, w = _bucket_plan(np.random.default_rng(b), max(b, 3), 32768, n_docs)
+        a, w = a[-b:], w[-b:]          # B 1: one row of sorted ids
+    elif case == "ties":
+        name, n_docs, b, l, block_l = next(c for c in SEGMENT_CASES if c[0] == "ties")
+        a, w = segment_plan(name, n_docs, b, l)
+    else:
+        a, w, n_docs, block_l = rounding_plan()
+    at, wt = torch.from_numpy(a).to(cuda_device), torch.from_numpy(w).to(cuda_device)
+    want = bm25.segment_winners_ref(at, wt, n_docs, block_l)
+    for rep in range(3):
+        got = bm25.segment_winners(at, wt, n_docs, block_l)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, want)), (case, rep)
+    rows = bm25._launch_segment_winners(at, wt, n_docs, block_l, "rows")
+    assert all(torch.equal(x, y) for x, y in zip(rows, want)), case
 
 
 @pytest.mark.cuda

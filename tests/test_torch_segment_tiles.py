@@ -68,16 +68,16 @@ def block_scan_warp(wb: torch.Tensor) -> torch.Tensor:
     return x.reshape(-1)[:bl]
 
 
-def tile_walk(a: torch.Tensor, w: torch.Tensor, n_docs: int, block_l: int,
-              rng: np.random.Generator):
-    """The kernel's walk over a (B, L) plan: per block the local scan, the
+def tile_totals(a: torch.Tensor, w: torch.Tensor, n_docs: int, block_l: int,
+                rng: np.random.Generator):
+    """The kernels' tiles over a (B, L) plan: per block the local scan, the
     summary and the ends; each tile's carry folded in block order from a
-    published carry of its row, the latest or one picked by rng; totals."""
+    published carry of its row, the latest or one picked by rng. Yields
+    (row, block, ids (bl,), masked totals (bl,): valid ? total : -3.0e38)
+    in (row, block) order; positions past L are pads."""
     b, l = a.shape
     plan = bm25.segment_tile_plan(b, l, block_l)
     bl, nb = plan.bl, plan.blocks
-    masked = torch.empty((b, l), dtype=torch.float32)
-    mx = torch.zeros((b, 1), dtype=torch.float32)
     for r in range(b):
         summaries, carries = [], []
         for jb in range(nb):
@@ -110,8 +110,21 @@ def tile_walk(a: torch.Tensor, w: torch.Tensor, n_docs: int, block_l: int,
             c = x + cs
             total = c - torch.maximum(cp, before + cs)
             valid = end & (ids < n_docs)
-            masked[r, lo:lo + n] = torch.where(valid, total, -3.0e38)[:n]
-            mx[r] = torch.maximum(mx[r], torch.where(valid, total, 0.0).max())
+            yield r, jb, ids, torch.where(valid, total, -3.0e38)
+
+
+def tile_walk(a: torch.Tensor, w: torch.Tensor, n_docs: int, block_l: int,
+              rng: np.random.Generator):
+    """The totals kernel's walk: every tile's masked totals written, the row
+    max of the valid totals (at least 0)."""
+    b, l = a.shape
+    bl = bm25.segment_tile_plan(b, l, block_l).bl
+    masked = torch.empty((b, l), dtype=torch.float32)
+    mx = torch.zeros((b, 1), dtype=torch.float32)
+    for r, jb, _, out in tile_totals(a, w, n_docs, block_l, rng):
+        n = min(bl, l - jb * bl)
+        masked[r, jb * bl:jb * bl + n] = out[:n]
+        mx[r] = torch.maximum(mx[r], torch.clamp(out, min=0.0).max())
     return masked, mx
 
 
