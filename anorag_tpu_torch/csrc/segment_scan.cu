@@ -371,9 +371,10 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
 // warp's own 8 KB of shared memory (sid, sw; cp.async), so the ids are read
 // a row at a time and never held whole in registers. stage_tile starts the
 // copies (ar, wr: the row); scan_tile waits for them, publishes the tile's
-// summary, folds its row's carry, publishes its carry and leaves in x its
-// masked totals (valid ? total : -3.0e38); it returns its largest valid
-// total (at least 0). srow and crow are the row's summaries and carries.
+// summary, folds its row's carry, publishes its carry, runs after_fold,
+// and hands emit(c, out) its masked totals (valid ? total : -3.0e38) a row
+// c at a time; it returns its largest valid total (at least 0). srow and
+// crow are the row's summaries and carries.
 // kEvict: the 16-byte copies are marked to leave L2 first (the winners'
 // key table, reused, stays in L2 while the plan streams through it).
 template <bool kVec, bool kEvict = false>
@@ -411,14 +412,16 @@ __device__ __forceinline__ void stage_tile(const int32_t* __restrict__ ar,
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
+template <class AfterFold, class Emit>
 __device__ __forceinline__ float scan_tile(const int32_t* __restrict__ ar, int bl,
                                            int nb, int jb, int n_docs,
                                            const int32_t* sid, const float* sw,
                                            unsigned long long* srow,
                                            unsigned long long* crow, int lane,
-                                           float (&x)[kRows][4]) {
+                                           AfterFold after_fold, Emit emit) {
   const float kInf = __int_as_float(0x7f800000);
   const int64_t b0 = (int64_t)jb * bl;
+  float x[kRows][4];
   asm volatile("cp.async.wait_group 0;" ::: "memory");
   __syncwarp();
   // segment ends: a[t] != a[t + 1]; past the row's last block, -1
@@ -524,20 +527,22 @@ __device__ __forceinline__ float scan_tile(const int32_t* __restrict__ ar, int b
   float cs, cp;
   fold_carry(srow, crow, jb, lane, cs, cp);
   if (lane == 0 && jb + 1 < nb) st_gpu(crow + jb, pack(xl + cs, fmaxf(cp, xe + cs)));
+  after_fold();
 
   // totals: c - max(cp, cm[p - 1]), cm[p - 1] = fl(xm[p] + cs)
   float m = 0.0f;
 #pragma unroll
   for (int c = 0; c < kRows; ++c) {
-    float run = ex[c];
+    float run = ex[c], out[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float total = (x[c][i] + cs) - fmaxf(cp, run + cs);
       const bool valid = (valid_bits >> (4 * c + i)) & 1u;
+      out[i] = valid ? total : kNegInf;
       if (valid) m = fmaxf(m, total);
       if ((end_bits >> (4 * c + i)) & 1u) run = fmaxf(run, x[c][i]);
-      x[c][i] = valid ? total : kNegInf;
     }
+    emit(c, out);
   }
   return m;
 }
@@ -571,22 +576,22 @@ segment_totals_tiles(const int32_t* __restrict__ a, const float* __restrict__ w,
     const int64_t b0 = (int64_t)jb * bl;
     const int32_t* ar = a + row * L;
     stage_tile<kVec>(ar, w + row * L, L, bl, jb, n_docs, sid, sw, lane);
-    float x[kRows][4];
-    const float m = scan_tile(ar, bl, nb, jb, n_docs, sid, sw, summ + row * nb,
-                              carry + row * nb, lane, x);
-    if (lane == 0) ticket = atomicAdd(counter, 1u) + 1u;
+    const float m = scan_tile(
+        ar, bl, nb, jb, n_docs, sid, sw, summ + row * nb, carry + row * nb, lane,
+        [&] {
+          if (lane == 0) ticket = atomicAdd(counter, 1u) + 1u;
+        },
+        [&](int c, const float (&out)[4]) {
+          const int p0 = 128 * c + 4 * lane;
+          float* dst = masked + row * L + b0 + p0;
+          if (kVec && p0 < bl && b0 + p0 < L) {
+            __stcs(reinterpret_cast<float4*>(dst), make_float4(out[0], out[1], out[2], out[3]));
+          } else {
 #pragma unroll
-    for (int c = 0; c < kRows; ++c) {
-      const int p0 = 128 * c + 4 * lane;
-      float* dst = masked + row * L + b0 + p0;
-      if (kVec && p0 < bl && b0 + p0 < L) {
-        __stcs(reinterpret_cast<float4*>(dst), make_float4(x[c][0], x[c][1], x[c][2], x[c][3]));
-      } else {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (p0 + i < bl && b0 + p0 + i < L) __stcs(dst + i, x[c][i]);
-      }
-    }
+            for (int i = 0; i < 4; ++i)
+              if (p0 + i < bl && b0 + p0 + i < L) __stcs(dst + i, out[i]);
+          }
+        });
     // row max: totals >= 0 compare as their bits; -0 counts as 0
     const unsigned top = __reduce_max_sync(kFull, __float_as_uint(m) & 0x7fffffffu);
     if (lane == 0) atomicMax(mx_bits + row, (int)top);
@@ -647,10 +652,15 @@ segment_winners_tiles(const int32_t* __restrict__ a, const float* __restrict__ w
     const int32_t* ar = a + row * L;
     if (warp < n_blocks) {
       float x[kRows][4];
-      const float m = scan_tile(ar, bl, nb, jb0 + warp, n_docs, sid, sw, summ + row * nb,
-                                carry + row * nb, lane, x);
+      const float m = scan_tile(
+          ar, bl, nb, jb0 + warp, n_docs, sid, sw, summ + row * nb, carry + row * nb, lane,
+          [] {},
+          [&](int c, const float (&out)[4]) {
 #pragma unroll
-      for (int c = 0; c < kRows; ++c)   // the stage's reads ended in scan_tile
+            for (int i = 0; i < 4; ++i) x[c][i] = out[i];
+          });
+#pragma unroll
+      for (int c = 0; c < kRows; ++c)   // the masked totals into the weights stage
         *reinterpret_cast<float4*>(sw + 128 * c + 4 * lane) =
             make_float4(x[c][0], x[c][1], x[c][2], x[c][3]);
       const unsigned top = __reduce_max_sync(kFull, __float_as_uint(m) & 0x7fffffffu);
