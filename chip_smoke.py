@@ -1030,8 +1030,10 @@ def _segment_phase(dev, retriever, requests, top_k: int, smi_line: str):
                                        "counter in (group, row) order; the group's "
                                        "winners merged in shared memory, then one "
                                        "64-bit atomicMin a bucket into the row's key "
-                                       "table (value, then earlier block); the CTA "
-                                       "that finishes a row's last group decodes it"}
+                                       "table (value, then earlier block), the id into "
+                                       "the group's id table; the CTA that finishes a "
+                                       "row's last group decodes it; the plan's loads "
+                                       "marked to leave L2 first"}
     return [dict(name=name, route="cuda", source="anorag_tpu_torch/csrc/segment_scan.cu",
                  design=designs[name], replaces=replaces, launches=launches,
                  max_abs_err=0.0, **numbers[name])
