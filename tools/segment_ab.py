@@ -81,7 +81,7 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("segment_ab: no CUDA device", file=sys.stderr)
         return 2
-    if len(argv) < 2:
+    if len(argv) < (1 if variants else 2):
         print(__doc__, file=sys.stderr)
         return 2
     print(card_line(), flush=True)
