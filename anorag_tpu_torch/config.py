@@ -1,9 +1,10 @@
-"""Configuration for the port: the keys its slice reads, with defaults.
+"""Configuration for the port: the keys its slices read, with defaults.
 
 Counterpart of the subset of anorag_tpu/config/defaults.py that the batched
-hybrid query and the dense search read. A config is a nested dict (for example one loaded from
-the repo's YAML files); `Config` merges it over these defaults and answers
-dotted lookups, as anorag_tpu's ConfigLoader.get does.
+hybrid query, the dense search, the answer stages and the HTTP server read.
+A config is a nested dict (for example one loaded from the repo's YAML
+files); `Config` merges it over these defaults and answers dotted lookups
+and sets, as anorag_tpu's ConfigLoader.get and set do.
 """
 from __future__ import annotations
 
@@ -34,7 +35,44 @@ DEFAULTS = {
         "dtype": "bfloat16",
     },
     "vector_store": {"top_k": 20, "index_type": "IVFFlat"},
-    "context": {"max_notes_for_llm": 20},
+    "context": {"max_notes_for_llm": 20, "max_tokens": None,
+                "use_legacy_packing": False},
+    # the answer stages (query/processor.py _answer_stages)
+    "graph": {"edge": {"key_match_weight": 1.5, "type_compat_weight": 1.0,
+                       "same_paragraph_bonus": 0.3}},
+    "note_keys": {"default_rel": "related_to"},
+    "multi_hop": {"max_hops": 4, "beam_size": 8, "branch_factor": 6},
+    "answering": {
+        "rel_chains": [["performed_by", "spouse_of"]],
+        "relax_last_hop": ["spouse_of|partner_of"],
+        "efsa_hint": {"enabled": True, "threshold": 0.70},
+        "final_evidence_first": True,
+        "require_verbatim_spans": True,
+        "force_insufficient_if_no_spans": True,
+    },
+    "retry": {"max_times": 1},
+    "validator": {"allow_partial": True},
+    "answer_selector": {"enabled": True, "anchor_top_k": 5, "apply_before_llm": True},
+    "hybrid_search": {
+        "linear": {"vector_weight": 1.0},
+        "answer_bias": {"who_person_boost": 1.10, "type_gate": True,
+                        "subject_cooc_boost": 1.0},
+    },
+    "evidence_rerank": {
+        "enable": True,
+        "w_album": 0.5,
+        "w_song": -0.3,
+        "w_supporting": 0.4,
+        "w_q_performer_album": 0.3,
+        "album_tokens": ["(album)", " album"],
+        "song_tokens": ["(song)", " single", "(film)"],
+        "support_flag_keys": ["is_supporting", "supporting"],
+        "query_performer_terms": ["performer", "singer", "vocalist"],
+        "query_album_terms": ["album", "record", "ep"],
+    },
+    "calibration": {"listt5_weight": 0.35, "path": ""},
+    # the HTTP server (serve.py): the ServingEngine's sub-batch and depth
+    "serving": {"stream_batch": 64, "stream_depth": 3},
     "tpu": {
         "sharded_search": "auto",
         "ivf": {"nlist": 20, "nprobe": 4, "kmeans_iters": 15},
@@ -63,6 +101,15 @@ class Config:
                 return default
             node = node[part]
         return copy.deepcopy(node) if isinstance(node, (dict, list)) else node
+
+    def set(self, dotted: str, value: Any) -> None:
+        parts = dotted.split(".")
+        node = self._d
+        for part in parts[:-1]:
+            if not isinstance(node.get(part), dict):
+                node[part] = {}
+            node = node[part]
+        node[parts[-1]] = value
 
 
 def as_config(cfg: Any) -> Config:

@@ -4,12 +4,14 @@ Counterpart of anorag_tpu/serving.py (ServingEngine :37). One dispatcher
 thread owns the device: it encodes each sub-batch and enqueues its hybrid
 search (CUDA work is asynchronous, so the card computes while the host
 moves on), with at most `depth` sub-batches in flight. A host worker pool
-finalizes each sub-batch as its results land and keeps the rows of the
-request's dataset namespace (QueryProcessor._assemble_batch). Callers get
-a Future per request; sub-batch results re-assemble in request order. The
-host stage returns the retrieval rows: the reference's answer stages are
-not ported yet. close() drains the queue and joins every thread the
-engine started.
+finalizes each sub-batch as its results land and runs the answer stages on
+the rows of the request's dataset namespace (QueryProcessor.
+_assemble_batch): one answer dict per query. Callers get a Future per
+request; sub-batch results re-assemble in request order. The answer
+stages run only on the host workers (the note graph and the processor's
+metrics are touched nowhere else); the dispatcher shares only the
+tokenizer's cache with them, and functools.lru_cache is thread-safe.
+close() drains the queue and joins every thread the engine started.
 """
 from __future__ import annotations
 
@@ -40,9 +42,10 @@ class ServingEngine:
 
     # ------------------------------------------------------------ public
     def submit(self, queries: Sequence[str], top_k: Optional[int] = None,
-               dataset: Optional[str] = None) -> "Future[List[List[Dict[str, Any]]]]":
-        """Enqueue a request; returns a Future resolving to one row list per
-        query, in order, of the dataset namespace `dataset` (all when None).
+               dataset: Optional[str] = None) -> "Future[List[Dict[str, Any]]]":
+        """Enqueue a request; returns a Future resolving to one answer dict
+        per query (QueryProcessor.process_batch's), in order, answered from
+        the notes of the dataset namespace `dataset` (all when None).
         The request is split into sub_batch chunks that pipeline with every
         other in-flight request's chunks."""
         if self._closed:
@@ -72,7 +75,7 @@ class ServingEngine:
 
     def process(self, queries: Sequence[str], top_k: Optional[int] = None,
                 dataset: Optional[str] = None,
-                timeout: Optional[float] = None) -> List[List[Dict[str, Any]]]:
+                timeout: Optional[float] = None) -> List[Dict[str, Any]]:
         """Blocking submit()."""
         return self.submit(queries, top_k=top_k, dataset=dataset).result(timeout)
 

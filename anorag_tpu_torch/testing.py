@@ -1,7 +1,8 @@
 """Inputs shared by the CPU parity tests and chip_smoke.py: sorted BM25
 posting plans at odd shapes for the window-winners and segment-scan
 kernels, corpora and queries for the top-k and bucket kernels,
-check_topk and check_bucket_winners."""
+check_topk and check_bucket_winners, and the multi-hop KB notes and
+questions the answer stages are checked on."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -414,3 +415,49 @@ def ivf_scores(sorted_emb, q, cluster_ids, sel):
         s = (sorted_emb[pos].float() * q32[:, None, :]).sum(-1)
         return torch.where(hit, s, float("nan"))
     return score_of
+
+
+# The multi-hop KB of tests/test_query_processor.py (_kb_notes): Blue
+# Horizon -> Aurora Lane -> Chris Reed, with head_key / rel / tail_key on
+# the two chain notes. Rows: (note_id, title, content, entities,
+# paragraph idx, key fields).
+_KB_ROWS = (
+    ("n1", "Blue Horizon (album)", "Blue Horizon is performed by Aurora Lane.",
+     ("Blue Horizon", "Aurora Lane"), 0,
+     {"head_key": "Blue Horizon", "rel": "performed_by", "tail_key": "Aurora Lane"}),
+    ("n2", "Aurora Lane", "Aurora Lane's spouse is Chris Reed.",
+     ("Aurora Lane", "Chris Reed"), 1,
+     {"head_key": "Aurora Lane", "rel": "spouse_of", "tail_key": "Chris Reed"}),
+    ("n3", "Aurora Lane", "Aurora Lane was born in Boston.",
+     ("Aurora Lane", "Boston"), 2, {}),
+    ("n4", "Silent River (film)", "Marcus Webb directed Silent River.",
+     ("Marcus Webb", "Silent River"), 3, {}),
+    ("n5", "Nexus Labs", "David Kim founded Nexus Labs in 2010.",
+     ("David Kim", "Nexus Labs"), 4, {}),
+    ("n6", "Quantum Leap Institute", "Elena Cortez leads the Quantum Leap Institute.",
+     ("Elena Cortez", "Quantum Leap Institute"), 5, {}),
+)
+
+# (question, answer, answer_method or None for any, predicted_answerable):
+# the reference's own expectations on the KB (tests/test_query_processor.py
+# test_process_batch_fast_path and test_unanswerable_gate).
+KB_QUESTIONS = (
+    ("Who is the spouse of the performer of Blue Horizon?", "Chris Reed",
+     "answer_selector", True),
+    ("Who founded Nexus Labs?", "David Kim", None, True),
+    ("Who is the spouse of the performer of Ghostly Meridian?",
+     "insufficient information", None, False),
+)
+
+
+def kb_notes(id_prefix: str = "") -> list:
+    """The six KB notes as fresh dicts; note ids get `id_prefix` (so they
+    cannot collide with a corpus's own ids)."""
+    notes = []
+    for nid, title, content, ents, pidx, extra in _KB_ROWS:
+        notes.append({
+            "note_id": id_prefix + nid, "doc_id": f"doc_{pidx}", "title": title,
+            "content": content, "text": content, "raw_span": content,
+            "entities": list(ents), "paragraph_idxs": [pidx], **extra,
+        })
+    return notes

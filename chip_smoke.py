@@ -10,9 +10,12 @@ Phases, each printing its seconds:
                 parallel (plain C interface, ctypes) and prints each
                 kernel's registers and spills (-Xptxas -v);
   3. setup   -- a 200,000-note corpus drawn from a 30,000-word Zipf
-                vocabulary (40 terms a note), 1024-wide unit embeddings
-                and the full-width encoder (24 layers, hidden 1024, bf16),
-                all from --seed, data and weights made on the card;
+                vocabulary (40 terms a note), its last six notes replaced
+                by the multi-hop KB of testing.kb_notes, 1024-wide unit
+                embeddings and the full-width encoder (24 layers, hidden
+                1024, bf16), all from --seed, data and weights made on the
+                card; the first three queries of request 0 are the KB
+                questions (testing.KB_QUESTIONS);
   4. kernels -- each kernel against its plain PyTorch version on the card,
                 at the odd shapes of the CPU tests and at the main path's
                 real shapes: window-winners ids equal and values to rtol
@@ -71,17 +74,38 @@ Phases, each printing its seconds:
                 shared scores to rtol 1e-4, recall at least 0.9); the
                 bucketed tiled path equal to the unbucketed tiled one;
   7. serve   -- a ServingEngine answers 4 requests of 512 queries (8
-                content-band terms each); every response has
-                top_k rows of valid note ids; the kernels' launch counts,
-                reset just before, match the batches routed to them; one
-                batch again with the plain sparse stage gives the same
-                top-10 ids; latency, QPS and peak memory;
+                content-band terms each) through the answer stages: every
+                answer carries the reference's keys (query, answer,
+                predicted_answer, predicted_support_idxs,
+                predicted_answerable, answer_method, notes), its notes are
+                top_k rows of valid note ids, and the KB questions get the
+                reference's answers (Chris Reed by the answer selector,
+                David Kim, insufficient information and not answerable);
+                the kernels' launch counts, reset just before, match the
+                batches routed to them; one batch again with the plain
+                sparse stage gives the same top-10 ids; answered queries/s,
+                latency, the count of each answer method, peak memory;
   8. breakdown -- one batch again, stage by stage (encode, host plan,
-                upload, sparse, dense + fusion, finalize), synchronised;
+                upload, sparse, dense + fusion, finalize, answer: the
+                answer stages of QueryProcessor._assemble_batch, whose
+                text caches the serve phase warmed), synchronised; then
+                the answer stages on a fresh 512-query batch, on each KB
+                question alone, and the corpus-wide scans the KB
+                questions reach (NoteGraph.seed_recall, the note-id map,
+                the exact-math pool), host seconds;
   9. trace   -- one request through a ServingEngine under torch.profiler:
                 the device's busy time and idle share, the window-winners
                 kernels' own time, and the largest device kernels;
-  10. search -- a VectorRetriever with use_kernel=True over the same notes
+  10. http   -- the port's HTTP server (anorag_tpu_torch/serve.py) on
+                127.0.0.1 over the same QueryProcessor, its engine at the
+                config defaults (sub-batch 64, depth 3): /healthz; /search
+                with a KB question gives qp.retriever.retrieve's note ids;
+                /query answers the Blue Horizon question with Chris Reed;
+                /query_batch answers request 0 with the contract keys and
+                the KB answers; each call's latency, and how many of
+                request 0's answers equal the serve phase's (they may
+                differ only where the 64-query batches' note lists do);
+  11. search -- a VectorRetriever with use_kernel=True over the same notes
                 and embeddings: search for one 512-query request at top_k
                 20 and retrieve for 32 single queries at top_k 10 (fetch 30,
                 the /search endpoint's traffic); the top-k kernel's
@@ -90,12 +114,12 @@ Phases, each printing its seconds:
                 (use_kernel None: chunked matmul + exact top-k, what
                 QueryProcessor's retriever takes below 5,000,000 notes),
                 its scores equal to the kernel route's to 1e-5;
-  11. bench  -- the port's benchmark entry point in-process
+  12. bench  -- the port's benchmark entry point in-process
                 (anorag_tpu_torch/bench.py): kernel_parity, bench_hybrid at
                 200,000 docs with its recall gate (recall@10 against exact
                 f32 at least 0.985) and bench_encoder, their JSON on one
                 line; every kernel they reach, counted from 0, launched;
-  12. ivf    -- a default VectorIndex(index_type="IVFFlat") (nlist 20,
+  13. ivf    -- a default VectorIndex(index_type="IVFFlat") (nlist 20,
                 nprobe 4, 15 k-means rounds) over 5,000,000 x 1024 rows
                 drawn on the card around 1,000 centres: build time, 4
                 batches of 512 queries at top_k 20 and 64 single queries at
@@ -125,6 +149,7 @@ import resource
 import sys
 import time
 import traceback
+from collections import Counter
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
@@ -1276,6 +1301,161 @@ def _hybrid_memory_check(dev, index, queries, seed: int, smi_line: str):
               flush=True)
 
 
+# what QueryProcessor.process_batch returns for each query (the reference's
+# anorag_tpu/query/processor.py:365-373)
+ANSWER_KEYS = {"query", "answer", "predicted_answer", "predicted_support_idxs",
+               "predicted_answerable", "answer_method", "notes"}
+# what the HTTP /query_batch endpoint returns for each query
+HTTP_BATCH_KEYS = {"query", "answer", "predicted_support_idxs", "answer_method"}
+
+
+def _check_answers(queries, answers, notes, top_k: int) -> None:
+    """One answer dict per query, in order, with the reference's keys; its
+    notes top_k rows of valid note ids."""
+    if len(answers) != len(queries):
+        raise AssertionError(f"{len(answers)} answers for {len(queries)} queries")
+    for q, a in zip(queries, answers):
+        if set(a) != ANSWER_KEYS or a["query"] != q or a["predicted_answer"] != a["answer"]:
+            raise AssertionError(f"answer {sorted(a)} for {q!r}")
+        if len(a["notes"]) != top_k:
+            raise AssertionError(f"{len(a['notes'])} notes for {q!r}, not {top_k}")
+        for r in a["notes"]:
+            i = int(r["note_id"][1:])
+            if not (0 <= i < len(notes) and r["note_id"] == notes[i]["note_id"]):
+                raise AssertionError(f"note id {r['note_id']} for {q!r}")
+
+
+def _check_kb_answers(answers, where: str) -> None:
+    """The first answers are the KB questions': the reference's answers,
+    method and answerability where it states them."""
+    from anorag_tpu_torch.testing import KB_QUESTIONS
+
+    for a, (q, answer, method, answerable) in zip(answers, KB_QUESTIONS):
+        got = (a["answer"], a.get("answer_method"), a.get("predicted_answerable", answerable))
+        want = (answer, method or a.get("answer_method"), answerable)
+        if a["query"] != q or got != want:
+            raise AssertionError(f"{where}: {q!r} answered {got}, expected {want}")
+
+
+def _answer_costs(qp, request, rng, words, top_k: int, notes, smi_line: str) -> None:
+    """The answer stages' host seconds where the breakdown's warm caches do
+    not reach: a fresh batch (queries never served, so the tokenizer's
+    caches hold none of their notes), each KB question alone, and the
+    corpus-wide scans those questions reach."""
+    from anorag_tpu_torch.testing import KB_QUESTIONS
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+
+    fresh = [" ".join(words[q]) for q in _query_terms(rng, BATCH)]
+    rows = qp.retriever.hybrid_search_finalize(
+        qp.retriever.hybrid_search_dispatch(fresh, top_k=top_k))
+    answers, cold_s = timed(lambda: qp._assemble_batch(rows, fresh, None))
+    _check_answers(fresh, answers, notes, top_k)
+    kb = request[:len(KB_QUESTIONS)]
+    rows = qp.retriever.hybrid_search_finalize(
+        qp.retriever.hybrid_search_dispatch(kb, top_k=top_k))
+    per_q = []
+    for row, q in zip(rows, kb):
+        per_q.append(timed(lambda: qp._assemble_batch([row], [q], None))[1])
+    _check_kb_answers(qp._assemble_batch(rows, kb, None), "breakdown")
+    _, recall_s = timed(lambda: qp.note_graph.seed_recall(KB_QUESTIONS[1][0], top_k=5))
+    _, id_map_s = timed(lambda: {n["note_id"]: n for n in qp.notes})
+    _, pool_s = timed(lambda: list(rows[0]) + list(qp.note_graph.notes.values()))
+    print(f"answer stages (host s): fresh {len(fresh)}-query batch {cold_s:.4f} "
+          f"({1e3 * cold_s / len(fresh):.3f} ms a query); KB questions alone "
+          + ", ".join(f"{q[:34]!r} {dt:.4f}" for q, dt in zip(kb, per_q))
+          + f"; corpus-wide scans over {len(qp.notes)} notes: seed_recall "
+          f"{recall_s:.4f}, id_to_note {id_map_s:.4f}, exact-math pool {pool_s:.4f} "
+          f"| {smi_line}")
+
+
+def _http_phase(qp, request, served, notes, top_k: int, smi_line: str) -> None:
+    """The port's HTTP server over qp with its engine at the config
+    defaults; each endpoint checked, its latency printed."""
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from anorag_tpu_torch.serve import make_handler
+    from anorag_tpu_torch.serving import ServingEngine
+    from anorag_tpu_torch.testing import KB_QUESTIONS
+
+    sub_batch = int(qp.cfg.get("serving.stream_batch"))
+    depth = int(qp.cfg.get("serving.stream_depth"))
+    engine = ServingEngine(qp, sub_batch=sub_batch, depth=depth)
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(qp, engine))
+    thread = threading.Thread(target=server.serve_forever, name="http-smoke")
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    lat = {}
+
+    def call(path, payload=None):
+        data = None if payload is None else json.dumps(payload).encode()
+        req = urllib.request.Request(url + path, data=data,
+                                     headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as r:
+            body = json.loads(r.read())
+            code = r.status
+        lat[path] = time.perf_counter() - t0
+        if code != 200:
+            raise AssertionError(f"{path}: HTTP {code} {body}")
+        return body
+
+    blue = KB_QUESTIONS[0][0]
+    try:
+        health = call("/healthz")
+        if health != {"status": "ok", "n_notes": len(notes)}:
+            raise AssertionError(f"/healthz: {health}")
+        got = [n["note_id"] for n in call("/search", {"query": blue, "top_k": 10})["notes"]]
+        want = [n["note_id"] for n in qp.retriever.retrieve(blue, top_k=10, threshold=0.0)]
+        if got != want:
+            raise AssertionError(f"/search ids {got} != retrieve's {want}")
+        one = call("/query", {"query": blue, "top_k": 5})
+        if one["answer"] != KB_QUESTIONS[0][1] or len(one["notes"]) != 5:
+            raise AssertionError(f"/query answered {one['answer']!r} with "
+                                 f"{len(one['notes'])} notes")
+        results = call("/query_batch", {"queries": request, "top_k": top_k})["results"]
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+        engine.close()
+    if len(results) != len(request):
+        raise AssertionError(f"/query_batch: {len(results)} results for {len(request)}")
+    for q, r in zip(request, results):
+        if set(r) != HTTP_BATCH_KEYS or r["query"] != q:
+            raise AssertionError(f"/query_batch result keys {sorted(r)} for {q!r}")
+    _check_kb_answers(results, "/query_batch")
+    # the note lists the server's 64-query batches give (the same dispatch
+    # and rerank, without the answer stages)
+    at_sub = []
+    for i in range(0, len(request), sub_batch):
+        chunk = request[i:i + sub_batch]
+        rows = qp.retriever.hybrid_search_finalize(
+            qp.retriever.hybrid_search_dispatch(chunk, top_k=top_k))
+        at_sub += [[n["note_id"] for n in qp._post_select_processing(r, r, q)]
+                   for r, q in zip(rows, chunk)]
+    notes_differ = {i for i, a in enumerate(served)
+                    if [n["note_id"] for n in a["notes"]] != at_sub[i]}
+    answers_differ = {i for i, (a, r) in enumerate(zip(served, results))
+                      if (a["answer"], a["predicted_support_idxs"], a["answer_method"])
+                      != (r["answer"], r["predicted_support_idxs"], r["answer_method"])}
+    if answers_differ - notes_differ:
+        raise AssertionError(f"/query_batch answers differ from the serve phase's where "
+                             f"the note lists are equal: {sorted(answers_differ - notes_differ)}")
+    print(f"http at sub-batch {sub_batch}, depth {depth}: latency /healthz "
+          f"{lat['/healthz']:.4f} s, /search {lat['/search']:.4f}, /query "
+          f"{lat['/query']:.4f}, /query_batch ({len(request)} queries) "
+          f"{lat['/query_batch']:.4f}; request 0's answers equal to the serve "
+          f"phase's {len(request) - len(answers_differ)} of {len(request)}; note "
+          f"lists differ at batch {sub_batch} from batch {len(request)} for "
+          f"{len(notes_differ)} | {smi_line}")
+
+
 def run(dev, seed: int = 0):
     """All phases on device `dev`; returns (kernel numbers, nvidia-smi
     line, device name)."""
@@ -1293,7 +1473,7 @@ def run(dev, seed: int = 0):
     from anorag_tpu_torch.query.processor import QueryProcessor
     from anorag_tpu_torch.retrieval.retriever import max_seg_for
     from anorag_tpu_torch.serving import ServingEngine
-    from anorag_tpu_torch.testing import WINDOW_CASES, sorted_plan
+    from anorag_tpu_torch.testing import KB_QUESTIONS, WINDOW_CASES, kb_notes, sorted_plan
 
     t = time.perf_counter()
     # 1. device
@@ -1327,6 +1507,8 @@ def run(dev, seed: int = 0):
     doc_terms = _zipf_doc_terms(rng, N_NOTES)
     notes = [{"note_id": f"n{i}", "title": "", "content": " ".join(row)}
              for i, row in enumerate(words[doc_terms].tolist())]
+    for i, kb in enumerate(kb_notes(), start=N_NOTES - 6):
+        notes[i] = {**kb, "note_id": f"n{i}"}
     gen = torch.Generator(device=dev).manual_seed(seed)
     emb = torch.randn((N_NOTES, 1024), generator=gen, device=dev)
     emb = (emb / torch.linalg.vector_norm(emb, dim=1, keepdim=True)).to(torch.bfloat16)
@@ -1338,6 +1520,7 @@ def run(dev, seed: int = 0):
     del emb
     requests = [[" ".join(words[q]) for q in _query_terms(rng, BATCH)]
                 for _ in range(N_REQUESTS)]
+    requests[0][:len(KB_QUESTIONS)] = [q for q, *_ in KB_QUESTIONS]
     retriever = qp.retriever
     n_docs = len(notes)
     top_k = qp.default_top_k()
@@ -1426,22 +1609,19 @@ def run(dev, seed: int = 0):
     launches = window_winners.launches
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     for req, resp in zip(requests, responses):
-        assert len(resp) == len(req), (len(resp), len(req))
-        for rows in resp:
-            assert len(rows) == top_k, len(rows)
-            for r in rows:
-                i = int(r["note_id"][1:])
-                assert 0 <= i < n_docs and r["note_id"] == notes[i]["note_id"], r["note_id"]
+        _check_answers(req, resp, notes, top_k)
+    _check_kb_answers(responses[0], "serve")
     if launches != routed or launches < 1:
         raise AssertionError(f"window_winners launched {launches} times on the main "
                              f"path; {routed} sub-batches were routed to it")
     lat = [done_at[i] - s for i, (s, _) in enumerate(submitted)]
     n_q = sum(len(r) for r in requests)
+    methods = Counter(a["answer_method"] for resp in responses for a in resp)
     print(f"served {len(requests)} x {BATCH} queries over {n_docs} notes: "
           f"window_winners launches {launches} (routed {routed}); latency per "
           f"request {', '.join(f'{x:.3f}' for x in lat)} s; "
-          f"{n_q / (t_end - t_serve):.1f} queries/s; peak memory {peak_gb:.2f} GB "
-          f"| {smi_line}")
+          f"{n_q / (t_end - t_serve):.1f} answered queries/s; answer methods "
+          f"{dict(methods.most_common())}; peak memory {peak_gb:.2f} GB | {smi_line}")
     # one batch again, with the plain sparse stage
     vals_k, ids_k = retriever.search_batch(batch)
     sp = _winners_select(*window_winners_ref(dr, wr, n_docs, max_seg),
@@ -1478,11 +1658,15 @@ def run(dev, seed: int = 0):
     vals, ids = stage("dense+fusion", lambda: hybrid_fuse(
         retriever.index.flat_device_emb(), q, *sp, batch.k, n_docs=n_docs,
         dense_k=batch.dense_k))
-    stage("finalize", lambda: retriever.hybrid_search_finalize(
+    rows = stage("finalize", lambda: retriever.hybrid_search_finalize(
         ("pending", req, vals, ids)))
+    _check_answers(req, stage("answer", lambda: qp._assemble_batch(rows, req, None)),
+                   notes, top_k)
     print(f"one {len(req)}-query batch by stage (s): "
           + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
           + f"; sum {sum(stages.values()):.4f} | {smi_line}")
+    _answer_costs(qp, requests[0], np.random.default_rng(seed + 1), words, top_k, notes,
+                  smi_line)
     t = _phase("breakdown", t)
 
     # 9. trace: one request through the engine under torch.profiler
@@ -1512,12 +1696,16 @@ def run(dev, seed: int = 0):
         print("trace: no device events recorded; idle share not measured")
     t = _phase("trace", t)
 
-    # 10. search: VectorRetriever.search / retrieve through the top-k kernel
+    # 10. http: the port's server at the config defaults
+    _http_phase(qp, requests[0], responses[0], notes, top_k, smi_line)
+    t = _phase("http", t)
+
+    # 11. search: VectorRetriever.search / retrieve through the top-k kernel
     dense_launches = _search_phase(dev, em, notes, retriever.index.flat_device_emb(),
                                    requests[1:3], smi_line)
     t = _phase("search", t)
 
-    # 11. bench: the port's benchmark entry point, in-process
+    # 12. bench: the port's benchmark entry point, in-process
     for name, count in _bench_phase(dev, smi_line).items():
         bucket_launches[name] += count
     idle = [name for name, count in bucket_launches.items() if count < 1]
@@ -1526,7 +1714,7 @@ def run(dev, seed: int = 0):
                              f"kernel {idle}: {bucket_launches}")
     t = _phase("bench", t)
 
-    # 12. ivf: the default IVFFlat index at 5,000,000 rows
+    # 13. ivf: the default IVFFlat index at 5,000,000 rows
     ivf_launches, ivf_err, ivf_main, plan_launches, plan_main = _ivf_phase(
         dev, seed, smi_line)
     scan_errs.append(ivf_err)

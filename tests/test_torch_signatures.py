@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import bench as jbench
+import serve as jserve
 from anorag_tpu.index import bm25_index as jindex
 from anorag_tpu.index import vector_index as jvi
 from anorag_tpu.ops import bm25 as jbm25
@@ -29,6 +30,7 @@ from anorag_tpu_torch.ops import ivf as tivf
 from anorag_tpu_torch.ops import topk as ttopk
 from anorag_tpu_torch.query import processor as tproc
 from anorag_tpu_torch.retrieval import retriever as tret
+from anorag_tpu_torch import serve as tserve
 from anorag_tpu_torch import serving as tserving
 
 # The port's names for the reference's.
@@ -50,8 +52,14 @@ PALLAS_ONLY = {
     ("segment_winners", "block_b"): "the same as for segment_totals",
 }
 
-# Parameters still to come, by the function that lacks them.
-DEFERRED = {}
+# Parameters the port takes, so that a call written for the reference
+# binds the same, but refuses (NotImplementedError) until the stage that
+# reads them is ported, by the function that takes them.
+DEFERRED = {
+    ("QueryProcessor.__init__", "graph_file"):
+        "the note graph file of the per-query pipeline (process()), which "
+        "is not ported yet",
+}
 
 # (label, reference callable, port callable)
 PAIRS = [
@@ -62,8 +70,11 @@ PAIRS = [
        getattr(tret.VectorRetriever, m))
       for m in ("build_index", "search", "retrieve", "hybrid_search",
                 "hybrid_search_dispatch", "hybrid_search_finalize")],
-    ("QueryProcessor.process_batch", jproc.QueryProcessor.process_batch,
-     tproc.QueryProcessor.process_batch),
+    *[(f"QueryProcessor.{m}", getattr(jproc.QueryProcessor, m),
+       getattr(tproc.QueryProcessor, m))
+      for m in ("__init__", "process_batch", "process_stream")],
+    *[(f"serve.{name}", getattr(jserve, name), getattr(tserve, name))
+      for name in ("build_processor", "make_handler", "main")],
     *[(f"ServingEngine.{m}", getattr(jserving.ServingEngine, m),
        getattr(tserving.ServingEngine, m)) for m in ("__init__", "submit", "process")],
     *[(name, getattr(jtopk, name), getattr(ttopk, name))
@@ -106,7 +117,7 @@ def test_port_takes_every_reference_parameter(label, ref, port):
     missing, stale = [], []
     for p in _params(ref):
         name = RENAMES.get(p, p)
-        excused = (label, p) in PALLAS_ONLY or (label, p) in DEFERRED
+        excused = (label, p) in PALLAS_ONLY
         if excused and name in have:
             stale.append(p)
         elif not excused and name not in have:
@@ -119,6 +130,24 @@ def test_every_listed_exception_is_used():
     ref_params = {(label, p) for label, ref, _ in PAIRS for p in _params(ref)}
     assert set(RENAMES) <= {p for _, p in ref_params}
     assert set(PALLAS_ONLY) <= ref_params and set(DEFERRED) <= ref_params
+
+
+def test_query_processor_takes_the_reference_parameters_in_order():
+    """A positional call written for the reference binds each argument to
+    the same parameter in the port; the device comes after them, keyword
+    only."""
+    ref = _params(jproc.QueryProcessor.__init__)
+    port = inspect.signature(tproc.QueryProcessor.__init__).parameters
+    assert list(port)[1:len(ref) + 1] == ref
+    assert [n for n, p in port.items() if p.kind is p.KEYWORD_ONLY] == ["device"]
+
+
+def test_deferred_parameters_are_refused():
+    notes = [{"note_id": "a", "content": "alpha beta"}]
+    cfg = {"embedding": {"backend": "hash", "dim": 16}}
+    with pytest.raises(NotImplementedError, match="process"):
+        tproc.QueryProcessor(notes, None, "graph.json", cfg=cfg, device="cpu")
+    assert set(DEFERRED) == {("QueryProcessor.__init__", "graph_file")}
 
 
 def test_vector_index_keeps_the_reference_options():

@@ -1,11 +1,11 @@
 """The ported slice as a whole against anorag_tpu, on the CPU.
 
 Both QueryProcessors are built on the same notes (tests/conftest.py
-make_notes plus a few hundred generated notes). The port's process_batch
-returns, per query, the rows of hybrid_search_finalize; the reference's
-process_batch runs its answer stages on exactly those rows
-(retriever.hybrid_search), so that is what the port is held against: the
-same note ids in the same order, scores to 1e-5.
+make_notes plus a few hundred generated notes). The retrievers' hybrid
+rows must hold the same note ids in the same order, scores to 1e-5, and
+process_batch, which runs the answer stages on those rows, the same
+answers and the same notes (tests/test_torch_answer.py holds the answer
+stages on more questions).
 
 Also the package rules: no JAX and nothing of anorag_tpu in the port or in
 chip_smoke.py, a search that runs with JAX blocked, and entry points that
@@ -88,6 +88,21 @@ def _assert_same_rows(got, want, atol):
                                    [n["final_score"] for n in w], atol=atol, rtol=0)
 
 
+ANSWER_FIELDS = ("query", "answer", "predicted_answer", "predicted_support_idxs",
+                 "predicted_answerable", "answer_method")
+
+
+def assert_same_answers(got, want, atol=1e-5):
+    """process_batch results: the same keys, exactly equal answer fields,
+    and notes of equal ids in equal order with scores to atol."""
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        assert {k: g[k] for k in ANSWER_FIELDS} == {k: w[k] for k in ANSWER_FIELDS}, \
+            g["query"]
+    _assert_same_rows([g["notes"] for g in got], [w["notes"] for w in want], atol)
+
+
 def test_process_batch_matches_reference_hash_backend():
     loader = _loader()
     notes = _notes()
@@ -95,9 +110,12 @@ def test_process_batch_matches_reference_hash_backend():
     qp = QueryProcessor(notes, cfg=loader.as_dict(), device="cpu")
     top_k = loader.get("context.max_notes_for_llm")
     want = jqp.retriever.hybrid_search(QUERIES, top_k=top_k)
-    got = qp.process_batch(QUERIES)
+    got = qp.retriever.hybrid_search(QUERIES, top_k=top_k)
     assert all(len(r) == top_k for r in got)
     _assert_same_rows(got, want, atol=1e-5)
+    answers = qp.process_batch(QUERIES)
+    assert all(len(r["notes"]) == top_k for r in answers)
+    assert_same_answers(answers, jqp.process_batch(QUERIES), atol=1e-5)
 
 
 def test_process_batch_matches_reference_encoder_backend():
@@ -128,8 +146,10 @@ def test_process_batch_matches_reference_encoder_backend():
     qp = QueryProcessor(notes, cfg=port_cfg, device="cpu",
                         embedding_manager=em)
     want = jqp.retriever.hybrid_search(QUERIES, top_k=10)
-    got = qp.process_batch(QUERIES, top_k=10)
+    got = qp.retriever.hybrid_search(QUERIES, top_k=10)
     _assert_same_rows(got, want, atol=1e-4)
+    assert_same_answers(qp.process_batch(QUERIES, top_k=10),
+                        jqp.process_batch(QUERIES, top_k=10), atol=1e-4)
 
 
 def test_serving_engine_matches_process_batch_and_joins_threads():
@@ -145,8 +165,8 @@ def test_serving_engine_matches_process_batch_and_joins_threads():
     # sub-batches of 3, in request order, each one device pass
     want = [r for i in range(0, len(QUERIES), 3)
             for r in qp.process_batch(QUERIES[i:i + 3])]
-    _assert_same_rows(got[0], want, atol=0)
-    _assert_same_rows(got[1], qp.process_batch(QUERIES[:2], top_k=5), atol=0)
+    assert_same_answers(got[0], want, atol=0)
+    assert_same_answers(got[1], qp.process_batch(QUERIES[:2], top_k=5), atol=0)
     with pytest.raises(RuntimeError):
         engine.submit(QUERIES)
 
@@ -164,11 +184,11 @@ def test_filter_notes_by_namespace_equals_the_reference(namespace):
 
 def test_process_batch_filters_by_dataset_as_the_reference_does():
     """Notes of two namespaces ("namespace" and "dataset" keys) and notes of
-    none: the port's process_batch(queries, "ds1") gives each query the
-    reference's filter_notes_by_namespace over the reference retriever's
-    hybrid_search rows (top_k retrieved, then filtered, never more
-    retrieved), and ServingEngine carries dataset= through to the same
-    rows."""
+    none: the port's process_batch(queries, "ds1") answers each query from
+    the reference's filter_notes_by_namespace over the reference
+    retriever's hybrid_search rows (top_k retrieved, then filtered, never
+    more retrieved), as the reference's process_batch does, and
+    ServingEngine carries dataset= through to the same answers."""
     notes = _notes(n_extra=200, seed=2)
     for i, n in enumerate(notes):
         if i % 3 == 0:
@@ -181,18 +201,21 @@ def test_process_batch_filters_by_dataset_as_the_reference_does():
     top_k = loader.get("context.max_notes_for_llm")
     want = [j_filter(rows, "ds1") for rows in jqp.retriever.hybrid_search(QUERIES, top_k=top_k)]
     got = qp.process_batch(QUERIES, "ds1")
-    _assert_same_rows(got, want, atol=1e-5)
-    assert all(0 < len(rows) < top_k for rows in got)
+    _assert_same_rows([qp._post_select_processing(rows, rows, q)
+                       for rows, q in zip(want, QUERIES)],
+                      [r["notes"] for r in got], atol=1e-5)
+    assert_same_answers(got, jqp.process_batch(QUERIES, "ds1"), atol=1e-5)
+    assert all(0 < len(r["notes"]) < top_k for r in got)
     assert all(n.get("namespace", "ds1") == "ds1" and "dataset" not in n
-               for rows in got for n in rows)
-    _assert_same_rows(qp.process_batch(QUERIES, None, 5), qp.process_batch(QUERIES, top_k=5),
-                      atol=0)
+               for r in got for n in r["notes"])
+    assert_same_answers(qp.process_batch(QUERIES, None, 5),
+                        qp.process_batch(QUERIES, top_k=5), atol=0)
     with ServingEngine(qp, sub_batch=3, depth=2) as engine:
         served = engine.process(QUERIES, dataset="ds1", timeout=60)
         unfiltered = engine.submit(QUERIES[:3], 4).result(timeout=60)
-    _assert_same_rows(served, [r for i in range(0, len(QUERIES), 3)
-                               for r in qp.process_batch(QUERIES[i:i + 3], "ds1")], atol=0)
-    _assert_same_rows(unfiltered, qp.process_batch(QUERIES[:3], top_k=4), atol=0)
+    assert_same_answers(served, [r for i in range(0, len(QUERIES), 3)
+                                 for r in qp.process_batch(QUERIES[i:i + 3], "ds1")], atol=0)
+    assert_same_answers(unfiltered, qp.process_batch(QUERIES[:3], top_k=4), atol=0)
 
 
 # ------------------------------------------------------------ package rules
@@ -227,9 +250,11 @@ def test_port_runs_with_jax_blocked():
         cfg = {"embedding": {"backend": "hash", "dim": 32},
                "vector_store": {"index_type": "Flat"}}
         qp = QueryProcessor(notes, cfg=cfg, device="cpu")
-        rows = qp.process_batch(["alpha item7", "gamma1 beta"], top_k=5)
-        assert [len(r) for r in rows] == [5, 5], rows
-        assert rows[0][0]["note_id"] == "n7", rows[0][0]
+        out = qp.process_batch(["alpha item7", "gamma1 beta"], top_k=5)
+        assert [len(r["notes"]) for r in out] == [5, 5], out
+        assert out[0]["notes"][0]["note_id"] == "n7", out[0]["notes"][0]
+        assert all(r["answer_method"] and "answer" in r for r in out), out
+        from anorag_tpu_torch.serve import make_handler
         print("ok")
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
