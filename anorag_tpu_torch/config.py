@@ -1,7 +1,8 @@
 """Configuration for the port: the keys its slices read, with defaults.
 
 Counterpart of the subset of anorag_tpu/config/defaults.py that the batched
-hybrid query, the dense search, the answer stages and the HTTP server read.
+hybrid query, the dense search, the answer stages, the per-query pipeline
+(QueryProcessor.process) and the HTTP server read.
 A config is a nested dict (for example one loaded from the repo's YAML
 files); `Config` merges it over these defaults and answers dotted lookups
 and sets, as anorag_tpu's ConfigLoader.get and set do.
@@ -57,7 +58,62 @@ DEFAULTS = {
         "linear": {"vector_weight": 1.0},
         "answer_bias": {"who_person_boost": 1.10, "type_gate": True,
                         "subject_cooc_boost": 1.0},
+        # the per-query pipeline (query/processor.py _process_traditional)
+        "bm25": {"k1": 1.2, "b": 0.75, "corpus_field": "title_raw_span"},
+        "fallback": {"query_rewrite_enabled": True},
+        "two_hop_expansion": {"enabled": True, "top_m_candidates": 20,
+                              "max_second_hop_candidates": 15},
+        "section_filtering": {"enabled": True},
+        "lexical_fallback": {"enabled": True, "miss_penalty": 0.6,
+                             "noise_threshold": 0.20},
+        "multi_hop": {"hop_decay": 0.85},
     },
+    "retrieval": {
+        "candidate_pool": 50,
+        "bm25_topk_hop1": 40,
+        "embed_topk_hop1": 30,
+        "use_graph_rerank": False,
+        "subgraph_radius": 2,
+        "edge_thresh": 0.35,
+        "overlap_thresh": 0.5,
+        "token_budget": 1800,
+        "alpha": 0.5,
+        "beta": 0.3,
+        "gamma": 0.2,
+        "lambda_len": 0.05,
+        "graph": {"expand_top_m": 20},
+        "multi_hop": {
+            "enabled": True,
+            "max_hops": 4,
+            "max_paths": 10,
+            "min_path_score": 0.3,
+            "min_path_score_floor": 0.1,
+            "min_path_score_step": 0.05,
+            "path_diversity_threshold": 0.7,
+            "max_initial_candidates": 20,
+        },
+    },
+    "path_aware": {"enabled": True},
+    "recall_optimizer": {"multi_hop_enabled": False, "max_hops": 3,
+                         "hop_similarity_threshold": 0.15,
+                         "comprehensive_rerank": False},
+    "rerank": {"listt5_input_topk": 24, "keep_after_listt5": 16, "enabled": False},
+    "context_dispatcher": {
+        "enabled": True,
+        "final_semantic_count": 8,
+        "final_graph_count": 5,
+        "bridge_policy": "keepalive",
+        "bridge_boost_epsilon": 0.02,
+        "debug_log": True,
+        "use_graph_aware": False,
+        "token_budget": 1800,
+    },
+    "safety": {
+        "per_hop_keep_top_m": 5,
+        "lower_threshold": 0.1,
+        "cluster": {"enabled": False, "cos_threshold": 0.85, "keep_per_cluster": 3},
+    },
+    "query": {"use_subquestion_decomposition": False, "merge_strategy": "weighted"},
     "evidence_rerank": {
         "enable": True,
         "w_album": 0.5,

@@ -13,12 +13,11 @@ serves
     python -m anorag_tpu_torch.serve --work-dir result/N [--config cfg.yaml]
         [--host 127.0.0.1] [--port 8080] [--device cuda]
 
-/query answers through the batched path (the ServingEngine, or
-QueryProcessor.process_batch without one), as the reference's /query does
-when it has an engine. A /query with a "qid" is the reference's per-query
-graph pipeline (QueryProcessor.process), which the port does not have
-yet: it gets 501 and a message that says so. The port has no LLM client
-yet, so --llm is refused.
+/query with a "qid", or on a server without an engine (tests), runs the
+per-query pipeline (QueryProcessor.process) under a lock; /query without
+a qid on a server with an engine goes through the engine's batched path,
+as the reference's /query does. The port has no LLM client yet, so --llm
+is refused.
 """
 from __future__ import annotations
 
@@ -37,16 +36,10 @@ from anorag_tpu_torch.utils.logging import get_logger, setup_logging
 
 logger = get_logger("anorag.serve")
 
-_NOT_PORTED_QID = ("/query with a qid runs the per-query graph pipeline "
-                   "(QueryProcessor.process), which the port does not have "
-                   "yet; send the query without a qid to have it answered "
-                   "through the batched path")
-
-
 def build_processor(work_dir: str, no_llm: bool = True, cfg=None, device=None):
-    """A QueryProcessor over the KB in `work_dir` (atomic_notes.json and,
-    when present, embeddings.npy). The KB's graph.json feeds only the
-    per-query pipeline, so it is not read."""
+    """A QueryProcessor over the KB in `work_dir`: atomic_notes.json and,
+    when present, embeddings.npy and the note graph graph.json (built from
+    the notes when absent)."""
     from anorag_tpu_torch.query.processor import QueryProcessor
 
     if not no_llm:
@@ -56,7 +49,11 @@ def build_processor(work_dir: str, no_llm: bool = True, cfg=None, device=None):
     notes = read_json(work / "atomic_notes.json")
     emb_path = work / "embeddings.npy"
     embeddings = np.load(emb_path) if emb_path.exists() else None
-    return QueryProcessor(notes, embeddings=embeddings, cfg=cfg, device=device)
+    graph_file = work / "graph.json"
+    return QueryProcessor(
+        notes, embeddings=embeddings,
+        graph_file=str(graph_file) if graph_file.exists() else None,
+        cfg=cfg, device=device)
 
 
 def make_handler(qp, engine=None):
@@ -64,7 +61,8 @@ def make_handler(qp, engine=None):
     dispatcher thread keeps up to `depth` device batches in flight while
     request threads wait on futures. Without an engine (tests), requests
     serialize behind a lock, and a /query_batch larger than
-    serving.stream_batch runs through qp.process_stream."""
+    serving.stream_batch runs through qp.process_stream. qp.process runs
+    behind the lock in either case: it mutates per-call dicts."""
     lock = threading.Lock()
 
     def note_fields(notes, keys):
@@ -132,14 +130,13 @@ def make_handler(qp, engine=None):
                         notes, ("note_id", "title", "content", "final_score",
                                 "paragraph_idxs"))})
                 if self.path == "/query":
-                    if payload.get("qid"):
-                        return self._send(501, {"error": _NOT_PORTED_QID})
                     dataset = payload.get("dataset")
-                    if engine is not None:
+                    if engine is not None and not payload.get("qid"):
                         r = engine.process([query], dataset=dataset)[0]
                     else:
                         with lock:
-                            r = qp.process_batch([query], dataset=dataset)[0]
+                            r = qp.process(query, dataset=dataset,
+                                           qid=payload.get("qid"))
                     return self._send(200, {
                         "answer": r["answer"],
                         "predicted_support_idxs": r["predicted_support_idxs"],

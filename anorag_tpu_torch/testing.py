@@ -343,6 +343,27 @@ def unit_rows(rng: np.random.Generator, n: int, d: int) -> np.ndarray:
     return x / np.linalg.norm(x, axis=1, keepdims=True)
 
 
+def planted_rows(rng: np.random.Generator, n: int, d: int) -> np.ndarray:
+    """(N, D) f32 rows, N >= 96, scaled by 0.5-2, with planted near
+    duplicates for the relation extractor's 0.7 cosine threshold: rows 41
+    to 48 at cosines 0.97 down to 0.83 from row 40 (more neighbours than
+    its top 6 keep, no ties), pairs (5, 70) and (71, 6) at 0.8, (12, 90)
+    at 0.6 and (91, 13) at 0.62; the rest random."""
+    emb = unit_rows(rng, n, d)
+
+    def near(base, cos):
+        noise = rng.standard_normal(d).astype(np.float32)
+        noise -= (noise @ base) * base
+        noise /= np.linalg.norm(noise)
+        return np.float32(cos) * base + np.float32(np.sqrt(1 - cos ** 2)) * noise
+
+    for j in range(41, 49):
+        emb[j] = near(emb[40], 0.97 - 0.02 * (j - 41))
+    for a, b, cos in ((5, 70, 0.8), (71, 6, 0.8), (12, 90, 0.6), (91, 13, 0.62)):
+        emb[b] = near(emb[a], cos)
+    return emb * rng.uniform(0.5, 2.0, (n, 1)).astype(np.float32)
+
+
 def clustered_corpus(rng: np.random.Generator, n: int, d: int,
                      n_clusters: int) -> np.ndarray:
     """(N, D) f32 unit rows around n_clusters random centres."""

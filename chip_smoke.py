@@ -15,7 +15,12 @@ Phases, each printing its seconds:
                 embeddings and the full-width encoder (24 layers, hidden
                 1024, bf16), all from --seed, data and weights made on the
                 card; the first three queries of request 0 are the KB
-                questions (testing.KB_QUESTIONS);
+                questions (testing.KB_QUESTIONS); the notes come four
+                paragraphs a document; the QueryProcessor's constructor
+                builds the note graph (relation extraction, its semantic
+                self-join through the streaming top-k kernel, build_csr,
+                PageRank on the card) and the entity index, each part
+                timed, the kernel's launches counted from 0;
   4. kernels -- each kernel against its plain PyTorch version on the card,
                 at the odd shapes of the CPU tests and at the main path's
                 real shapes: window-winners ids equal and values to rtol
@@ -96,16 +101,31 @@ Phases, each printing its seconds:
   9. trace   -- one request through a ServingEngine under torch.profiler:
                 the device's busy time and idle share, the window-winners
                 kernels' own time, and the largest device kernels;
-  10. http   -- the port's HTTP server (anorag_tpu_torch/serve.py) on
+  10. process -- the per-query pipeline (QueryProcessor.process) on the
+                same processor: the graph build's parts and times, its
+                edges by relation type, the self-join's launches (one per
+                32,768 queries); the self-join route (f32 unit rows, k 6)
+                against dense_topk_ref on 512 random rows and the first
+                8,192 as queries (testing.check_topk), timed at 8,192
+                beside its plain version, torch.matmul + torch.topk and
+                its bound (f32 peak outside the tensor cores); the KB
+                questions through process() with the reference's answers,
+                the first again on the sub-question path; 32 Zipf queries'
+                latency (median, p90) and each stage's host time; one
+                process() under torch.profiler (device busy time, idle
+                share);
+  11. http   -- the port's HTTP server (anorag_tpu_torch/serve.py) on
                 127.0.0.1 over the same QueryProcessor, its engine at the
                 config defaults (sub-batch 64, depth 3): /healthz; /search
                 with a KB question gives qp.retriever.retrieve's note ids;
                 /query answers the Blue Horizon question with Chris Reed;
+                /query with a qid (process()) answers the KB questions as
+                the process phase did (answer, support, method, notes);
                 /query_batch answers request 0 with the contract keys and
                 the KB answers; each call's latency, and how many of
                 request 0's answers equal the serve phase's (they may
                 differ only where the 64-query batches' note lists do);
-  11. search -- a VectorRetriever with use_kernel=True over the same notes
+  12. search -- a VectorRetriever with use_kernel=True over the same notes
                 and embeddings: search for one 512-query request at top_k
                 20 and retrieve for 32 single queries at top_k 10 (fetch 30,
                 the /search endpoint's traffic); the top-k kernel's
@@ -114,12 +134,12 @@ Phases, each printing its seconds:
                 (use_kernel None: chunked matmul + exact top-k, what
                 QueryProcessor's retriever takes below 5,000,000 notes),
                 its scores equal to the kernel route's to 1e-5;
-  12. bench  -- the port's benchmark entry point in-process
+  13. bench  -- the port's benchmark entry point in-process
                 (anorag_tpu_torch/bench.py): kernel_parity, bench_hybrid at
                 200,000 docs with its recall gate (recall@10 against exact
                 f32 at least 0.985) and bench_encoder, their JSON on one
                 line; every kernel they reach, counted from 0, launched;
-  13. ivf    -- a default VectorIndex(index_type="IVFFlat") (nlist 20,
+  14. ivf    -- a default VectorIndex(index_type="IVFFlat") (nlist 20,
                 nprobe 4, 15 k-means rounds) over 5,000,000 x 1024 rows
                 drawn on the card around 1,000 centres: build time, 4
                 batches of 512 queries at top_k 20 and 64 single queries at
@@ -137,7 +157,9 @@ Phases, each printing its seconds:
                 seeded BM25 plan, which must allocate under 1 GiB above the
                 resident index, its dense candidates held against the
                 streaming top-k kernel.
-Then one JSON line of kernel numbers, the nvidia-smi line, and last
+Then one JSON line of kernel numbers (dense_topk's launches count the
+graph build's; dense_topk_f32_self_join holds the self-join's shape), the
+nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure prints its traceback and exits
 non-zero without that last line; so does a machine without CUDA.
 """
@@ -157,6 +179,7 @@ BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 on the tensor cores
 L2_FLUSH_BYTES = 256 << 20     # written between timed calls to empty the 50 MB L2
 VOCAB, DOC_LEN, Q_LEN, MIN_RANK = 30_000, 40, 8, 100
 N_NOTES, N_REQUESTS, BATCH = 200_000, 4, 512
+N_PROCESS = 32                 # Zipf queries through QueryProcessor.process
 N_IVF, IVF_CENTRES, IVF_BATCHES, IVF_SINGLES = 5_000_000, 1000, 4, 64
 # batch sizes at which the IVF kernel's 16- and 64-query tiles are timed
 IVF_TILE_BATCHES = (1, 4, 16, 32, 64, 96, 128, 192, 256, 512)
@@ -168,6 +191,13 @@ BUCKET_ROUTE_BATCHES = (1, 16, 32, 48, 64, 128, 512)
 # (64: the served stream_batch)
 SEGMENT_ROUTE_BATCHES = (1, 16, 64, 128, 512)
 N_RETRIEVE = 32
+# (base, row, cosine): near duplicates planted in setup's random unit rows,
+# whose cosines lie about 22 standard deviations below the relation
+# extractor's 0.7 threshold: a group of 9 (more neighbours above it than a
+# note's top 6 keeps), two pairs above it either way round, two below; the
+# rows 4 apart, so that no two share a document and a context edge
+PLANTED = tuple((1000, 1000 + 4 * m, 0.97 - 0.02 * (m - 1)) for m in range(1, 9)) + (
+    (5000, 5004, 0.8), (5012, 5008, 0.8), (6000, 6004, 0.6), (6012, 6008, 0.62))
 
 
 def _phase(name: str, t0: float) -> float:
@@ -1372,9 +1402,12 @@ def _answer_costs(qp, request, rng, words, top_k: int, notes, smi_line: str) -> 
           f"| {smi_line}")
 
 
-def _http_phase(qp, request, served, notes, top_k: int, smi_line: str) -> None:
+def _http_phase(qp, request, served, kb_process, notes, top_k: int,
+                smi_line: str) -> None:
     """The port's HTTP server over qp with its engine at the config
-    defaults; each endpoint checked, its latency printed."""
+    defaults; each endpoint checked, its latency printed. /query with a qid
+    runs process(): the KB questions' answers, support, method and first
+    notes must equal kb_process's (the process phase's)."""
     import threading
     import urllib.request
     from http.server import ThreadingHTTPServer
@@ -1418,6 +1451,18 @@ def _http_phase(qp, request, served, notes, top_k: int, smi_line: str) -> None:
         if one["answer"] != KB_QUESTIONS[0][1] or len(one["notes"]) != 5:
             raise AssertionError(f"/query answered {one['answer']!r} with "
                                  f"{len(one['notes'])} notes")
+        lat["/query engine"] = lat["/query"]
+        for i, (q, *_) in enumerate(KB_QUESTIONS):
+            got = call("/query", {"query": q, "qid": f"kb{i}", "top_k": 5})
+            want = kb_process[i]
+            same = (got["answer"], got["predicted_support_idxs"], got["answer_method"],
+                    [n["note_id"] for n in got["notes"]]) == (
+                want["answer"], want["predicted_support_idxs"], want["answer_method"],
+                [n["note_id"] for n in want["notes"][:5]])
+            if not same:
+                raise AssertionError(f"/query with a qid answered {q!r} with "
+                                     f"{got['answer']!r}, process() {want['answer']!r}")
+        lat["/query qid"] = lat.pop("/query")
         results = call("/query_batch", {"queries": request, "top_k": top_k})["results"]
     finally:
         server.shutdown()
@@ -1449,11 +1494,286 @@ def _http_phase(qp, request, served, notes, top_k: int, smi_line: str) -> None:
                              f"the note lists are equal: {sorted(answers_differ - notes_differ)}")
     print(f"http at sub-batch {sub_batch}, depth {depth}: latency /healthz "
           f"{lat['/healthz']:.4f} s, /search {lat['/search']:.4f}, /query "
-          f"{lat['/query']:.4f}, /query_batch ({len(request)} queries) "
+          f"{lat['/query engine']:.4f}, /query with a qid (process(), the last KB "
+          f"question; answers equal to process()'s) {lat['/query qid']:.4f}, "
+          f"/query_batch ({len(request)} queries) "
           f"{lat['/query_batch']:.4f}; request 0's answers equal to the serve "
           f"phase's {len(request) - len(answers_differ)} of {len(request)}; note "
           f"lists differ at batch {sub_batch} from batch {len(request)} for "
           f"{len(notes_differ)} | {smi_line}")
+
+
+# the graph build's parts that setup times: (module of anorag_tpu_torch,
+# its class or None, the function, the name printed)
+_REL = ("graph.relation_extractor", "RelationExtractor")
+GRAPH_PARTS = (
+    (*_REL, "extract_all_relations", "relations"),
+    (*_REL, "_reference_relations", "reference"),
+    (*_REL, "_source_context", "context"),
+    (*_REL, "_semantic_similarity", "semantic"),
+    (*_REL, "_device_topk", "self-join"),
+    (*_REL, "_dedup_and_cap", "dedup"),
+    ("graph.graph_index", None, "build_csr", "build_csr"),
+    ("graph.graph_index", None, "pagerank", "pagerank"),
+    ("graph.builder", "GraphBuilder", "build_graph", "graph total"),
+    ("index.entity_index", "EntityInvertedIndex", "build_index", "entity index"),
+    ("graph.retriever", "GraphRetriever", "_ensure_indexes", "graph token index"),
+)
+# process()'s stages whose host time the process phase sums, by attribute
+# path on the QueryProcessor
+PROCESS_STAGES = ("retriever.search", "bm25.topk", "_enhanced_hybrid_search_v2",
+                  "_two_hop_expansion", "path_ranker.rerank_candidates",
+                  "recall_optimizer.optimize_recall", "multi_hop.retrieve",
+                  "_filter_with_multihop_safety", "dispatcher.dispatch",
+                  "_post_select_processing", "_answer", "_write_final_recall")
+# what QueryProcessor.process returns (the reference's
+# anorag_tpu/query/processor.py:533-544)
+PROCESS_KEYS = ANSWER_KEYS | {"candidate_notes", "context", "trace"}
+
+
+def _timer(fn, name: str, times: dict, sync: bool):
+    """fn wrapped to add its seconds (the card synchronised after it when
+    `sync`) to times[name]."""
+    import functools
+
+    import torch
+
+    @functools.wraps(fn)
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        if sync:
+            torch.cuda.synchronize()
+        times[name] = times.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    return timed
+
+
+def _time_graph_parts(times: dict):
+    """Wrap the graph build's parts (GRAPH_PARTS) with timers adding to
+    `times`; returns the function that takes the timers out again."""
+    import importlib
+
+    undo = []
+    for mod, cls, attr, name in GRAPH_PARTS:
+        owner = importlib.import_module(f"anorag_tpu_torch.{mod}")
+        if cls:
+            owner = getattr(owner, cls)
+        fn = owner.__dict__[attr]
+        undo.append((owner, attr, fn))
+        setattr(owner, attr, _timer(fn, name, times, sync=True))
+
+    def restore():
+        for owner, attr, fn in undo:
+            setattr(owner, attr, fn)
+
+    return restore
+
+
+def _time_process_stages(qp, times: dict):
+    """Wrap process()'s stages (PROCESS_STAGES) on qp's objects with host
+    timers adding to `times`; returns the function that removes them."""
+    undo = []
+    for path in PROCESS_STAGES:
+        *owners, attr = path.split(".")
+        obj = qp
+        for o in owners:
+            obj = getattr(obj, o)
+        setattr(obj, attr, _timer(getattr(obj, attr), path, times, sync=False))
+        undo.append((obj, attr))
+
+    def restore():
+        for obj, attr in undo:
+            delattr(obj, attr)
+
+    return restore
+
+
+def _plant(emb, gen) -> None:
+    """Plant PLANTED's near duplicates in the (N, D) f32 unit rows emb:
+    row = cos * base + sin * (unit noise orthogonal to base)."""
+    import torch
+
+    for base, row, cos in PLANTED:
+        e = emb[base]
+        noise = torch.randn(e.shape, generator=gen, device=emb.device)
+        noise -= (noise @ e) * e
+        emb[row] = cos * e + (1 - cos * cos) ** 0.5 * noise / torch.linalg.vector_norm(noise)
+
+
+def _check_semantic_edges(gi, unit, threshold: float, k: int) -> tuple:
+    """The graph's semantic edges are exactly the reference's rule on
+    PLANTED's rows (row j among note i's top k by cosine, at least the
+    threshold, i < j), with similarities equal to their numpy cosines to
+    1e-5; that rule may stop at the planted rows because no other row
+    comes near one. Returns (edges, largest similarity error)."""
+    import numpy as np
+    import torch
+
+    rows = sorted({r for base, row, _ in PLANTED for r in (base, row)})
+    sel = torch.tensor(rows, device=unit.device)
+    near = unit[sel] @ unit.T
+    near[:, sel] = -1.0
+    if float(near.max()) >= threshold:
+        raise AssertionError(f"a planted row has a cosine {float(near.max())} with a "
+                             f"row outside PLANTED")
+    x = gi.embeddings[sel].cpu().numpy()
+    x = x / np.maximum(np.linalg.norm(x, axis=1, keepdims=True), 1e-9)
+    cos = x @ x.T
+    want = {}
+    for a, i in enumerate(rows):
+        for b in np.argsort(-cos[a], kind="stable")[:k]:
+            if rows[b] > i and cos[a, b] >= threshold:
+                want[(i, rows[b])] = float(cos[a, b])
+    got = {(r["source"], r["target"]): r["similarity"] for r in gi.edge_meta
+           if r["relation_type"] == "semantic_similarity"}
+    if set(got) != set(want):
+        raise AssertionError(f"semantic edges {sorted(got)}, want {sorted(want)}")
+    err = max(abs(got[e] - want[e]) for e in want)
+    if err > 1e-5:
+        raise AssertionError(f"semantic edge similarities off their numpy cosines by {err}")
+    return len(want), err
+
+
+def _process_phase(dev, qp, graph_times: dict, build_launches: int, rng, words,
+                   smi_line: str):
+    """The per-query pipeline on setup's processor: the graph build's parts
+    and its semantic edges on the planted rows, the self-join route at the
+    build's launches against its plain version and timed, the KB
+    questions through process() (once more on the sub-question path), 32
+    Zipf queries' latency and stage times, one process() under
+    torch.profiler. Returns (the self-join's kernel numbers, the KB
+    questions' process() answers)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from anorag_tpu_torch.graph.relation_extractor import (SEMANTIC_QUERY_CHUNK,
+                                                           RelationExtractor)
+    from anorag_tpu_torch.ops.topk import dense_topk_kernel, dense_topk_ref
+    from anorag_tpu_torch.testing import KB_QUESTIONS, check_topk, flat_scores
+
+    # 1. the graph the constructor built
+    gi = qp.multi_hop.graph_index
+    by_type = Counter(r["relation_type"] for r in gi.edge_meta)
+    n = len(qp.notes)
+    print(f"graph build over {n} notes (host s, the card synchronised after each "
+          f"part): " + ", ".join(f"{k} {v:.3f}" for k, v in graph_times.items())
+          + f"; {gi.graph.n_edges} edges by type {dict(by_type.most_common())}, "
+          f"semantic {by_type.get('semantic_similarity', 0)}; self-join launches "
+          f"{build_launches} ({SEMANTIC_QUERY_CHUNK} queries each, the last "
+          f"{n - (n - 1) // SEMANTIC_QUERY_CHUNK * SEMANTIC_QUERY_CHUNK}) | {smi_line}",
+          flush=True)
+    want_launches = -(-n // SEMANTIC_QUERY_CHUNK)
+    if build_launches != want_launches:
+        raise AssertionError(f"the graph build launched the top-k kernel "
+                             f"{build_launches} times, not {want_launches}")
+    if gi.embeddings is not qp.embeddings:
+        raise AssertionError("the graph holds a second copy of the corpus embeddings")
+    ex = RelationExtractor(device=dev)
+    k = ex.max_semantic_edges + 1
+    unit = qp.embeddings / torch.linalg.vector_norm(qp.embeddings, dim=1,
+                                                    keepdim=True).clamp_min(1e-9)
+    n_semantic, sim_err = _check_semantic_edges(gi, unit, ex.semantic_threshold, k)
+    print(f"semantic edges: the {n_semantic} that the reference's rule gives on the "
+          f"{len(PLANTED)} planted near duplicates and none else, similarities "
+          f"within {sim_err:.3g} of numpy's cosines", flush=True)
+
+    # 2. the self-join route (f32 unit rows against themselves, k 6) at the
+    # build's launches: its first chunk (which holds the planted rows) and
+    # its last, shorter one, each over all rows, and 512 rows from across
+    # the corpus; timed at a whole chunk
+    chunk = unit[:SEMANTIC_QUERY_CHUNK]
+    tail = unit[(n - 1) // SEMANTIC_QUERY_CHUNK * SEMANTIC_QUERY_CHUNK:]
+    rows = torch.from_numpy(np.sort(rng.choice(n, 512, replace=False))).to(dev)
+    err = 0.0
+    for q in (unit[rows].contiguous(), chunk, tail):
+        err = max(err, check_topk(dense_topk_kernel(unit, q, k), dense_topk_ref(unit, q, k),
+                                  flat_scores(unit, q)))
+    ms, _ = _time_ms(lambda: dense_topk_kernel(unit, chunk, k), n=1, reps=3, warm=1)
+    plain_ms, _ = _time_ms(lambda: dense_topk_ref(unit, chunk, k), n=1, reps=3, warm=1)
+    lib_ms, _ = _time_ms(lambda: torch.topk(torch.matmul(chunk, unit.T), k), n=1,
+                         reps=3, warm=1)
+    bound_ms, bound_by = _topk_bound(chunk.shape[0], n, unit.shape[1], k, 4)
+    full_bound, _ = _topk_bound(n, n, unit.shape[1], k, 4)
+    print(f"self-join route (f32, k {k}) against dense_topk_ref: the build's first "
+          f"launch ({chunk.shape[0]} queries), its last ({tail.shape[0]}) and 512 of the "
+          f"{n} rows as queries agree, max abs err {err:.3g}; at {chunk.shape[0]} x {n} "
+          f"x {unit.shape[1]}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"torch.matmul + torch.topk {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}, f32 at {F32_OPS_PER_S / 1e12:.0f} TFLOP/s outside the tensor "
+          f"cores); the build's whole self-join {graph_times.get('self-join', 0.0):.4f} "
+          f"s in {build_launches} launches, bound {full_bound / 1e3:.4f} s | {smi_line}",
+          flush=True)
+    del unit, chunk, tail
+
+    # 3. the KB questions through process(), one again on the sub-question path
+    kb, kb_s = [], []
+    for i, (q, *_) in enumerate(KB_QUESTIONS):
+        t0 = time.perf_counter()
+        kb.append(qp.process(q, qid=f"kb{i}"))
+        kb_s.append(time.perf_counter() - t0)
+    for a in kb:
+        if not PROCESS_KEYS <= set(a) or a["predicted_answer"] != a["answer"]:
+            raise AssertionError(f"process: keys {sorted(a)} for {a['query']!r}")
+    _check_kb_answers(kb, "process")
+    qp.cfg.set("query.use_subquestion_decomposition", True)
+    try:
+        sub = qp.process(KB_QUESTIONS[0][0])
+    finally:
+        qp.cfg.set("query.use_subquestion_decomposition", False)
+    if sub["answer"] != KB_QUESTIONS[0][1] or not sub.get("sub_questions"):
+        raise AssertionError(f"sub-question path answered {sub['answer']!r} "
+                             f"with sub-questions {sub.get('sub_questions')}")
+    print(f"process(): KB questions answered " + ", ".join(
+        f"{a['answer']!r} ({a['answer_method']}, {dt:.4f} s)" for a, dt in zip(kb, kb_s))
+          + f"; on the sub-question path {sub['answer']!r} from "
+          f"{len(sub['sub_questions'])} sub-questions; the graph's token index, "
+          f"built in the first process(), {graph_times.get('graph token index', 0.0):.3f} "
+          f"s of it | {smi_line}", flush=True)
+
+    # 4. 32 Zipf queries: latency and each stage's host time
+    queries = [" ".join(words[t]) for t in _query_terms(rng, N_PROCESS)]
+    stage_s: dict = {}
+    restore = _time_process_stages(qp, stage_s)
+    lat = []
+    try:
+        for query in queries:
+            t0 = time.perf_counter()
+            a = qp.process(query)
+            lat.append(time.perf_counter() - t0)
+            if not PROCESS_KEYS <= set(a) or not a["notes"]:
+                raise AssertionError(f"process({query!r}) gave keys {sorted(a)} and "
+                                     f"{len(a['notes'])} notes")
+    finally:
+        restore()
+    lat_s = sorted(lat)
+    print(f"process() over {N_PROCESS} Zipf queries: latency median "
+          f"{lat_s[len(lat_s) // 2]:.4f} s, p90 {lat_s[int(0.9 * len(lat_s))]:.4f} s, "
+          f"max {lat_s[-1]:.4f} s; host s a query by stage (fusion counts its calls "
+          f"inside the two-hop stage too): " + ", ".join(
+              f"{k} {v / N_PROCESS:.4f}" for k, v in stage_s.items())
+          + f" | {smi_line}", flush=True)
+
+    # 5. one process() under torch.profiler
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        qp.process(queries[0])
+        torch.cuda.synchronize(dev)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    on_card = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if on_card:
+        busy = _busy_ms(on_card)
+        print(f"trace of one process(): wall {wall_ms:.2f} ms, device busy "
+              f"{busy:.2f} ms, idle share {1 - busy / wall_ms:.4f}, "
+              f"{len(on_card)} device events | {smi_line}", flush=True)
+    else:
+        print("trace of one process(): no device events recorded; idle share "
+              "not measured")
+    return dict(launches=build_launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms), kb
 
 
 def run(dev, seed: int = 0):
@@ -1468,7 +1788,7 @@ def run(dev, seed: int = 0):
     from anorag_tpu_torch.ops.bm25 import (_winners_select, gather_plan_sorted,
                                            plan_tiles, sparse_topm_winners,
                                            window_winners, window_winners_ref)
-    from anorag_tpu_torch.ops.topk import hybrid_fuse
+    from anorag_tpu_torch.ops.topk import dense_topk_kernel, hybrid_fuse
     from anorag_tpu_torch.models.embedding_manager import EmbeddingManager
     from anorag_tpu_torch.query.processor import QueryProcessor
     from anorag_tpu_torch.retrieval.retriever import max_seg_for
@@ -1505,18 +1825,33 @@ def run(dev, seed: int = 0):
     rng = np.random.default_rng(seed)
     words = np.array([f"w{i}" for i in range(VOCAB)])
     doc_terms = _zipf_doc_terms(rng, N_NOTES)
-    notes = [{"note_id": f"n{i}", "title": "", "content": " ".join(row)}
+    # four paragraphs a document, as the reference's corpora come: without
+    # doc ids every note shares one "unknown" document, and the relation
+    # extractor's source-context pass pairs all N notes with each other
+    notes = [{"note_id": f"n{i}", "title": "", "content": " ".join(row),
+              "doc_id": f"d{i // 4}", "paragraph_idxs": [i % 4]}
              for i, row in enumerate(words[doc_terms].tolist())]
     for i, kb in enumerate(kb_notes(), start=N_NOTES - 6):
         notes[i] = {**kb, "note_id": f"n{i}"}
     gen = torch.Generator(device=dev).manual_seed(seed)
     emb = torch.randn((N_NOTES, 1024), generator=gen, device=dev)
-    emb = (emb / torch.linalg.vector_norm(emb, dim=1, keepdim=True)).to(torch.bfloat16)
+    emb /= torch.linalg.vector_norm(emb, dim=1, keepdim=True)
+    _plant(emb, gen)
+    emb = emb.to(torch.bfloat16)
     cfg = {"vector_store": {"top_k": 20}, "context": {"max_notes_for_llm": 20}}
     em = EmbeddingManager(cfg, device=dev, seed=seed)
     em.encode_queries(["draw the encoder weights"])
+    # the constructor builds the note graph (the main path of process()):
+    # its parts timed, the top-k kernel's launches counted from 0
+    graph_times: dict = {}
+    untime_graph = _time_graph_parts(graph_times)
+    dense_topk_kernel.launches = 0
+    t_qp = time.perf_counter()
     qp = QueryProcessor(notes, embeddings=emb, cfg=cfg, device=dev,
                         embedding_manager=em)
+    torch.cuda.synchronize(dev)
+    graph_times["processor total"] = time.perf_counter() - t_qp
+    build_launches = dense_topk_kernel.launches
     del emb
     requests = [[" ".join(words[q]) for q in _query_terms(rng, BATCH)]
                 for _ in range(N_REQUESTS)]
@@ -1696,16 +2031,25 @@ def run(dev, seed: int = 0):
         print("trace: no device events recorded; idle share not measured")
     t = _phase("trace", t)
 
-    # 10. http: the port's server at the config defaults
-    _http_phase(qp, requests[0], responses[0], notes, top_k, smi_line)
+    # 10. process: the per-query pipeline on the same processor
+    try:
+        self_join, kb_process = _process_phase(
+            dev, qp, graph_times, build_launches, np.random.default_rng(seed + 2),
+            words, smi_line)
+    finally:
+        untime_graph()
+    t = _phase("process", t)
+
+    # 11. http: the port's server at the config defaults
+    _http_phase(qp, requests[0], responses[0], kb_process, notes, top_k, smi_line)
     t = _phase("http", t)
 
-    # 11. search: VectorRetriever.search / retrieve through the top-k kernel
+    # 12. search: VectorRetriever.search / retrieve through the top-k kernel
     dense_launches = _search_phase(dev, em, notes, retriever.index.flat_device_emb(),
                                    requests[1:3], smi_line)
     t = _phase("search", t)
 
-    # 12. bench: the port's benchmark entry point, in-process
+    # 13. bench: the port's benchmark entry point, in-process
     for name, count in _bench_phase(dev, smi_line).items():
         bucket_launches[name] += count
     idle = [name for name, count in bucket_launches.items() if count < 1]
@@ -1714,7 +2058,7 @@ def run(dev, seed: int = 0):
                              f"kernel {idle}: {bucket_launches}")
     t = _phase("bench", t)
 
-    # 13. ivf: the default IVFFlat index at 5,000,000 rows
+    # 14. ivf: the default IVFFlat index at 5,000,000 rows
     ivf_launches, ivf_err, ivf_main, plan_launches, plan_main = _ivf_phase(
         dev, seed, smi_line)
     scan_errs.append(ivf_err)
@@ -1749,7 +2093,18 @@ def run(dev, seed: int = 0):
                   "merge path; units of one wave, the query tiles of a corpus "
                   "range side by side",
         "replaces": "anorag_tpu/ops/topk.py:40",
-        "launches": dense_launches, "max_abs_err": max(dense_errs), **dense_main,
+        "launches": dense_launches + build_launches, "max_abs_err": max(dense_errs),
+        **dense_main,
+    }, {
+        "name": "dense_topk_f32_self_join", "route": "cuda",
+        "source": "anorag_tpu_torch/csrc/streaming_topk.cu",
+        "design": "part of dense_topk, not a kernel of its own: the note graph's "
+                  "semantic edges, f32 unit rows against themselves at k 6 "
+                  "(16-query tiles, FMAs), one launch per chunk of queries; "
+                  "timed at a chunk of 32768 queries",
+        "part_of": "dense_topk",
+        "replaces": "anorag_tpu/ops/topk.py:40",
+        **self_join,
     }, {
         "name": "ivf_scan", "route": "cuda",
         "source": "anorag_tpu_torch/csrc/ivf_scan.cu",

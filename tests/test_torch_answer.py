@@ -45,20 +45,78 @@ COPIED = ("utils/text.py utils/semtype.py utils/lexnorm.py utils/logging.py "
           "answer/path_validator.py answer/support_fill.py answer/comparative.py "
           "answer/answer_selector.py answer/span_picker.py answer/verifier.py "
           "answer/efsa.py validators/final_answer_validator.py llm/prompts.py "
-          "answer/final_answer.py native.py").split()
+          "answer/final_answer.py native.py graph/quality.py index/entity_index.py "
+          "context/dispatcher.py context/scheduler.py retrieval/recall_optimizer.py "
+          "retrieval/diversity.py retrieval/query_planner.py query/subquestion.py "
+          "query/evidence_merger.py retrieval/reranker.py graph/retriever.py "
+          "graph/relation_extractor.py graph/graph_index.py graph/builder.py "
+          "graph/multi_hop.py graph/graph_retrieval.py").split()
 
 # module paths the port imports from instead of the reference's package
 # __init__ re-exports (the port's package __init__ files stay empty)
 _MODULE_MAP = {("anorag_tpu.validators", "validate_final_answer"):
                "anorag_tpu_torch.validators.final_answer_validator"}
 
-# Functions of a copy that differ from the original by design, with the
-# reason; everything else in the module is equal.
+# Parts of a copy that differ from the original by design, with the
+# reason; everything else in the module is equal, the other top-level
+# imports too. A name is a function (by qualified name) or a module-level
+# constant, in both modules (then they must differ) or in one only (added
+# or dropped), or a top-level import statement as ast.unparse writes it
+# (the original's with its names mapped to the port's), in one module only.
+_DEVICE = "takes the device (keyword only) and passes it on"
+_TORCH = {"import torch": "the port's tensors"}
+_DEVICE_HELPERS = {"from anorag_tpu_torch.device import DeviceLike, resolve_device":
+                   "the device helpers"}
+_JNP = {"import jax.numpy as jnp": "jax.numpy, which torch replaces"}
 DIFFERS = {
     "utils/logging.py": {"profile_trace": "a torch.profiler range in place of "
                                           "jax.profiler's trace annotation"},
     "support/k_estimator.py": {"KEstimator.graph_distance":
                                "calls the port's torch k_hop_distances"},
+    "graph/retriever.py": {"GraphRetriever._initial_candidates":
+                           "one matvec on the device with cached row norms "
+                           "(GraphIndex.cosines) in place of normalizing the "
+                           "whole corpus on the host for every query; equal "
+                           "up to rounding"},
+    "retrieval/reranker.py": {"ListwiseReranker._get_cross_encoder":
+                              "models/cross_encoder.py is not ported yet: "
+                              "NotImplementedError"},
+    "graph/relation_extractor.py": {
+        **_TORCH, **_DEVICE_HELPERS,
+        "SEMANTIC_HOST_ROWS": "the host route's row limit, named",
+        "SEMANTIC_QUERY_CHUNK": "the queries of one top-k kernel launch",
+        "RelationExtractor.__init__": _DEVICE,
+        "RelationExtractor._semantic_similarity": "the device route is the "
+            "streaming top-k kernel on the card (dense_topk(..., "
+            "method='kernel')), chosen by _host_route",
+        "RelationExtractor._host_route": "the reference's numpy-or-device rule "
+                                         "with the extractor's device",
+        "RelationExtractor._device_topk": "the self-join on the device in "
+                                          "query chunks"},
+    "graph/graph_index.py": {
+        **_TORCH, **_DEVICE_HELPERS, **_JNP,
+        "from anorag_tpu_torch.ops.graph import CSRGraph, build_csr, pagerank":
+            "the original's import, which the next replaces",
+        "from anorag_tpu_torch.ops.graph import CSRGraph, build_csr, cosines, pagerank":
+            "ops.graph.cosines as well",
+        "GraphIndex.__init__": _DEVICE,
+        "GraphIndex.build_index": "keeps the embeddings as an f32 tensor on "
+                                  "the device and runs PageRank there",
+        "GraphIndex.save": "writes the embedding tensor back as numpy",
+        "GraphIndex.cosines": "the port's cosine scores on the device "
+                              "(ops.graph.cosines)"},
+    "graph/builder.py": {**_DEVICE_HELPERS,
+                         "GraphBuilder.__init__": _DEVICE,
+                         "GraphBuilder.build_graph": _DEVICE},
+    "graph/multi_hop.py": {**_TORCH, **_DEVICE_HELPERS,
+                           "MultiHopQueryProcessor.__init__": _DEVICE + "; the "
+                           "embeddings stay an f32 tensor"},
+    "graph/graph_retrieval.py": {
+        **_TORCH, **_JNP,
+        "GraphAwareRetrieval.subgraph_nodes": "the thresholded relaxation on "
+                                              "the graph's device tensors",
+        "GraphAwareRetrieval.generate_and_select_paths": "the endpoints' "
+            "similarities in one GraphIndex.cosines call on the device"},
 }
 
 
@@ -95,7 +153,15 @@ def _normalized(path: Path, original: bool):
                 walk(node.body, prefix + node.name + ".")
 
     walk(tree.body, "")
+    for i, node in enumerate(tree.body):
+        if isinstance(node, ast.Assign) and len(node.targets) == 1 \
+                and isinstance(node.targets[0], ast.Name):
+            funcs[node.targets[0].id] = (tree.body, i)
     return tree, funcs
+
+
+def _imports(tree):
+    return [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
 
 
 @pytest.mark.parametrize("rel", COPIED)
@@ -103,10 +169,24 @@ def test_copied_module_equals_the_original(rel):
     ref, ref_funcs = _normalized(ROOT / "anorag_tpu" / rel, original=True)
     port, port_funcs = _normalized(ROOT / "anorag_tpu_torch" / rel, original=False)
     differs = DIFFERS.get(rel, {})
+    drop = []
     for name in differs:
-        (rb, ri), (pb, pi) = ref_funcs[name], port_funcs[name]
+        if name.startswith(("import ", "from ")):
+            have = [(tree.body, tree.body.index(n)) for tree in (ref, port)
+                    for n in _imports(tree) if ast.unparse(n) == name]
+            assert len(have) == 1, f"{rel}: {name!r} is in {len(have)} modules, not one"
+            drop += have
+            continue
+        have = [funcs[name] for funcs in (ref_funcs, port_funcs) if name in funcs]
+        assert have, f"{rel}: {name} is in neither module"
+        if len(have) == 1:          # added or dropped
+            drop.append(have[0])
+            continue
+        (rb, ri), (pb, pi) = have
         assert ast.dump(rb[ri]) != ast.dump(pb[pi]), f"{rel}: {name} no longer differs"
         rb[ri] = pb[pi] = ast.Pass()
+    for body, i in sorted(drop, key=lambda bi: -bi[1]):
+        del body[i]
     assert ast.dump(port) == ast.dump(ref), rel
 
 
@@ -270,12 +350,6 @@ def test_process_stream_equals_the_reference_and_process_batch():
     top5 = [r for out in qp.process_stream(batches[:2], top_k=5, prefetch=1) for r in out]
     assert_same_answers(top5, [r for b in batches[:2] for r in qp.process_batch(b, top_k=5)],
                         atol=0)
-
-
-def test_graph_file_waits_for_process():
-    with pytest.raises(NotImplementedError, match="process"):
-        QueryProcessor(kb_notes(), None, "graph.json", None,
-                       {"embedding": {"backend": "hash", "dim": 32}}, device="cpu")
 
 
 # ------------------------------------------------- graph distance

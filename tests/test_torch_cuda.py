@@ -550,3 +550,58 @@ def test_bucket_winners_rejects_what_the_kernel_does_not_take(cuda_device):
         topk.bucket_winners(emb, q.t().contiguous().t(), 300, 64)
     with pytest.raises(ValueError):
         topk.bucket_winners(emb, q, 301, 64)
+
+
+@pytest.mark.cuda
+def test_self_join_route_matches_ref_on_the_card(cuda_device, monkeypatch):
+    """The relation extractor's device route (f32 unit rows against
+    themselves, k 6, through the streaming top-k kernel in query chunks)
+    against dense_topk_ref, and its relations against the numpy route's."""
+    from anorag_tpu_torch.graph import relation_extractor as trel
+    from anorag_tpu_torch.testing import planted_rows
+
+    emb = planted_rows(np.random.default_rng(11), 3000, 64)
+    notes = [{"note_id": f"p{i}"} for i in range(len(emb))]
+    rel = trel.RelationExtractor(device=cuda_device)
+    monkeypatch.setattr(trel, "SEMANTIC_QUERY_CHUNK", 1024)
+    before = topk.dense_topk_kernel.launches
+    vals, idx = rel._device_topk(torch.from_numpy(emb).to(cuda_device), 6)
+    assert topk.dense_topk_kernel.launches == before + 3
+    unit = torch.from_numpy(emb).to(cuda_device)
+    unit = unit / torch.linalg.vector_norm(unit, dim=1, keepdim=True)
+    want = topk.dense_topk_ref(unit, unit, 6)
+    check_topk((torch.from_numpy(vals).to(cuda_device), torch.from_numpy(idx).to(cuda_device)),
+               want, flat_scores(unit, unit))
+    host = trel.RelationExtractor(device=cuda_device)._semantic_similarity(notes, emb)
+    monkeypatch.setattr(trel.RelationExtractor, "_host_route", lambda self, n: False)
+    dev = rel._semantic_similarity(notes, torch.from_numpy(emb).to(cuda_device))
+    assert [(r["source"], r["target"]) for r in dev] == \
+        [(r["source"], r["target"]) for r in host]
+    np.testing.assert_allclose([r["similarity"] for r in dev],
+                               [r["similarity"] for r in host], rtol=1e-5)
+    assert (5, 70) in {(r["source"], r["target"]) for r in dev}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(4))
+def test_pagerank_on_the_card_matches_the_plain_version(cuda_device, seed):
+    """PageRank sums by atomics on the card: held to the CPU's plain torch
+    run within rtol 1e-6; the other graph ops exactly."""
+    from anorag_tpu_torch.ops import graph
+
+    rng = np.random.default_rng(seed)
+    n = 5000
+    edges = [(int(rng.integers(n)), int(rng.integers(n)), float(rng.random() * 2),
+              int(rng.integers(18))) for _ in range(4 * n)]
+    g_card = graph.build_csr(n, edges, device=cuda_device)
+    g_cpu = graph.build_csr(n, edges, device="cpu")
+    t, c = g_card.tensors(), g_cpu.tensors()
+    got = graph.pagerank(t["nbr"], t["nbr_w"])
+    assert got.is_cuda
+    torch.testing.assert_close(got.cpu(), graph.pagerank(c["nbr"], c["nbr_w"]),
+                               rtol=1e-6, atol=0)
+    cent = rng.random(n).astype(np.float32)
+    np.testing.assert_allclose(graph.k_hop_scores(g_card, [1, 7, 99], cent),
+                               graph.k_hop_scores(g_cpu, [1, 7, 99], cent), rtol=1e-6)
+    np.testing.assert_array_equal(graph.connected_components(g_card),
+                                  graph.connected_components(g_cpu))

@@ -6,10 +6,10 @@ Both make_handler(qp, engine) servers run over the same notes
 embedder, with and without a ServingEngine, on 127.0.0.1 port 0, and get
 the requests of tests/test_serve.py: /healthz, /search, /query,
 /query_batch (also above serving.stream_batch), bad requests, concurrent
-clients. Responses must be equal, scores to 1e-5. The reference's /query
-without an engine, and any /query with a qid, run its per-query pipeline
-(process()), which the port does not have: the port answers the first
-through the batched path and the second with 501.
+clients. Responses must be equal, scores to 1e-5. /query without an
+engine, and any /query with a qid, run the per-query pipeline
+(QueryProcessor.process) in both servers; /query without a qid on a
+server with an engine runs the batched path in both.
 """
 import concurrent.futures as cf
 import json
@@ -127,11 +127,11 @@ def test_search_equals_the_reference(urls, query, top_k):
 @pytest.mark.parametrize("query", [q for q, *_ in KB_QUESTIONS]
                          + ["Who is the director of Silent River?"])
 def test_query_equals_the_reference_engine(urls, kind, query):
-    """The port's /query, with an engine or without, against the
-    reference's /query through its engine (the batched path)."""
+    """The port's /query, with an engine (the batched path) or without
+    (process()), against the reference's server of the same kind."""
     payload = {"query": query, "top_k": 4}
     code, got = _post(urls["port"][kind] + "/query", payload)
-    want_code, want = _post(urls["ref"]["engine"] + "/query", payload)
+    want_code, want = _post(urls["ref"][kind] + "/query", payload)
     assert code == want_code == 200
     _same_answer(got, want)
     expected = {q: a for q, a, *_ in KB_QUESTIONS}.get(query)
@@ -140,10 +140,34 @@ def test_query_equals_the_reference_engine(urls, kind, query):
 
 
 @pytest.mark.parametrize("kind", ["plain", "engine"])
-def test_query_with_a_qid_is_not_served_by_the_batched_path(urls, kind):
-    code, body = _post(urls["port"][kind] + "/query", {"query": BLUE, "qid": "q1"})
-    assert code == 501 and "process" in body["error"]
-    assert "answer" not in body
+@pytest.mark.parametrize("query", [q for q, *_ in KB_QUESTIONS]
+                         + ["Who is the director of Silent River?"])
+def test_query_with_a_qid_runs_process_as_the_reference(urls, kind, query):
+    """/query with a qid runs process() in both servers, with an engine or
+    without: the reference's answer, support, method and notes."""
+    payload = {"query": query, "qid": "q1", "top_k": 6}
+    code, got = _post(urls["port"][kind] + "/query", payload)
+    want_code, want = _post(urls["ref"][kind] + "/query", payload)
+    assert code == want_code == 200
+    _same_answer(got, want)
+    expected = {q: a for q, a, *_ in KB_QUESTIONS}.get(query)
+    assert expected is None or got["answer"] == expected
+
+
+@pytest.mark.parametrize("dataset", [None, "ds1"])
+def test_query_without_an_engine_is_process(urls, dataset):
+    """/query on the server without an engine answers as
+    QueryProcessor.process does, on the reference's server as on the
+    port's, with a dataset too (notes without one count as in it); a qid
+    changes nothing."""
+    for query in [q for q, *_ in KB_QUESTIONS] + ["Who founded Nexus Labs?"]:
+        payload = {"query": query, "top_k": 5, "dataset": dataset}
+        code, got = _post(urls["port"]["plain"] + "/query", payload)
+        assert (code, got) == _post(urls["port"]["plain"] + "/query",
+                                    {**payload, "qid": "q2"})
+        want_code, want = _post(urls["ref"]["plain"] + "/query", payload)
+        assert code == want_code == 200
+        _same_answer(got, want)
 
 
 @pytest.mark.parametrize("kind", ["plain", "engine"])

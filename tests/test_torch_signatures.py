@@ -19,6 +19,11 @@ from anorag_tpu.index import vector_index as jvi
 from anorag_tpu.ops import bm25 as jbm25
 from anorag_tpu.ops import ivf as jivf
 from anorag_tpu.ops import topk as jtopk
+from anorag_tpu.graph import builder as jbuild
+from anorag_tpu.graph import graph_index as jgi
+from anorag_tpu.graph import multi_hop as jmh
+from anorag_tpu.graph import relation_extractor as jrel
+from anorag_tpu.ops import graph as jgraph
 from anorag_tpu.query import processor as jproc
 from anorag_tpu.retrieval import retriever as jret
 from anorag_tpu import serving as jserving
@@ -28,6 +33,11 @@ from anorag_tpu_torch.index import vector_index as tvi
 from anorag_tpu_torch.ops import bm25 as tbm25
 from anorag_tpu_torch.ops import ivf as tivf
 from anorag_tpu_torch.ops import topk as ttopk
+from anorag_tpu_torch.graph import builder as tbuild
+from anorag_tpu_torch.graph import graph_index as tgi
+from anorag_tpu_torch.graph import multi_hop as tmh
+from anorag_tpu_torch.graph import relation_extractor as trel
+from anorag_tpu_torch.ops import graph as tgraph
 from anorag_tpu_torch.query import processor as tproc
 from anorag_tpu_torch.retrieval import retriever as tret
 from anorag_tpu_torch import serve as tserve
@@ -54,12 +64,9 @@ PALLAS_ONLY = {
 
 # Parameters the port takes, so that a call written for the reference
 # binds the same, but refuses (NotImplementedError) until the stage that
-# reads them is ported, by the function that takes them.
-DEFERRED = {
-    ("QueryProcessor.__init__", "graph_file"):
-        "the note graph file of the per-query pipeline (process()), which "
-        "is not ported yet",
-}
+# reads them is ported, by the function that takes them. None is left:
+# graph_file, the last, feeds process() since it was ported.
+DEFERRED = {}
 
 # (label, reference callable, port callable)
 PAIRS = [
@@ -72,7 +79,22 @@ PAIRS = [
                 "hybrid_search_dispatch", "hybrid_search_finalize")],
     *[(f"QueryProcessor.{m}", getattr(jproc.QueryProcessor, m),
        getattr(tproc.QueryProcessor, m))
-      for m in ("__init__", "process_batch", "process_stream")],
+      for m in ("__init__", "process", "process_batch", "process_stream")],
+    *[(f"{cls}.{m}", getattr(jcls, m), getattr(tcls, m))
+      for cls, jcls, tcls in (
+          ("GraphIndex", jgi.GraphIndex, tgi.GraphIndex),
+          ("GraphBuilder", jbuild.GraphBuilder, tbuild.GraphBuilder),
+          ("RelationExtractor", jrel.RelationExtractor, trel.RelationExtractor),
+          ("MultiHopQueryProcessor", jmh.MultiHopQueryProcessor,
+           tmh.MultiHopQueryProcessor))
+      for m in ("__init__", *{"GraphIndex": ("build_index", "save", "load"),
+                              "GraphBuilder": ("build_graph",),
+                              "RelationExtractor": ("extract_all_relations",),
+                              "MultiHopQueryProcessor": ("retrieve",)}[cls])],
+    *[(name, getattr(jgraph, name), getattr(tgraph, name))
+      for name in ("build_csr", "pagerank", "k_hop_distances", "k_hop_scores",
+                   "k_hop_frontier", "connected_components",
+                   "path_score_components")],
     *[(f"serve.{name}", getattr(jserve, name), getattr(tserve, name))
       for name in ("build_processor", "make_handler", "main")],
     *[(f"ServingEngine.{m}", getattr(jserving.ServingEngine, m),
@@ -143,11 +165,13 @@ def test_query_processor_takes_the_reference_parameters_in_order():
 
 
 def test_deferred_parameters_are_refused():
+    """No parameter is deferred any more: graph_file, the last, is taken
+    as the reference takes it (a missing file builds the graph)."""
     notes = [{"note_id": "a", "content": "alpha beta"}]
     cfg = {"embedding": {"backend": "hash", "dim": 16}}
-    with pytest.raises(NotImplementedError, match="process"):
-        tproc.QueryProcessor(notes, None, "graph.json", cfg=cfg, device="cpu")
-    assert set(DEFERRED) == {("QueryProcessor.__init__", "graph_file")}
+    qp = tproc.QueryProcessor(notes, None, "no_such_graph.json", cfg=cfg, device="cpu")
+    assert qp.multi_hop.graph_index.notes[0]["note_id"] == "a"
+    assert DEFERRED == {}
 
 
 def test_vector_index_keeps_the_reference_options():
