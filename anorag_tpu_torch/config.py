@@ -2,10 +2,14 @@
 
 Counterpart of the subset of anorag_tpu/config/defaults.py that the batched
 hybrid query, the dense search, the answer stages, the per-query pipeline
-(QueryProcessor.process) and the HTTP server read.
+(QueryProcessor.process), the LLM layer (llm/) and the HTTP servers read.
 A config is a nested dict (for example one loaded from the repo's YAML
 files); `Config` merges it over these defaults and answers dotted lookups
-and sets, as anorag_tpu's ConfigLoader.get and set do.
+and sets, as anorag_tpu's ConfigLoader.get and set do. `config` is the
+module's default instance, the counterpart of anorag_tpu.config.config,
+which the LLM layer falls back to when given no config; it holds the
+defaults alone (the reference's also reads config.yaml from the working
+directory).
 """
 from __future__ import annotations
 
@@ -52,6 +56,37 @@ DEFAULTS = {
         "force_insufficient_if_no_spans": True,
     },
     "retry": {"max_times": 1},
+    # the LLM layer (llm/local_llm.py, llm/factory.py, llm/multi_model.py)
+    "llm": {
+        "provider": "openai",
+        "model": "gpt-3.5-turbo",
+        "temperature": 0.7,
+        "max_output_tokens": 512,
+        "openai": {"api_key": "", "base_url": "https://api.openai.com/v1"},
+        "ollama": {"base_url": "http://localhost:11434", "model": "qwen2.5:latest",
+                   "timeout": 30},
+        "lmstudio": {"base_url": "http://localhost:1234/v1"},
+        "local_model": {"temperature": 0.7, "max_tokens": 512},
+        "hybrid_llm": {
+            "mode": "task_division",
+            "light_tasks": {
+                "provider": "ollama",
+                "model": "qwen2.5:latest",
+                "base_url": "http://localhost:11434",
+                "timeout": 30,
+                "max_async": 4,
+                "num_ctx": 4096,
+                "temperature": 0.1,
+            },
+            "heavy_tasks": {
+                "provider": "lmstudio",
+                "model": "openai/gpt-oss-20b",
+                "base_url": "http://localhost:1234/v1",
+                "instances": 2,
+                "timeout": 60,
+            },
+        },
+    },
     "validator": {"allow_partial": True},
     "answer_selector": {"enabled": True, "anchor_top_k": 5, "apply_before_llm": True},
     "hybrid_search": {
@@ -170,3 +205,6 @@ class Config:
 
 def as_config(cfg: Any) -> Config:
     return cfg if isinstance(cfg, Config) else Config(cfg)
+
+
+config = Config()

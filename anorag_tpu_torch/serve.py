@@ -16,8 +16,9 @@ serves
 /query with a "qid", or on a server without an engine (tests), runs the
 per-query pipeline (QueryProcessor.process) under a lock; /query without
 a qid on a server with an engine goes through the engine's batched path,
-as the reference's /query does. The port has no LLM client yet, so --llm
-is refused.
+as the reference's /query does. --llm wires the configured LLM (LocalLLM;
+with `llm.provider: jax` the decoder LM of `llm.jax.model` on the same
+device as the KB), and drops it when it is not available.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ from pathlib import Path
 
 import numpy as np
 
-from anorag_tpu_torch.config import Config
+from anorag_tpu_torch.config import Config, as_config
 from anorag_tpu_torch.utils.file_io import latest_work_dir, read_json
 from anorag_tpu_torch.utils.logging import get_logger, setup_logging
 
@@ -39,21 +40,30 @@ logger = get_logger("anorag.serve")
 def build_processor(work_dir: str, no_llm: bool = True, cfg=None, device=None):
     """A QueryProcessor over the KB in `work_dir`: atomic_notes.json and,
     when present, embeddings.npy and the note graph graph.json (built from
-    the notes when absent)."""
+    the notes when absent); with no_llm False, the configured LLM
+    (LocalLLM on `device`) when it is available."""
     from anorag_tpu_torch.query.processor import QueryProcessor
 
-    if not no_llm:
-        raise NotImplementedError("the port has no LLM client yet "
-                                  "(anorag_tpu/llm/local_llm.py is not ported)")
+    cfg = as_config(cfg)
     work = Path(work_dir)
     notes = read_json(work / "atomic_notes.json")
     emb_path = work / "embeddings.npy"
     embeddings = np.load(emb_path) if emb_path.exists() else None
     graph_file = work / "graph.json"
+    llm = None
+    if not no_llm:
+        from anorag_tpu_torch.llm.local_llm import LocalLLM
+
+        llm = LocalLLM(cfg=cfg, device=device)
+        if not llm.is_available():
+            logger.warning("the configured LLM (llm.provider %s) is not "
+                           "available; answering without it",
+                           llm.cfg.get("llm.provider"))
+            llm = None
     return QueryProcessor(
         notes, embeddings=embeddings,
         graph_file=str(graph_file) if graph_file.exists() else None,
-        cfg=cfg, device=device)
+        llm=llm, cfg=cfg, device=device)
 
 
 def make_handler(qp, engine=None):
@@ -175,7 +185,8 @@ def main(argv=None) -> int:
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8080)
     ap.add_argument("--llm", action="store_true", help="wire the configured LLM "
-                    "(not ported yet: refused)")
+                    "(llm.provider; jax: the decoder LM of llm.jax.model on "
+                    "--device)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)

@@ -482,3 +482,74 @@ def kb_notes(id_prefix: str = "") -> list:
             "entities": list(ents), "paragraph_idxs": [pidx], **extra,
         })
     return notes
+
+
+# ------------------------------------------------------- the decoder LM
+# checkpoints/note_lm_tpu_large's shape (10.8M parameters): the card runs
+# seeded weights at it, since checkpoints/ stays off the card's machine
+NOTE_LM_TPU_LARGE = {"vocab_size": 384, "hidden_size": 384, "num_layers": 6,
+                     "num_heads": 8, "intermediate_size": 1536, "max_len": 2048}
+
+
+def decoder_parity(params, b: int, steps: int = 64, pb: int = 256, seed: int = 0,
+                   atol: float = 1e-4, margin: float = 1e-3) -> dict:
+    """The decoder on params' device against the same weights on the CPU:
+    b seeded prompts left-padded to pb, prefill and `steps` decode steps,
+    each fed the CPU's emitted token; every step's logits finite and within
+    `atol`; then generate's greedy tokens on the device equal to the CPU's,
+    each row up to its first step whose top-2 margin on the CPU is under
+    `margin` (an f32 rounding difference may pick the other token there).
+    Raises AssertionError; returns max_abs_err, the steps compared (the
+    least over rows) and the rows cut short by a near tie."""
+    import torch
+
+    from anorag_tpu_torch.models import decoder_lm as dlm
+
+    cfg = params.cfg
+    host = dlm.DecoderParams(cfg, torch.device("cpu"))
+    host.load_state_dict(params.state_dict())
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(pb // 4, pb + 1, b)
+    ids = np.full((b, pb), dlm.PAD_ID, np.int32)
+    for i, n in enumerate(lens):
+        ids[i, pb - n] = dlm.BOS_ID
+        ids[i, pb - n + 1:] = rng.integers(dlm._BYTE0 + 32, dlm._BYTE0 + 127, n - 1)
+    pad = (pb - lens).astype(np.int32)
+    ids_h, pad_h = torch.from_numpy(ids), torch.from_numpy(pad)
+    ids_c, pad_c = ids_h.to(params.device), pad_h.to(params.device)
+    err = 0.0
+
+    def check(got, want, what):
+        nonlocal err
+        got = got.cpu()
+        if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+            raise AssertionError(f"decoder {what}: logits not finite")
+        err = max(err, float((got - want).abs().max()))
+        if err > atol:
+            raise AssertionError(f"decoder {what}: logits off by {err:.3g} > {atol}")
+
+    lh, cache_h = dlm._prefill(host, ids_h, pad_h, cfg)
+    lc, cache_c = dlm._prefill(params, ids_c, pad_c, cfg)
+    check(lc, lh, f"prefill at ({b}, {pb})")
+    emitted, cut = [], np.full(b, steps)
+    done = torch.zeros(b, dtype=torch.bool)
+    for i in range(steps):
+        masked = dlm._mask_unused(lh)
+        top2 = masked.topk(2, dim=-1).values
+        near = ((top2[:, 0] - top2[:, 1]) < margin).numpy()
+        cut = np.where(near & (cut == steps), i, cut)
+        tok = masked.argmax(-1).to(torch.int32)
+        done |= tok == dlm.EOS_ID
+        emit = torch.where(done, dlm.PAD_ID, tok)
+        emitted.append(emit)
+        lh = dlm._decode_step(host, emit, pb + i, pad_h, cache_h, cfg)
+        lc = dlm._decode_step(params, emit.to(params.device), pb + i, pad_c, cache_c, cfg)
+        check(lc, lh, f"decode step {i} at ({b}, {pb})")
+    got = dlm.generate(params, ids_c, pad_c, cfg, steps).cpu()
+    want = torch.stack(emitted, 1)
+    for r in range(b):
+        if not torch.equal(got[r, :cut[r]], want[r, :cut[r]]):
+            raise AssertionError(f"decoder greedy tokens differ in row {r} of {b} "
+                                 f"within the first {cut[r]} steps")
+    return {"max_abs_err": err, "steps_compared": int(cut.min()),
+            "near_ties": int((cut < steps).sum())}

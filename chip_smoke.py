@@ -114,7 +114,33 @@ Phases, each printing its seconds:
                 latency (median, p90) and each stage's host time; one
                 process() under torch.profiler (device busy time, idle
                 share);
-  11. http   -- the port's HTTP server (anorag_tpu_torch/serve.py) on
+  11. llm    -- the LLM layer and the decoder LM: seeded weights at
+                checkpoints/note_lm_tpu_large's shape (6 layers, hidden 384,
+                8 heads, FFN 1536, max_len 2048; f32) written with save_lm
+                into a temporary directory; prefill and 64 decode steps on
+                the card against the CPU at B 1 and 8 (logits to atol 1e-4,
+                greedy tokens equal: testing.decoder_parity); prefill ms at
+                B 1 and 8, pb 256 and 1024, a decode step's device and wall
+                ms and generated bytes/s beside its bound (the weights and
+                all max_len K/V columns over HBM bandwidth); setup's KB
+                written as a work dir (atomic_notes.json, embeddings.npy,
+                graph.json) and served by serve.build_processor(no_llm=
+                False) with llm.provider jax and answer_selector.
+                apply_before_llm off (LocalLLM -> LLMFactory -> the decoder
+                provider), llm.max_output_tokens 64 (256 decode steps a
+                call); the KB questions and 5 Zipf queries through
+                process() (host s a query by stage, the LLM's share; the KB
+                answers equal to the same processor's without the LLM where
+                EFSA rescues them), one request of 8 through a
+                ServingEngine, one /query over HTTP at the config's 512
+                tokens (1,024 steps a call at pb 1,024), 8 concurrent
+                OllamaClient requests to serve_llm's batcher (one batch);
+                every query that reaches the LLM stage answered by method
+                llm, the LLM called in every part, every decode step's
+                logits finite, hand kernels' launches counted from 0 (the
+                served request's window winners); one process() profiled
+                at llm.max_output_tokens 16 (idle share);
+  12. http   -- the port's HTTP server (anorag_tpu_torch/serve.py) on
                 127.0.0.1 over the same QueryProcessor, its engine at the
                 config defaults (sub-batch 64, depth 3): /healthz; /search
                 with a KB question gives qp.retriever.retrieve's note ids;
@@ -125,7 +151,7 @@ Phases, each printing its seconds:
                 the KB answers; each call's latency, and how many of
                 request 0's answers equal the serve phase's (they may
                 differ only where the 64-query batches' note lists do);
-  12. search -- a VectorRetriever with use_kernel=True over the same notes
+  13. search -- a VectorRetriever with use_kernel=True over the same notes
                 and embeddings: search for one 512-query request at top_k
                 20 and retrieve for 32 single queries at top_k 10 (fetch 30,
                 the /search endpoint's traffic); the top-k kernel's
@@ -134,12 +160,12 @@ Phases, each printing its seconds:
                 (use_kernel None: chunked matmul + exact top-k, what
                 QueryProcessor's retriever takes below 5,000,000 notes),
                 its scores equal to the kernel route's to 1e-5;
-  13. bench  -- the port's benchmark entry point in-process
+  14. bench  -- the port's benchmark entry point in-process
                 (anorag_tpu_torch/bench.py): kernel_parity, bench_hybrid at
                 200,000 docs with its recall gate (recall@10 against exact
                 f32 at least 0.985) and bench_encoder, their JSON on one
                 line; every kernel they reach, counted from 0, launched;
-  14. ivf    -- a default VectorIndex(index_type="IVFFlat") (nlist 20,
+  15. ivf    -- a default VectorIndex(index_type="IVFFlat") (nlist 20,
                 nprobe 4, 15 k-means rounds) over 5,000,000 x 1024 rows
                 drawn on the card around 1,000 centres: build time, 4
                 batches of 512 queries at top_k 20 and 64 single queries at
@@ -1776,6 +1802,466 @@ def _process_phase(dev, qp, graph_times: dict, build_launches: int, rng, words,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms), kb
 
 
+# the llm phase: the decoder LM at checkpoints/note_lm_tpu_large's shape
+LLM_ZIPF = 5                   # Zipf queries through process() with the LLM
+LLM_SERVED = 8                 # queries of the request served with the LLM
+LLM_CONCURRENT = 8             # concurrent requests to serve_llm
+LLM_SERVE_MAX_NEW = 512        # serve_llm's byte budget (its --max-new default)
+# llm.max_output_tokens (the provider generates 4 bytes a token) of the
+# process() and served runs; /query runs at the config's 512 (1,024 steps
+# at pb 1,024); the profiled process() at 16
+LLM_MAX_OUTPUT_TOKENS = 64
+LLM_PROFILED_TOKENS = 16
+
+
+class _DecodeWatch:
+    """decoder_lm._decode_step wrapped while the pipeline runs: counts the
+    steps and the rows they decode, and keeps on the card the count of
+    logits that were not finite (read once, at the end)."""
+
+    def __init__(self, dlm, dev):
+        import torch
+
+        self.dlm, self.inner = dlm, dlm._decode_step
+        self.steps = self.rows = 0
+        self.bad = torch.zeros((), dtype=torch.int64, device=dev)
+        dlm._decode_step = self
+
+    def __call__(self, params, tok, *args, **kwargs):
+        import torch
+
+        logits = self.inner(params, tok, *args, **kwargs)
+        self.steps += 1
+        self.rows += tok.shape[0]
+        self.bad += (~torch.isfinite(logits)).sum()
+        return logits
+
+    def close(self) -> int:
+        self.dlm._decode_step = self.inner
+        return int(self.bad)
+
+
+def _write_work_dir(work, qp, notes) -> dict:
+    """The KB files serve.build_processor reads, from setup's processor:
+    atomic_notes.json, embeddings.npy (f32) and graph.json (the graph the
+    constructor built, without its embeddings sidecar: the processor's
+    embeddings take their place). Returns the seconds of each."""
+    import numpy as np
+
+    from anorag_tpu_torch.utils.file_io import write_json
+
+    times = {}
+    t0 = time.perf_counter()
+    write_json(work / "atomic_notes.json", notes)
+    times["atomic_notes.json"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    np.save(work / "embeddings.npy", qp.embeddings.cpu().numpy())
+    times["embeddings.npy"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gi = qp.multi_hop.graph_index
+    emb, gi.embeddings = gi.embeddings, None
+    try:
+        gi.save(work / "graph.json")
+    finally:
+        gi.embeddings = emb
+    times["graph.json"] = time.perf_counter() - t0
+    return times
+
+
+def _profiled_ms(dev, fn, reps: int) -> tuple:
+    """(wall ms, device busy ms, device kernels) a call of fn(), over `reps`
+    calls after one warm call: the host clock around the calls, the card
+    synchronised; then the device's busy time (the union of its kernels'
+    intervals) from torch.profiler over `reps` more calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize(dev)
+    on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = _busy_ms(on_card) if on_card else float("nan")
+    return 1e3 * wall / reps, busy / reps, len(on_card) / reps
+
+
+def _llm_timings(dev, params, cfg, smi_line: str) -> None:
+    """Prefill and decode at B 1 and 8 on seeded prompts: prefill at pb 256
+    and 1024 and a decode step (at position 256, over a pb-256 cache), each
+    as wall ms (host clock, synchronised) and device busy ms
+    (torch.profiler); `generate` for 256 steps at pb 256 (wall, the steps
+    it ran counted), generated bytes/s; against a step's bound: the
+    weights and all max_len K/V columns it reads (the reference's step
+    attends over all of them) over HBM bandwidth."""
+    import numpy as np
+    import torch
+
+    from anorag_tpu_torch.models import decoder_lm as dlm
+
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    rng = np.random.default_rng(7)
+    for b in (1, 8):
+        line = []
+        for pb in (256, 1024):
+            ids = torch.from_numpy(rng.integers(dlm._BYTE0 + 32, dlm._BYTE0 + 127,
+                                                (b, pb)).astype(np.int32)).to(dev)
+            pad = torch.zeros(b, dtype=torch.int32, device=dev)
+            wall_ms, busy_ms, _ = _profiled_ms(
+                dev, lambda: dlm._prefill(params, ids, pad, cfg), reps=5)
+            line.append(f"prefill pb {pb} {wall_ms:.4f} ms wall, {busy_ms:.4f} device")
+        ids = ids[:, -256:].contiguous()
+        _, cache = dlm._prefill(params, ids, pad, cfg)
+        rope = dlm._rope_tables(torch.arange(cfg.max_len, device=dev), cfg.head_dim)
+        tok = ids[:, -1]
+        step_wall, step_busy, kernels = _profiled_ms(
+            dev, lambda: dlm._decode_step(params, tok, 256, pad, cache, cfg, rope), reps=16)
+        steps, ran = 256, []
+        inner = dlm._decode_step
+        dlm._decode_step = lambda *a: ran.append(1) or inner(*a)
+        try:
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = dlm.generate(params, ids, pad, cfg, steps)
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+        finally:
+            dlm._decode_step = inner
+        emitted = int((out != dlm.PAD_ID).sum())
+        kv_bytes = cfg.num_layers * 2 * b * cfg.max_len * cfg.hidden_size * 4
+        bound_ms = 1e3 * (weight_bytes + kv_bytes) / HBM_BYTES_PER_S
+        gen_ms = 1e3 * wall / len(ran)
+        print(f"decoder B {b}: {'; '.join(line)}; a decode step {step_wall:.4f} ms wall, "
+              f"{step_busy:.4f} ms device busy, {kernels:.0f} kernels; in generate "
+              f"{gen_ms:.4f} ms a step (wall, {len(ran)} steps), {emitted / wall:.1f} "
+              f"generated bytes/s; a step's bound {bound_ms:.4f} ms (bytes: weights "
+              f"{weight_bytes / 1e6:.1f} MB + K/V {kv_bytes / 1e6:.1f} MB): generate "
+              f"{gen_ms / bound_ms:.1f}x the bound, device busy "
+              f"{step_busy / bound_ms:.1f}x | {smi_line}", flush=True)
+
+
+def _post_json(url: str, payload: dict) -> dict:
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=900) as r:
+        if r.status != 200:
+            raise AssertionError(f"{url}: HTTP {r.status}")
+        return json.loads(r.read())
+
+
+def _serve_llm_burst(dev, ckpt, cfg, smi_line: str) -> dict:
+    """serve_llm's batcher and handler (what `python -m
+    anorag_tpu_torch.serve_llm --model ckpt` runs) on 127.0.0.1 with the
+    checkpoint read back on the card; LLM_CONCURRENT OllamaClients post at
+    once; one batch must serve them all. Returns the part's numbers."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+    from http.server import ThreadingHTTPServer
+
+    from anorag_tpu_torch import serve_llm
+    from anorag_tpu_torch.llm.clients import OllamaClient
+    from anorag_tpu_torch.models import decoder_lm as dlm
+
+    params, _ = dlm.load_lm(ckpt, device=dev)
+    lm = dlm.DecoderLM(params, cfg, prompt_bucket=cfg.max_len // 2)
+    # the window only waits while fewer than LLM_CONCURRENT have come
+    batcher = serve_llm.MicroBatcher(lm, LLM_CONCURRENT, LLM_SERVE_MAX_NEW, window_s=5.0)
+    server = ThreadingHTTPServer(("127.0.0.1", 0), serve_llm.make_handler(batcher, "note-lm"))
+    thread = threading.Thread(target=server.serve_forever, name="serve-llm-smoke")
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    clients = [OllamaClient(base_url=url, model="note-lm", timeout=900)
+               for _ in range(LLM_CONCURRENT)]
+    start = threading.Barrier(LLM_CONCURRENT)
+
+    def ask(i):
+        start.wait()
+        t0 = time.perf_counter()
+        text = clients[i].generate(f"Who is note {i} about?", system_prompt="Answer.",
+                                   max_tokens=LLM_SERVE_MAX_NEW // 4)
+        return text, time.perf_counter() - t0
+
+    try:
+        if not clients[0].is_available():
+            raise AssertionError("serve_llm: the health ping failed")
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(LLM_CONCURRENT) as ex:
+            got = list(ex.map(ask, range(LLM_CONCURRENT)))
+        wall = time.perf_counter() - t0
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(60)
+        batcher.close()
+    stats = dict(batcher.stats)
+    calls = sum(c.stats["calls"] for c in clients)
+    if (stats["requests"], stats["batches"], stats["errors"]) != (LLM_CONCURRENT, 1, 0) \
+            or any(c.stats["errors"] for c in clients):
+        raise AssertionError(f"serve_llm: batcher {stats}, client calls {calls}, "
+                             f"texts {[len(t) for t, _ in got]}")
+    lat = sorted(dt for _, dt in got)
+    print(f"serve_llm: {LLM_CONCURRENT} concurrent OllamaClient requests in "
+          f"{stats['batches']} batch of {stats['requests']} (max_new "
+          f"{LLM_SERVE_MAX_NEW}, prompt bucket {cfg.max_len // 2}): latency median "
+          f"{lat[len(lat) // 2]:.4f} s, max {lat[-1]:.4f} s, generate {stats['gen_s']:.4f} "
+          f"s, wall {wall:.4f} s; {sum(len(t.encode()) for t, _ in got)} bytes "
+          f"returned | {smi_line}", flush=True)
+    return {"s": wall, "calls": calls}
+
+
+def _llm_phase(dev, qp, notes, words, rng, seed: int, smi_line: str) -> None:
+    """The LLM layer and the decoder on the card: seeded weights at
+    checkpoints/note_lm_tpu_large's shape written with save_lm; the decoder
+    against the CPU (testing.decoder_parity) and timed; a work dir of
+    setup's KB served through serve.build_processor(no_llm=False) with a
+    config naming llm.provider jax (LocalLLM -> LLMFactory -> the decoder
+    provider); the KB questions and Zipf queries through process(), one
+    request through a ServingEngine, one /query over HTTP, concurrent
+    requests to serve_llm through OllamaClient; one process() profiled.
+    Every decode step's logits finite, every query that reaches the LLM
+    stage answered by method llm, the LLM called in every part, the KB
+    answers EFSA's wherever it rescues them, hand kernels launched."""
+    import copy
+    import tempfile
+    import threading
+    from http.server import ThreadingHTTPServer
+    from pathlib import Path
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from anorag_tpu_torch import serve
+    from anorag_tpu_torch.models import decoder_lm as dlm
+    from anorag_tpu_torch.ops import bm25, ivf, topk
+    from anorag_tpu_torch.query import processor
+    from anorag_tpu_torch.serving import ServingEngine
+    from anorag_tpu_torch.testing import KB_QUESTIONS, NOTE_LM_TPU_LARGE, decoder_parity
+
+    counted = (bm25.window_winners, bm25.segment_totals, bm25.segment_winners,
+               topk.dense_topk_kernel, topk.bucket_winners, topk.bucket_merge,
+               ivf.ivf_scan, ivf.ivf_work_plan)
+    cfg = dlm.DecoderConfig(**NOTE_LM_TPU_LARGE)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_llm_") as tmp:
+        tmp = Path(tmp)
+        # 1. seeded weights, written as a checkpoint
+        t0 = time.perf_counter()
+        params = dlm.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+        dlm.save_lm(tmp / "lm", params, cfg)
+        print(f"decoder: {sum(p.numel() for p in params.parameters())} parameters at "
+              f"note_lm_tpu_large's shape {NOTE_LM_TPU_LARGE}, seeded and saved in "
+              f"{time.perf_counter() - t0:.2f} s | {smi_line}", flush=True)
+
+        # 2. the card against the CPU, then timed
+        for b in (1, 8):
+            out = decoder_parity(params, b, steps=64, pb=256, seed=seed + b)
+            print(f"decoder on the card against the CPU at B {b}, pb 256: prefill and "
+                  f"64 decode steps, logits max abs err {out['max_abs_err']:.3g} (atol "
+                  f"1e-4), greedy tokens equal over {out['steps_compared']} steps "
+                  f"({out['near_ties']} rows cut short by a near tie) | {smi_line}",
+                  flush=True)
+        _llm_timings(dev, params, cfg, smi_line)
+        del params
+
+        # 3. the work dir and the processor with the LLM
+        work = tmp / "kb"
+        work.mkdir()
+        write_s = _write_work_dir(work, qp, notes)
+        # setup's config with the LLM: the decoder provider, and the answer
+        # selector after it (README's LLM mode; before it, it answers most
+        # queries and the LLM is never asked)
+        llm_cfg = copy.deepcopy(qp.cfg)
+        llm_cfg.set("llm.provider", "jax")
+        llm_cfg.set("llm.jax", {"model": str(tmp / "lm")})
+        llm_cfg.set("answer_selector.apply_before_llm", False)
+        full_budget = llm_cfg.get("llm.max_output_tokens")
+        llm_cfg.set("llm.max_output_tokens", LLM_MAX_OUTPUT_TOKENS)
+        t0 = time.perf_counter()
+        qp2 = serve.build_processor(str(work), no_llm=False, cfg=llm_cfg, device=dev)
+        torch.cuda.synchronize(dev)
+        build_s = time.perf_counter() - t0
+        if qp2.llm is None:
+            raise AssertionError("build_processor dropped the LLM")
+        llm, provider = qp2.llm, qp2.llm.client
+        print("work dir written (s): " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                                   write_s.items())
+              + f"; serve.build_processor(no_llm=False) {build_s:.3f} s: provider "
+              f"{type(provider).__name__} ({provider.provider_name}) on "
+              f"{provider.device}, {len(qp2.notes)} notes, "
+              f"{qp2.multi_hop.graph_index.graph.n_edges} graph edges | {smi_line}",
+              flush=True)
+
+        # 4. the pipeline runs; stage (c) and every decode step watched
+        stage_c = []
+        final_answer = processor.generate_final_answer
+
+        def watched_final_answer(llm_, query, *args, **kwargs):
+            stage_c.append(query)
+            return final_answer(llm_, query, *args, **kwargs)
+
+        processor.generate_final_answer = watched_final_answer
+        watch = _DecodeWatch(dlm, dev)
+        for fn in counted:
+            fn.launches = 0
+        parts = {}
+
+        def part(name, fn, n_queries=1):
+            calls, steps = provider.stats["calls"], watch.steps
+            t_llm = provider.stats["total_time"]
+            del stage_c[:]
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize(dev)
+            parts[name] = {"s": time.perf_counter() - t0, "n": n_queries,
+                           "calls": provider.stats["calls"] - calls,
+                           "steps": watch.steps - steps,
+                           "llm_s": provider.stats["total_time"] - t_llm,
+                           "stage_c": set(stage_c)}
+            return out
+
+        def check_methods(name, answers):
+            reached = parts[name]["stage_c"]
+            wrong = [(a["query"], a["answer_method"]) for a in answers
+                     if a["query"] in reached and a["answer_method"] != "llm"]
+            if wrong or not reached or not parts[name]["calls"]:
+                raise AssertionError(f"llm {name}: {len(reached)} queries reached the "
+                                     f"LLM stage, {parts[name]['calls']} LLM calls; "
+                                     f"answered otherwise: {wrong}")
+
+        kb_q = [q for q, *_ in KB_QUESTIONS]
+        zipf = [" ".join(words[t]) for t in _query_terms(rng, LLM_ZIPF + LLM_SERVED - 2)]
+        request = kb_q[:2] + zipf[LLM_ZIPF:]
+        stage_s: dict = {}
+        try:
+            restore = _time_process_stages(qp2, stage_s)
+            try:
+                kb = part("process KB", lambda: [qp2.process(q) for q in kb_q], len(kb_q))
+                zp = part("process Zipf", lambda: [qp2.process(q) for q in zipf[:LLM_ZIPF]],
+                          LLM_ZIPF)
+            finally:
+                restore()
+            check_methods("process KB", kb)
+            check_methods("process Zipf", zp)
+            # the KB answers without the LLM: EFSA's, which the LLM mode's
+            # rescue must give
+            qp2.llm = None
+            try:
+                alone = [qp2.process(q) for q in kb_q]
+            finally:
+                qp2.llm = llm
+            rescued = _check_llm_kb_answers(kb, alone)
+
+            routed = bm25.window_winners.launches
+            with ServingEngine(qp2, sub_batch=LLM_SERVED, depth=1) as engine:
+                served = part("served request", lambda: engine.submit(request).result(
+                    timeout=1800), LLM_SERVED)
+            routed = bm25.window_winners.launches - routed
+            check_methods("served request", served)
+            _check_answers(request, served, notes, qp2.default_top_k())
+
+            engine = ServingEngine(qp2, sub_batch=int(qp2.cfg.get("serving.stream_batch")),
+                                   depth=int(qp2.cfg.get("serving.stream_depth")))
+            server = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(qp2, engine))
+            thread = threading.Thread(target=server.serve_forever, name="http-llm-smoke")
+            thread.start()
+            qp2.cfg.set("llm.max_output_tokens", full_budget)
+            try:
+                url = f"http://127.0.0.1:{server.server_address[1]}/query"
+                body = part("http /query", lambda: _post_json(url, {"query": kb_q[1]}))
+            finally:
+                server.shutdown()
+                server.server_close()
+                thread.join(60)
+                engine.close()
+            check_methods("http /query", [{**body, "query": kb_q[1]}])
+
+            parts["serve_llm"] = _serve_llm_burst(dev, tmp / "lm", cfg, smi_line)
+
+            # one process() under torch.profiler, the LLM's budget cut
+            qp2.cfg.set("llm.max_output_tokens", LLM_PROFILED_TOKENS)
+            try:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    traced = part("profiled process", lambda: qp2.process(kb_q[1]))
+                    wall_ms = 1e3 * (time.perf_counter() - t0)
+            finally:
+                qp2.cfg.set("llm.max_output_tokens", LLM_MAX_OUTPUT_TOKENS)
+            check_methods("profiled process", [traced])
+        finally:
+            processor.generate_final_answer = final_answer
+            bad = watch.close()
+        launches = {fn.__name__: fn.launches for fn in counted if fn.launches}
+        if bad:
+            raise AssertionError(f"{bad} decode logits were not finite")
+        if not launches:
+            raise AssertionError("no hand kernel launched in the llm phase")
+        del qp2, llm, provider
+    torch.cuda.empty_cache()
+
+    for name, p in parts.items():
+        extra = f", {p['calls']} client calls"
+        if "steps" in p:
+            extra = (f", {p['calls']} LLM calls, {p['steps']} decode steps, "
+                     f"{len(p['stage_c'])} queries at the LLM stage, LLM "
+                     f"{p['llm_s']:.4f} s ({p['llm_s'] / p['s']:.4f} of it)")
+        print(f"llm {name}: {p['s']:.4f} s" + (f", {p['s'] / p['n']:.4f} s a query"
+                                               if p.get("n", 1) > 1 else "")
+              + f"{extra} | {smi_line}", flush=True)
+    n_proc = len(kb_q) + LLM_ZIPF
+    print(f"process() with the LLM, host s a query by stage: " + ", ".join(
+        f"{k} {v / n_proc:.4f}" for k, v in stage_s.items()) + f" | {smi_line}", flush=True)
+    print(f"KB answers with the LLM: " + ", ".join(
+        f"{a['answer']!r} ({a['answer_method']})" for a in kb)
+          + f"; without it (apply_before_llm off): " + ", ".join(
+              f"{a['answer']!r} ({a['answer_method']})" for a in alone)
+          + f"; rescued by EFSA with the reference tests' answer: {rescued} | {smi_line}",
+          flush=True)
+    on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if on_card:
+        busy = _busy_ms(on_card)
+        print(f"trace of one process() with the LLM (llm.max_output_tokens "
+              f"{LLM_PROFILED_TOKENS}: {parts['profiled process']['steps']} decode steps): "
+              f"wall {wall_ms:.2f} ms, device busy {busy:.2f} ms, idle share "
+              f"{1 - busy / wall_ms:.4f}, {len(on_card)} device events | {smi_line}",
+              flush=True)
+    else:
+        print("trace of one process() with the LLM: no device events recorded; idle "
+              "share not measured")
+    print(f"hand kernels launched in the llm phase (counted from 0): {launches}; "
+          f"window_winners in the served request {routed} | {smi_line}", flush=True)
+
+
+def _check_llm_kb_answers(with_llm, alone) -> dict:
+    """Each KB question: answered at the LLM stage with the answer the same
+    processor gives without the LLM (EFSA's, or insufficient information
+    when EFSA has none: the seeded model's text is no valid JSON, so the
+    rescue decides), or stopped by a gate before it with the reference
+    tests' answer. Returns, for each question the LLM stage answered,
+    whether that is the reference tests' expectation."""
+    from anorag_tpu_torch.testing import KB_QUESTIONS
+
+    rescued = {}
+    for (q, want, _, answerable), got, efsa in zip(KB_QUESTIONS, with_llm, alone):
+        if got["answer_method"] == "llm":
+            if got["answer"] != efsa["answer"] or efsa["answer_method"] not in ("efsa",
+                                                                               "none"):
+                raise AssertionError(f"{q!r}: the LLM mode answered {got['answer']!r}, "
+                                     f"without the LLM {efsa['answer']!r} by "
+                                     f"{efsa['answer_method']}")
+            rescued[q] = got["answer"] == want
+        elif (got["answer"], got["predicted_answerable"]) != (want, answerable):
+            raise AssertionError(f"{q!r} answered {got['answer']!r} by "
+                                 f"{got['answer_method']}, not {want!r}")
+    return rescued
+
+
 def run(dev, seed: int = 0):
     """All phases on device `dev`; returns (kernel numbers, nvidia-smi
     line, device name)."""
@@ -2040,16 +2526,21 @@ def run(dev, seed: int = 0):
         untime_graph()
     t = _phase("process", t)
 
-    # 11. http: the port's server at the config defaults
+    # 11. llm: the LLM layer and the decoder LM through process(), the
+    # served path, /query and serve_llm
+    _llm_phase(dev, qp, notes, words, np.random.default_rng(seed + 3), seed, smi_line)
+    t = _phase("llm", t)
+
+    # 12. http: the port's server at the config defaults
     _http_phase(qp, requests[0], responses[0], kb_process, notes, top_k, smi_line)
     t = _phase("http", t)
 
-    # 12. search: VectorRetriever.search / retrieve through the top-k kernel
+    # 13. search: VectorRetriever.search / retrieve through the top-k kernel
     dense_launches = _search_phase(dev, em, notes, retriever.index.flat_device_emb(),
                                    requests[1:3], smi_line)
     t = _phase("search", t)
 
-    # 13. bench: the port's benchmark entry point, in-process
+    # 14. bench: the port's benchmark entry point, in-process
     for name, count in _bench_phase(dev, smi_line).items():
         bucket_launches[name] += count
     idle = [name for name, count in bucket_launches.items() if count < 1]
@@ -2058,7 +2549,7 @@ def run(dev, seed: int = 0):
                              f"kernel {idle}: {bucket_launches}")
     t = _phase("bench", t)
 
-    # 14. ivf: the default IVFFlat index at 5,000,000 rows
+    # 15. ivf: the default IVFFlat index at 5,000,000 rows
     ivf_launches, ivf_err, ivf_main, plan_launches, plan_main = _ivf_phase(
         dev, seed, smi_line)
     scan_errs.append(ivf_err)

@@ -605,3 +605,21 @@ def test_pagerank_on_the_card_matches_the_plain_version(cuda_device, seed):
                                graph.k_hop_scores(g_cpu, [1, 7, 99], cent), rtol=1e-6)
     np.testing.assert_array_equal(graph.connected_components(g_card),
                                   graph.connected_components(g_cpu))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 8])
+def test_decoder_on_the_card_matches_the_cpu(cuda_device, b):
+    """The decoder LM at checkpoints/note_lm_tpu_large's shape with seeded
+    weights: prefill and 64 decode steps on the card against the CPU,
+    logits to atol 1e-4, greedy tokens equal (up to a near tie of the
+    CPU's top two, testing.decoder_parity)."""
+    from anorag_tpu_torch.models import decoder_lm as dlm
+    from anorag_tpu_torch.testing import NOTE_LM_TPU_LARGE, decoder_parity
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = dlm.DecoderConfig(**NOTE_LM_TPU_LARGE)
+    params = dlm.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                             cuda_device)
+    out = decoder_parity(params, b, steps=64, pb=256, seed=b)
+    assert out["max_abs_err"] <= 1e-4 and out["steps_compared"] >= 32, out

@@ -248,8 +248,12 @@ def test_build_processor_and_main(tmp_path, monkeypatch, capsys):
             np.random.default_rng(0).standard_normal((14, 32)).astype(np.float32))
     qp2 = tserve.build_processor(str(tmp_path), cfg=cfg, device="cpu")
     assert qp2.process_batch([BLUE])[0]["answer"] == "Chris Reed"
-    with pytest.raises(NotImplementedError, match="LLM"):
-        tserve.build_processor(str(tmp_path), no_llm=False, cfg=cfg, device="cpu")
+    # --llm with a provider that is not available (jax without a
+    # checkpoint) answers without it, as root serve.py does
+    cfg.set("llm.provider", "jax")
+    cfg.set("llm.jax.model", str(tmp_path / "no_checkpoint"))
+    assert tserve.build_processor(str(tmp_path), no_llm=False, cfg=cfg,
+                                  device="cpu").llm is None
     assert tserve.main(["--work-dir", str(tmp_path / "missing"), "--device", "cpu"]) == 1
     assert "no knowledge base" in capsys.readouterr().err
 

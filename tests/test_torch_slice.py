@@ -255,6 +255,14 @@ def test_port_runs_with_jax_blocked():
         assert out[0]["notes"][0]["note_id"] == "n7", out[0]["notes"][0]
         assert all(r["answer_method"] and "answer" in r for r in out), out
         from anorag_tpu_torch.serve import make_handler
+        from anorag_tpu_torch.serve_llm import MicroBatcher
+        from anorag_tpu_torch.llm import LocalLLM
+        from anorag_tpu_torch.models.decoder_lm import DecoderConfig, DecoderLM, init_params
+        import torch
+        cfg = DecoderConfig.tiny()
+        lm = DecoderLM(init_params(cfg, torch.Generator().manual_seed(0), "cpu"), cfg,
+                       prompt_bucket=32)
+        assert len(lm.generate(["a", "bc"], max_new=4)) == 2
         print("ok")
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
