@@ -6,8 +6,12 @@ imports nothing from anorag_tpu and nothing of JAX: the JAX package stays
 the reference that the port is tested against. Entry points run on the
 card (`device="cuda"`) unless the caller passes `device="cpu"`.
 
-The ported slice is the batched hybrid query: text in, query encoding,
-BM25 posting plan, dense + sparse candidate-union fusion, ranked notes out,
-served by ServingEngine. Its one TPU kernel, BM25 window-winners, is the
-CUDA kernel in csrc/window_winners.cu.
+The port covers the offline knowledge-base build (doc/processor.py,
+python -m anorag_tpu_torch.main process), the per-query pipeline and the
+batched hybrid query (query/processor.py), the HTTP server (serve.py) and
+the LLM layer; every TPU kernel of anorag_tpu/ops has a hand-written CUDA
+counterpart in csrc/.
 """
+
+# the reference's version: ArtifactStore stamps it into its manifests
+__version__ = "0.3.3"

@@ -2,7 +2,9 @@
 
 Counterpart of the subset of anorag_tpu/config/defaults.py that the batched
 hybrid query, the dense search, the answer stages, the per-query pipeline
-(QueryProcessor.process), the LLM layer (llm/) and the HTTP servers read.
+(QueryProcessor.process), the LLM layer (llm/), the HTTP servers and the
+offline knowledge-base build (doc/processor.py, the note generators, main.py)
+read.
 A config is a nested dict (for example one loaded from the repo's YAML
 files); `Config` merges it over these defaults and answers dotted lookups
 and sets, as anorag_tpu's ConfigLoader.get and set do. `config` is the
@@ -44,8 +46,126 @@ DEFAULTS = {
                 "use_legacy_packing": False},
     # the answer stages (query/processor.py _answer_stages)
     "graph": {"edge": {"key_match_weight": 1.5, "type_compat_weight": 1.0,
-                       "same_paragraph_bonus": 0.3}},
-    "note_keys": {"default_rel": "related_to"},
+                       "same_paragraph_bonus": 0.3},
+              # the note graph's build (doc/processor.py)
+              "relation_extraction": {"semantic_similarity_threshold": 0.7,
+                                      "max_semantic_edges_per_note": 5,
+                                      "enable_llm_relations": False, "llm_window": 10,
+                                      "max_edges_per_note": 20},
+              "pagerank": {"alpha": 0.85, "iters": 30}},
+    "note_keys": {
+        "rel_lexicon": {
+            "performed_by": ["performed by", "the performer is", "sung by", "sings",
+                             "album by", "record by", "recorded the album",
+                             "由", "演奏", "演出"],
+            "spouse_of": ["spouse", "partner", "married to", "married", "wife",
+                          "husband", " wed ", "配偶", "伴侣", "结婚"],
+            "born_in": ["born in", "was born", "birthplace", "native of", "hails from",
+                        "出生于", "出生在"],
+            "released_in": ["released in", "released", "came out in", "came out on",
+                            "put out in", "put out on", "发行于", "发行在", "发布于"],
+            "member_of": ["member of", "joined", "成员", "属于"],
+            "founded_by": ["founded by", "founded", "established by", "established",
+                           "started by", "创立", "成立", "创办"],
+            "located_in": ["located in", "capital of", "is a city in", "is a town in",
+                           "位于"],
+            "directed_by": ["directed by", "directed", "执导", "导演"],
+        },
+        "type_hints": {"album": ["(album)", "专辑"], "song": ["(song)", "歌曲"],
+                       "film": ["(film)", "电影"],
+                       "person": ["(person)", "Dr.", "先生", "女士"]},
+        "relation_type_map": {
+            "performed_by": {"head": "song", "tail": "person"},
+            "released_in": {"head": "album", "tail": "year"},
+            "born_in": {"head": "person", "tail": "place"},
+            "spouse_of": {"head": "person", "tail": "person"},
+            "member_of": {"head": "person", "tail": "organization"},
+        },
+        "fallback_splitters": [" is ", " was ", " were ", " by ", " in ", " of ",
+                               "于", "在"],
+        "default_rel": "related_to",
+        "normalize": {"strip_quotes": True, "collapse_space": True, "lower": False},
+    },
+    # the offline knowledge-base build (doc/processor.py and what it runs)
+    "system": {"device": "cuda"},
+    "storage": {
+        "work_dir": "./result/work",
+        "vector_index_path": "./result/vector_index",
+        "embedding_cache_path": "./result/embedding_cache",
+        "vector_store_path": "./result/vector_store",
+        "processed_docs_path": "./result/processed_docs",
+        "result_root": "./result",
+    },
+    "chunking": {"strategy": "sentence", "max_chunk_chars": 512, "overlap_chars": 0,
+                 "min_chunk_chars": 20},
+    "clustering": {"method": "kmeans", "n_clusters": 0, "max_clusters": 20,
+                   "min_samples": 3, "eps": None},
+    "enhanced_relation_extraction": {
+        "use_llm_extraction": False, "use_fast_model": True, "enable_topic_groups": True,
+        "enable_reasoning_paths": False, "lightweight_relations": {},
+        "consistency_check": {}},
+    "atomic_note_generation": {
+        "parallel_enabled": False,
+        "parallel_strategy": "task_division",
+        "task_division": {"enabled": True, "allocation_method": "round_robin",
+                          "enable_fallback": True, "fallback_timeout": 10},
+        "ollama": {"model": "qwen2.5:latest", "base_url": "http://localhost:11434",
+                   "timeout": 30, "temperature": 0.1, "max_async": 4},
+        "lmstudio": {"model": "qwen2.5-7b-instruct",
+                     "base_url": "http://localhost:1234/v1", "timeout": 60,
+                     "temperature": 0.1},
+        "monitoring": {"enabled": True, "log_stats": True, "export_metrics": False},
+    },
+    "notes_llm": {
+        "use_llm": True,
+        "use_v2_schema": True,
+        "stream_early_stop": True,
+        "sentinel_char": "~",
+        "enable_fast_path": True,
+        "retry_once_on_parse_error": True,
+        "shorten_on_retry_chars": 1000,
+        "min_chars": 20,
+        "max_chars": 400,
+        "min_salience": 0.3,
+        "max_notes_per_chunk": 12,
+        "max_note_chars": 200,
+        "enable_rule_fallback": True,
+        "grounding": {"enabled": True, "min_entity_len": 3,
+                      "repair": {"enabled": True, "min_ratio": 0.66,
+                                 "augment_uncovered": True, "retry": True}},
+        "entities_fallback": {"enabled": True, "min_len": 2,
+                              "types": ["PERSON", "ORG", "GPE", "WORK_OF_ART", "EVENT"]},
+        "limit": {"strategy": "bucketed",
+                  "bucket": {"by": "paragraph_idx", "quota_per_bucket": 1}},
+        "llm_params": {"temperature": 0, "top_p": 0, "max_tokens": 128,
+                       "stop": ["\n\n", "~"]},
+    },
+    "quality_filter": {"require_entities": False, "min_chars": 20, "min_salience": 0.3},
+    "note_completeness": {
+        "require_sentence_terminal": True,
+        "allowed_sentence_terminals": [".", "!", "?"],
+        "min_word_count_en": 4,
+        "min_char_count_zh": 8,
+        "verb_patterns_en": [],
+        "verb_patterns_zh": [],
+        "bad_starts_en": [],
+        "bad_starts_zh": [],
+        "require_entities": False,
+    },
+    "note_quality": {
+        "related_notes": {"enabled": False, "similarity_threshold": 0.75,
+                          "max_related_notes": 5},
+        "noise_filter": {"enabled": False, "usefulness_threshold": 0.65,
+                         "min_content_length": 20},
+    },
+    "evaluation": {
+        "coverage_thresholds": {"warning": 0.7, "critical": 0.5},
+        "coverage_report_path": "debug/coverage_report.json",
+        "coverage": {"enabled": False, "threshold": 0.6, "min_sentence_tokens": 6,
+                     "critical_threshold": 0.5,
+                     "report_path": "debug/coverage_report.json",
+                     "missing_sentences_path": "debug/missing_sentences.jsonl"},
+    },
     "multi_hop": {"max_hops": 4, "beam_size": 8, "branch_factor": 6},
     "answering": {
         "rel_chains": [["performed_by", "spouse_of"]],

@@ -4,12 +4,13 @@ Counterpart of anorag_tpu/index/vector_index.py: the constructor, _preprocess
 (:122), add (:131), _effective_nlist (:138), _effective_type (:146), the
 Flat and IVFFlat branches of _materialize (:164, :214-217), search (:221),
 the Flat and IVFFlat branches of search_arrays (:238, :256-259, :309-313),
-reconstruct (:344), flat_device_emb (:347), optimize_search_params (:359)
-and measure_recall (:373). IVFFlat below ivf_min_corpus rows searches
-Flat, as in the reference. The constructor takes every option of the
-reference's; IVFPQ, LSH, HNSW, a mesh and save / load are not ported yet
-(ROADMAP: alternative indexes, the sharded branch) and raise
-NotImplementedError.
+reconstruct (:344), flat_device_emb (:347), optimize_search_params (:359),
+measure_recall (:373), save (:382) and load (:421), which write and read
+the reference's files (<path>.npz with the normalized f32 rows,
+<stem>_metadata.json). IVFFlat below ivf_min_corpus rows searches Flat, as
+in the reference. The constructor takes every option of the reference's;
+IVFPQ, LSH, HNSW and a mesh are not ported yet (ROADMAP: alternative
+indexes, the sharded branch) and raise NotImplementedError.
 
 The normalized f32 rows stay on the host, where the reference keeps
 _emb_f32; the device holds the storage-dtype copy (Flat: original order,
@@ -18,6 +19,8 @@ corpus-sized temporary forms beside them.
 """
 from __future__ import annotations
 
+import json
+from pathlib import Path
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -244,3 +247,56 @@ class VectorIndex:
         return float(np.mean([
             len(set(got[i]) & set(exact[i])) / top_k for i in range(len(q))
         ]))
+
+    # -------------------------------------------------------- persistence
+    def save(self, path) -> None:
+        """<path>.npz holds the normalized f32 rows (empty: (0, dimension)),
+        <stem>_metadata.json the options, as the reference writes them."""
+        path = Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        emb = (np.zeros((0, self.dimension), np.float32) if self._emb_f32 is None
+               else self._emb_f32.numpy())
+        np.savez_compressed(str(path.with_suffix(".npz")), embeddings=emb)
+        meta = {
+            "dimension": self.dimension,
+            "index_type": self.index_type,
+            "metric": self.metric,
+            "nlist": self.nlist,
+            "nprobe": self.nprobe,
+            "ntotal": self.ntotal,
+            "storage_dtype": self.storage_dtype,
+            "pq_m": self.pq_m,
+            "pq_rerank": self.pq_rerank,
+            "pq_impl": self.pq_impl,
+            "lsh_bits": self.lsh_bits,
+            "hnsw_m": self.hnsw_m,
+            "ef_construction": self.ef_construction,
+            "ef_search": self.ef_search,
+        }
+        with open(path.with_name(path.stem + "_metadata.json"), "w") as fh:
+            json.dump(meta, fh, indent=2)
+
+    @classmethod
+    def load(cls, path, use_kernel: Optional[bool] = None, *,
+             device: DeviceLike = None) -> "VectorIndex":
+        """The index that save wrote at `path`, on `device`; its rows are
+        taken as saved (already normalized)."""
+        path = Path(path)
+        with open(path.with_name(path.stem + "_metadata.json")) as fh:
+            meta = json.load(fh)
+        idx = cls(
+            dimension=meta["dimension"], index_type=meta["index_type"],
+            metric=meta["metric"], nlist=meta["nlist"], nprobe=meta["nprobe"],
+            storage_dtype=meta.get("storage_dtype", "bfloat16"), use_kernel=use_kernel,
+            pq_m=meta.get("pq_m", 0), pq_rerank=meta.get("pq_rerank", 0),
+            pq_impl=meta.get("pq_impl", "sketch"),
+            lsh_bits=meta.get("lsh_bits", 0), hnsw_m=meta.get("hnsw_m", 16),
+            ef_construction=meta.get("ef_construction", 200),
+            ef_search=meta.get("ef_search", 0), device=device,
+        )
+        with np.load(str(path.with_suffix(".npz"))) as data:
+            emb = data["embeddings"]
+        if len(emb):
+            idx._emb_f32 = torch.from_numpy(np.ascontiguousarray(emb, np.float32))
+            idx._dirty = True
+        return idx

@@ -1,12 +1,16 @@
 """EmbeddingManager: text -> vectors for the port.
 
-Counterpart of anorag_tpu/models/embedding_manager.py (encode_texts,
-encode_atomic_notes, encode_queries :134-165). Backends:
+Counterpart of anorag_tpu/models/embedding_manager.py (load_checkpoint
+:117, encode_texts, encode_atomic_notes, encode_queries :134-165,
+model_signature and check_signature :191-204). Backends:
   * 'torch' -- the transformer encoder (models/encoder.py); it replaces the
     reference's default 'jax' backend. Weights are drawn from a seeded
     torch.Generator unless a state_dict is loaded (load_encoder_state);
   * 'hash' -- the deterministic feature-hash embedder (host numpy).
 Unlike the reference this is a plain object, not a process-wide singleton.
+load_checkpoint reads a state dict of the port's encoder saved with
+torch.save (the one load_encoder_state takes), where the reference restores
+an orbax checkpoint of its JAX params.
 """
 from __future__ import annotations
 
@@ -20,7 +24,10 @@ from anorag_tpu_torch.device import DeviceLike, resolve_device
 from anorag_tpu_torch.models.encoder import Encoder, EncoderConfig
 from anorag_tpu_torch.models.hash_embedder import HashEmbedder
 from anorag_tpu_torch.models.tokenizer import get_tokenizer
+from anorag_tpu_torch.utils.logging import get_logger
 from anorag_tpu_torch.utils.text import note_embedding_text
+
+logger = get_logger("anorag.embedding")
 
 class EmbeddingManager:
     def __init__(self, cfg: Any = None, device: DeviceLike = None, seed: int = 0):
@@ -31,6 +38,7 @@ class EmbeddingManager:
         self.backend = emb.get("backend", "torch")
         if self.backend not in ("torch", "hash"):
             raise ValueError(f"unknown embedding backend {self.backend!r}")
+        self.model_name = emb.get("model_name", "BAAI/bge-m3")
         self.dim = emb.get("dim", 1024)
         self.batch_size = emb.get("batch_size", 64)
         self.max_length = emb.get("max_length", 512)
@@ -63,6 +71,21 @@ class EmbeddingManager:
         self._ensure_backend()
         self._encoder.load_state_dict(dict(state_dict))
 
+    def load_checkpoint(self, path: str) -> bool:
+        """Load encoder weights saved with torch.save(encoder.state_dict())
+        into the encoder on self.device; False (with a warning) for the hash
+        backend or a file that cannot be read or does not fit."""
+        self._ensure_backend()
+        if self.backend == "hash":
+            return False
+        try:
+            state = torch.load(path, map_location=self.device, weights_only=True)
+            self._encoder.load_state_dict(dict(state))
+            return True
+        except Exception as e:
+            logger.warning("checkpoint restore failed: %s", e)
+            return False
+
     # ------------------------------------------------------------ encoding
     def encode_texts(self, texts: Sequence[str]) -> torch.Tensor:
         """Batched text -> (N, dim) f32 embeddings on self.device."""
@@ -89,3 +112,19 @@ class EmbeddingManager:
     def encode_queries(self, queries: Sequence[str]) -> torch.Tensor:
         return self.encode_texts(
             [f"{self.query_prefix}{q}" if self.query_prefix else q for q in queries])
+
+    # ---------------------------------------------------------- signature
+    def model_signature(self) -> Dict[str, Any]:
+        """Identity of the embedding space; stored beside index artifacts and
+        checked on load."""
+        return {
+            "model_name": self.model_name,
+            "backend": self.backend,
+            "dim": self.dim,
+            "max_length": self.max_length,
+            "normalize": self.normalize,
+            "query_prefix": self.query_prefix,
+        }
+
+    def check_signature(self, stored: Dict[str, Any]) -> bool:
+        return stored == self.model_signature()

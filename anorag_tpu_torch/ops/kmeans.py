@@ -1,7 +1,8 @@
-"""Lloyd k-means for the IVF index.
+"""Lloyd k-means for the IVF index and the topic clustering.
 
 Counterpart of anorag_tpu/ops/kmeans.py: _kmeans_fit_np (:19), kmeans_fit
-(:58) with its Lloyd path (:68-122), and kmeans_inertia (:125). A corpus of
+(:58) with its Lloyd path (:68-122), kmeans_inertia (:125) and the elbow
+auto_k (:132). A corpus of
 at most 4096 rows on the CPU takes the numpy path, which is the reference's
 own and gives the same centroids from the same seed. Otherwise Lloyd runs on
 the tensor's device: assignment is one matmul per row chunk, the update an
@@ -112,9 +113,40 @@ def kmeans_fit(x, n_clusters: int, iters: int = 15,
 
 
 def kmeans_inertia(x, centroids, assignments) -> float:
-    """Sum of squared distances of rows to their centroids (on the host)."""
+    """Sum of squared distances of rows to their centroids: on the card for
+    a CUDA tensor (row chunks, summed in f64), else on the host
+    in numpy, as the reference computes it."""
+    if torch.is_tensor(x) and x.device.type != "cpu":
+        c = torch.as_tensor(centroids, device=x.device).float()
+        a = torch.as_tensor(assignments, device=x.device).long()
+        total = torch.zeros((), dtype=torch.float64, device=x.device)
+        for lo in range(0, x.shape[0], _ROW_CHUNK):
+            diff = x[lo:lo + _ROW_CHUNK].float() - c[a[lo:lo + _ROW_CHUNK]]
+            total += (diff * diff).sum(dtype=torch.float64)
+        return float(total)
     x, centroids, assignments = (
         t.cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
         for t in (x, centroids, assignments))
     diff = x.astype(np.float32) - centroids[assignments]
     return float(np.sum(diff * diff))
+
+
+def auto_k(x, max_k: int = 20, iters: int = 10, seed: int = 0) -> int:
+    """Elbow auto-K: fit K = 1 .. max_k with kmeans_fit on x's device and
+    pick the K where the marginal inertia reduction drops below 15% of the
+    first drop (the reference's rule, on the same fits)."""
+    n = x.shape[0]
+    max_k = max(2, min(max_k, n))
+    xs = torch.as_tensor(x)
+    inertias = []
+    ks = list(range(1, max_k + 1))
+    for k in ks:
+        c, a = kmeans_fit(xs, k, iters=iters, seed=seed)
+        inertias.append(kmeans_inertia(xs, c, a))
+    drops = [inertias[i - 1] - inertias[i] for i in range(1, len(inertias))]
+    if not drops or drops[0] <= 0:
+        return min(2, n)
+    for i, d in enumerate(drops):
+        if d < 0.15 * drops[0]:
+            return ks[i]  # K before this drop
+    return ks[-1]

@@ -1,12 +1,18 @@
 """VectorRetriever: dense search and batched hybrid dense + BM25 search
 over notes.
 
-Counterpart of anorag_tpu/retrieval/retriever.py: MISS_PENALTY,
-ENTITY_BOOST, PREDICATE_BOOST and OVERFETCH (:27-30), __init__ (:34),
-build_index (:64), search (:84), retrieve (:116), hybrid_search (:181),
-hybrid_search_dispatch (:196) and hybrid_search_finalize (:259), with the
-same dense_k / sparse_m rule, the same max_seg rule and the same sparse
-routing (ops/topk.hybrid_topk). search and retrieve go through
+Counterpart of anorag_tpu/retrieval/retriever.py, every name of it:
+MISS_PENALTY, ENTITY_BOOST, PREDICATE_BOOST and OVERFETCH (:27-30),
+__init__ (:34), build_index (:64) and _rebuild (:74), search (:84),
+retrieve (:116), hybrid_search (:181), hybrid_search_dispatch (:196) and
+hybrid_search_finalize (:259), with the same dense_k / sparse_m rule, the
+same max_seg rule and the same sparse routing (ops/topk.hybrid_topk); the
+lexical and namespace fallbacks (:280-307), add_notes / remove_notes /
+update_note (:310-340), save / load (:343-369), which write and read the
+reference's files, and optimize_retrieval_params (:372). The embeddings
+are kept as a tensor without a copy (the device rows the encoder made, or
+those a caller passed); the rows that add_notes and update_note write are
+f32, as the reference's. search and retrieve go through
 VectorIndex.search_arrays: Flat (the streaming top-k kernel with
 use_kernel=True) or IVFFlat (the IVF scan kernel).
 Dispatch only enqueues device work; finalize waits for it and builds the
@@ -16,6 +22,7 @@ batch's device work.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -26,11 +33,16 @@ from anorag_tpu_torch.index.vector_index import VectorIndex
 from anorag_tpu_torch.models.embedding_manager import EmbeddingManager
 from anorag_tpu_torch.ops.bm25 import MAX_SEG, gather_plan_sorted
 from anorag_tpu_torch.ops.topk import hybrid_topk
+from anorag_tpu_torch.utils.file_io import read_json, write_json
+from anorag_tpu_torch.utils.logging import get_logger
+
+logger = get_logger("anorag.retrieval")
 
 MISS_PENALTY = 0.6
 ENTITY_BOOST = 1.2
 PREDICATE_BOOST = 1.15
 OVERFETCH = 3
+
 
 @dataclass
 class HybridBatch:
@@ -83,6 +95,7 @@ class VectorRetriever:
         self._index_kw = dict(nlist=nlist, nprobe=nprobe, use_kernel=use_kernel,
                               mesh=mesh, **(index_params or {}))
         self.notes: List[Dict[str, Any]] = []
+        self.embeddings: Optional[torch.Tensor] = None
         self.index: Optional[VectorIndex] = None
         self._lexical: Optional[BM25Index] = None
 
@@ -92,13 +105,17 @@ class VectorRetriever:
         """Index notes; `embeddings` (N, D), numpy or a tensor, skips
         encoding them."""
         self.notes = list(notes)
-        emb = (self.em.encode_atomic_notes(self.notes) if embeddings is None
-               else embeddings)
+        self.embeddings = torch.as_tensor(
+            self.em.encode_atomic_notes(self.notes) if embeddings is None
+            else embeddings)
+        self._rebuild()
+
+    def _rebuild(self) -> None:
         self.index = VectorIndex(
-            dimension=emb.shape[1] if self.notes else self.dimension,
+            dimension=self.embeddings.shape[1] if len(self.notes) else self.dimension,
             index_type=self.index_type, device=self.device, **self._index_kw)
-        if self.notes:
-            self.index.add(emb)
+        if len(self.notes):
+            self.index.add(self.embeddings)
         self._lexical = (BM25Index(self.notes, device=self.device)
                          if self.notes else None)
 
@@ -275,3 +292,132 @@ class VectorRetriever:
                 rows.append(note)
             out.append(rows)
         return out
+
+    def _lexical_terms(self, query: str) -> List[int]:
+        return self._lexical.query_terms(query) if self._lexical else []
+
+    def lexical_fallback_search(self, query: str, top_k: int = 20) -> List[Dict[str, Any]]:
+        """Sparse fallback when dense retrieval returns nothing usable."""
+        if not self._lexical:
+            return []
+        s, idx = self._lexical.topk(query, k=top_k)
+        out = []
+        for score, i in zip(s, idx):
+            if score <= 0:
+                continue
+            note = dict(self.notes[int(i)])
+            note["similarity"] = float(score)
+            note["final_score"] = float(score)
+            note["retrieval_info"] = {"method": "lexical_fallback"}
+            out.append(note)
+        return out
+
+    def search_with_namespace_fallback(self, query: str, namespace: Optional[str],
+                                       top_k: int = 20) -> List[Dict[str, Any]]:
+        """Dense search filtered to a doc namespace; lexical fallback within
+        the namespace when empty."""
+        in_ns = (lambda c: namespace is None or str(c.get("doc_id")) == str(namespace))
+        res = self.retrieve(query, top_k=top_k, filter_fn=in_ns, threshold=0.0)
+        if not res:
+            res = [c for c in self.lexical_fallback_search(query, top_k * 2)
+                   if in_ns(c)][:top_k]
+        return res
+
+    # -------------------------------------------------------- incremental
+    def add_notes(self, new_notes: Sequence[Dict[str, Any]]) -> None:
+        if not new_notes:
+            return
+        new_emb = self.em.encode_atomic_notes(list(new_notes))
+        self.notes.extend(new_notes)
+        self.embeddings = (
+            new_emb if self.embeddings is None
+            else torch.cat([self.embeddings.float(),
+                            new_emb.to(self.embeddings.device)])
+        )
+        self._rebuild()
+
+    def remove_notes(self, note_ids: Sequence[str]) -> int:
+        drop = set(note_ids)
+        keep = [i for i, n in enumerate(self.notes) if n.get("note_id") not in drop]
+        removed = len(self.notes) - len(keep)
+        self.notes = [self.notes[i] for i in keep]
+        if self.embeddings is not None:
+            rows = torch.tensor(keep, dtype=torch.long, device=self.embeddings.device)
+            self.embeddings = self.embeddings[rows]
+        self._rebuild()
+        return removed
+
+    def update_note(self, note: Dict[str, Any]) -> bool:
+        nid = note.get("note_id")
+        for i, n in enumerate(self.notes):
+            if n.get("note_id") == nid:
+                self.notes[i] = dict(note)
+                self.embeddings = self.embeddings.float().clone()
+                self.embeddings[i] = self.em.encode_atomic_notes([note])[0].to(
+                    self.embeddings.device)
+                self._rebuild()
+                return True
+        return False
+
+    # -------------------------------------------------------- persistence
+    def save(self, data_dir) -> None:
+        d = Path(data_dir)
+        d.mkdir(parents=True, exist_ok=True)
+        write_json(d / "atomic_notes.json", self.notes)
+        np.savez_compressed(d / "note_embeddings.npz",
+                            embeddings=self.embeddings.float().cpu().numpy())
+        write_json(d / "id_mappings.json",
+                   {n.get("note_id"): i for i, n in enumerate(self.notes)})
+        write_json(d / "model_signature.json", self.em.model_signature())
+
+    def load(self, data_dir, check_signature: bool = True) -> bool:
+        d = Path(data_dir)
+        if not (d / "atomic_notes.json").exists():
+            return False
+        sig_path = d / "model_signature.json"
+        if check_signature and sig_path.exists():
+            if not self.em.check_signature(read_json(sig_path)):
+                logger.warning("model signature mismatch; refusing stale index at %s", d)
+                return False
+        self.notes = read_json(d / "atomic_notes.json")
+        with np.load(d / "note_embeddings.npz") as z:
+            self.embeddings = torch.from_numpy(z["embeddings"]).to(self.device)
+        self._rebuild()
+        return True
+
+
+def optimize_retrieval_params(
+    retriever: VectorRetriever,
+    dev_queries: Sequence[str],
+    gold_note_ids: Sequence[Sequence[str]],
+    top_k_grid: Sequence[int] = (5, 10, 20),
+    threshold_grid: Sequence[float] = (0.0, 0.2, 0.35, 0.5),
+) -> Dict[str, Any]:
+    """F1 sweep over (top_k, similarity_threshold) against labeled dev
+    queries. Applies the best setting in place."""
+    best = {"f1": -1.0, "top_k": retriever.top_k,
+            "threshold": retriever.similarity_threshold}
+    for tk in top_k_grid:
+        for th in threshold_grid:
+            f1_sum = 0.0
+            for q, gold in zip(dev_queries, gold_note_ids):
+                got = {n["note_id"] for n in
+                       retriever.retrieve(q, top_k=tk, threshold=th)}
+                gset = set(gold)
+                if not got and not gset:
+                    f1_sum += 1.0
+                    continue
+                if not got or not gset:
+                    continue
+                overlap = len(got & gset)
+                if overlap:
+                    p = overlap / len(got)
+                    r = overlap / len(gset)
+                    f1_sum += 2 * p * r / (p + r)
+            f1 = f1_sum / max(len(dev_queries), 1)
+            if f1 > best["f1"]:
+                best = {"f1": f1, "top_k": tk, "threshold": th}
+    retriever.top_k = best["top_k"]
+    retriever.similarity_threshold = best["threshold"]
+    logger.info("retrieval params tuned: %s", best)
+    return best

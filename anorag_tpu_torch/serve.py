@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import socket
 import sys
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -36,6 +37,16 @@ from anorag_tpu_torch.utils.file_io import latest_work_dir, read_json
 from anorag_tpu_torch.utils.logging import get_logger, setup_logging
 
 logger = get_logger("anorag.serve")
+
+
+class Server(ThreadingHTTPServer):
+    """ThreadingHTTPServer with a listen backlog of SOMAXCONN. The default
+    backlog (5) overflows when more clients connect at once than the
+    accepting thread takes in time, and the kernel then resets the
+    connections that do not fit."""
+
+    request_queue_size = socket.SOMAXCONN
+
 
 def build_processor(work_dir: str, no_llm: bool = True, cfg=None, device=None):
     """A QueryProcessor over the KB in `work_dir`: atomic_notes.json and,
@@ -206,7 +217,7 @@ def main(argv=None) -> int:
         depth=int(cfg.get("serving.stream_depth", 3)),
         host_workers=int(cfg.get("serving.host_workers", 1)),
     )
-    server = ThreadingHTTPServer((args.host, args.port), make_handler(qp, engine))
+    server = Server((args.host, args.port), make_handler(qp, engine))
     print(f"serving KB ({len(qp.notes)} notes) on http://{args.host}:{args.port}")
     try:
         server.serve_forever()

@@ -24,10 +24,11 @@ import json
 import queue
 import threading
 import time
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from http.server import BaseHTTPRequestHandler
 from pathlib import Path
 
 from anorag_tpu_torch.llm.decoder_client import render_prompt
+from anorag_tpu_torch.serve import Server
 
 _STOP = object()
 
@@ -231,8 +232,8 @@ def main(argv=None):
 
     batcher = MicroBatcher(lm, args.max_batch, args.max_new,
                            window_s=args.window_ms / 1000.0)
-    srv = ThreadingHTTPServer((args.host, args.port),
-                              make_handler(batcher, Path(args.model).name))
+    srv = Server((args.host, args.port),
+                 make_handler(batcher, Path(args.model).name))
     print(f"serving on http://{args.host}:{args.port} "
           f"(/api/generate, /v1/chat/completions)", flush=True)
     try:

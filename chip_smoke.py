@@ -114,7 +114,35 @@ Phases, each printing its seconds:
                 latency (median, p90) and each stage's host time; one
                 process() under torch.profiler (device busy time, idle
                 share);
-  11. llm    -- the LLM layer and the decoder LM: seeded weights at
+  11. offline -- the offline knowledge-base build of `python -m
+                anorag_tpu_torch.main process` in-process: 200 synthetic
+                MuSiQue-style items (scripts/gen_synth_musique.py, 40
+                paragraphs each, drawn from --seed in a subprocess), --no-llm,
+                the full-width encoder with seeded weights, on the card; each
+                stage timed (chunks, rule notes, embeddings, clustering with
+                its auto-K, relation extraction, the self-join and its
+                launches, build_csr, PageRank, graph.json, GraphML, the
+                consistency gate), the build traced for its idle share; the
+                counts (paragraphs, chunks, notes, clusters, edges by type);
+                gates: every artifact of result.json written, the report
+                consistent, more than 20,000 notes, the self-join's top-k
+                kernel launches equal to ceil(notes / 32,768), its top 6 on
+                512 rows against dense_topk_ref (testing.check_topk) and its
+                launch at the build's shape timed beside the plain version,
+                torch.matmul + torch.topk (f32, no TF32) and the bound; a
+                second `process` of the same file all cache hits with every
+                artifact's SHA1 unchanged; `main query`'s QueryProcessor over
+                the work dir answering the first 64 items' questions through
+                process() with the reference's keys (latency median and p90,
+                answer methods, exact match against the gold answers and
+                aliases, printed, not gated: the encoder's weights are
+                random); a VectorRetriever over the built notes and
+                embeddings: save -> load equal retrieve ids and scores (1e-6)
+                for 32 questions, 100 notes removed and added back giving the
+                same top-10 sets, the namespace fallback with one item's doc
+                id giving notes of that doc only, the lexical fallback's hits;
+                peak device memory and the host's peak RSS;
+  12. llm    -- the LLM layer and the decoder LM: seeded weights at
                 checkpoints/note_lm_tpu_large's shape (6 layers, hidden 384,
                 8 heads, FFN 1536, max_len 2048; f32) written with save_lm
                 into a temporary directory; prefill and 64 decode steps on
@@ -128,10 +156,10 @@ Phases, each printing its seconds:
                 False) with llm.provider jax and answer_selector.
                 apply_before_llm off (LocalLLM -> LLMFactory -> the decoder
                 provider), llm.max_output_tokens 64 (256 decode steps a
-                call); the KB questions and 5 Zipf queries through
+                call); the KB questions and 3 Zipf queries through
                 process() (host s a query by stage, the LLM's share; the KB
                 answers equal to the same processor's without the LLM where
-                EFSA rescues them), one request of 8 through a
+                EFSA rescues them), one request of 4 through a
                 ServingEngine, one /query over HTTP at the config's 512
                 tokens (1,024 steps a call at pb 1,024), 8 concurrent
                 OllamaClient requests to serve_llm's batcher (one batch);
@@ -140,7 +168,7 @@ Phases, each printing its seconds:
                 logits finite, hand kernels' launches counted from 0 (the
                 served request's window winners); one process() profiled
                 at llm.max_output_tokens 16 (idle share);
-  12. http   -- the port's HTTP server (anorag_tpu_torch/serve.py) on
+  13. http   -- the port's HTTP server (anorag_tpu_torch/serve.py) on
                 127.0.0.1 over the same QueryProcessor, its engine at the
                 config defaults (sub-batch 64, depth 3): /healthz; /search
                 with a KB question gives qp.retriever.retrieve's note ids;
@@ -151,7 +179,7 @@ Phases, each printing its seconds:
                 the KB answers; each call's latency, and how many of
                 request 0's answers equal the serve phase's (they may
                 differ only where the 64-query batches' note lists do);
-  13. search -- a VectorRetriever with use_kernel=True over the same notes
+  14. search -- a VectorRetriever with use_kernel=True over the same notes
                 and embeddings: search for one 512-query request at top_k
                 20 and retrieve for 32 single queries at top_k 10 (fetch 30,
                 the /search endpoint's traffic); the top-k kernel's
@@ -160,12 +188,12 @@ Phases, each printing its seconds:
                 (use_kernel None: chunked matmul + exact top-k, what
                 QueryProcessor's retriever takes below 5,000,000 notes),
                 its scores equal to the kernel route's to 1e-5;
-  14. bench  -- the port's benchmark entry point in-process
+  15. bench  -- the port's benchmark entry point in-process
                 (anorag_tpu_torch/bench.py): kernel_parity, bench_hybrid at
                 200,000 docs with its recall gate (recall@10 against exact
                 f32 at least 0.985) and bench_encoder, their JSON on one
                 line; every kernel they reach, counted from 0, launched;
-  15. ivf    -- a default VectorIndex(index_type="IVFFlat") (nlist 20,
+  16. ivf    -- a default VectorIndex(index_type="IVFFlat") (nlist 20,
                 nprobe 4, 15 k-means rounds) over 5,000,000 x 1024 rows
                 drawn on the card around 1,000 centres: build time, 4
                 batches of 512 queries at top_k 20 and 64 single queries at
@@ -183,8 +211,9 @@ Phases, each printing its seconds:
                 seeded BM25 plan, which must allocate under 1 GiB above the
                 resident index, its dense candidates held against the
                 streaming top-k kernel.
-Then one JSON line of kernel numbers (dense_topk's launches count the
-graph build's; dense_topk_f32_self_join holds the self-join's shape), the
+Then one JSON line of kernel numbers (dense_topk's launches count both
+graph builds' self-joins; dense_topk_f32_self_join and
+dense_topk_f32_offline_self_join hold their shapes), the
 nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure prints its traceback and exits
 non-zero without that last line; so does a machine without CUDA.
@@ -345,15 +374,32 @@ def _time_cold_ms(fn, reps: int = 41, warm: int = 3) -> float:
     return times[len(times) // 2]
 
 
-def _busy_ms(events) -> float:
-    """Union of the device intervals of profiler events, in ms."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+def _union_ms(spans, per_ms: float) -> float:
+    """Length of the union of (start, end) intervals, in ms (per_ms time
+    units a millisecond)."""
     busy, end = 0.0, float("-inf")
-    for lo, hi in spans:
+    for lo, hi in sorted(spans):
         if hi > end:
             busy += hi - max(lo, end)
             end = hi
-    return busy / 1e3
+    return busy / per_ms
+
+
+def _busy_ms(events) -> float:
+    """Union of the device intervals of profiler events, in ms."""
+    return _union_ms(((e.time_range.start, e.time_range.end) for e in events), 1e3)
+
+
+def _kineto_busy_ms(prof) -> tuple:
+    """(device busy ms, device events) of a finished torch.profiler run,
+    read from its raw kineto events: the parse behind prof.events() takes
+    minutes on the hundreds of thousands of kernels of a long run."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = [(e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+             if e.device_type() == cuda]
+    return _union_ms(spans, 1e6), len(spans)
 
 
 def _check_winners(got, want, what: str) -> float:
@@ -1436,16 +1482,15 @@ def _http_phase(qp, request, served, kb_process, notes, top_k: int,
     notes must equal kb_process's (the process phase's)."""
     import threading
     import urllib.request
-    from http.server import ThreadingHTTPServer
 
-    from anorag_tpu_torch.serve import make_handler
+    from anorag_tpu_torch.serve import Server, make_handler
     from anorag_tpu_torch.serving import ServingEngine
     from anorag_tpu_torch.testing import KB_QUESTIONS
 
     sub_batch = int(qp.cfg.get("serving.stream_batch"))
     depth = int(qp.cfg.get("serving.stream_depth"))
     engine = ServingEngine(qp, sub_batch=sub_batch, depth=depth)
-    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(qp, engine))
+    server = Server(("127.0.0.1", 0), make_handler(qp, engine))
     thread = threading.Thread(target=server.serve_forever, name="http-smoke")
     thread.start()
     url = f"http://127.0.0.1:{server.server_address[1]}"
@@ -1576,13 +1621,14 @@ def _timer(fn, name: str, times: dict, sync: bool):
     return timed
 
 
-def _time_graph_parts(times: dict):
-    """Wrap the graph build's parts (GRAPH_PARTS) with timers adding to
-    `times`; returns the function that takes the timers out again."""
+def _time_parts(times: dict, parts=GRAPH_PARTS):
+    """Wrap `parts` ((module, class or None, attribute, name), GRAPH_PARTS
+    by default) with timers adding to `times`, the card synchronised after
+    each; returns the function that takes the timers out again."""
     import importlib
 
     undo = []
-    for mod, cls, attr, name in GRAPH_PARTS:
+    for mod, cls, attr, name in parts:
         owner = importlib.import_module(f"anorag_tpu_torch.{mod}")
         if cls:
             owner = getattr(owner, cls)
@@ -1802,9 +1848,293 @@ def _process_phase(dev, qp, graph_times: dict, build_launches: int, rng, words,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms), kb
 
 
+# the offline phase: the knowledge-base build of `main process`
+OFFLINE_ITEMS = 200            # synthetic MuSiQue-style items, 40 paragraphs each
+OFFLINE_MIN_NOTES = 20_000     # above this the self-join runs on the card (SEMANTIC_HOST_ROWS)
+OFFLINE_QUERIES = 64           # items whose questions go through process()
+OFFLINE_RETRIEVE = 32          # questions of the retriever's round trips
+OFFLINE_REMOVED = 100          # notes removed and added back
+_DOC = "doc.processor"
+OFFLINE_PARTS = (
+    ("doc.chunker", "DocumentChunker", "chunk_file", "chunks"),
+    (_DOC, "_RuleNoteGenerator", "generate_atomic_notes", "rule notes"),
+    (_DOC, None, "resolve_note_abbreviations", "abbreviations"),
+    ("models.embedding_manager", "EmbeddingManager", "encode_atomic_notes", "embeddings"),
+    ("doc.clustering", "TopicClustering", "cluster_notes", "clustering"),
+    ("doc.clustering", None, "auto_k", "auto-K"),
+    ("graph.builder", "GraphBuilder", "build_graph_with_metrics", "graph"),
+    (*_REL, "extract_all_relations", "relations"),
+    (*_REL, "_device_topk", "self-join"),
+    ("graph.graph_index", None, "build_csr", "build_csr"),
+    ("graph.graph_index", None, "pagerank", "pagerank"),
+    (_DOC, None, "export_graphml", "GraphML"),
+    ("graph.graph_index", "GraphIndex", "save", "graph.json"),
+    ("doc.consistency", "ConsistencyChecker", "check_consistency", "consistency"),
+)
+# the artifacts of a work dir whose bytes a second `process` must leave as
+# they were (result.json is compared without its processing_stats: their
+# elapsed_s, and graph_metrics, which a cache hit of the graph lacks, as in
+# the reference)
+OFFLINE_ARTIFACTS = ("chunks.jsonl", "atomic_notes.json", "embeddings.npy",
+                     "clustering.json", "graph.json", "graph.json_embeddings.npz",
+                     "graph.json_mappings.json", "graph.graphml",
+                     "consistency_report.json")
+
+
+def _sha1s(work) -> dict:
+    import hashlib
+
+    out = {name: hashlib.sha1((work / name).read_bytes()).hexdigest()
+           for name in OFFLINE_ARTIFACTS}
+    result = json.loads((work / "result.json").read_text())
+    result.pop("processing_stats")
+    out["result.json"] = hashlib.sha1(json.dumps(result, sort_keys=True).encode()).hexdigest()
+    return out
+
+
+def _normalize_answer(s: str) -> str:
+    """MuSiQue's answer normalisation: lower case, no punctuation, no
+    articles, single spaces."""
+    import re
+    import string
+
+    s = "".join(ch for ch in str(s).lower() if ch not in set(string.punctuation))
+    return " ".join(re.sub(r"\b(a|an|the)\b", " ", s).split())
+
+
+def _offline_phase(dev, seed: int, smi_line: str) -> dict:
+    """The offline knowledge-base build through `main process` on the card
+    (OFFLINE_ITEMS synthetic items, the full-width encoder with seeded
+    weights), each stage timed and its idle share traced; the gates on the
+    artifacts, the self-join's launches and its top-k, a second `process`
+    of cache hits only; the first OFFLINE_QUERIES items' questions through
+    process() over `main query`'s processor; the retriever's round trips.
+    Returns the offline self-join's kernel numbers."""
+    import logging
+    import subprocess
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from anorag_tpu_torch import main as tmain
+    from anorag_tpu_torch.config import Config
+    from anorag_tpu_torch.graph.relation_extractor import SEMANTIC_QUERY_CHUNK
+    from anorag_tpu_torch.index.store import ArtifactStore
+    from anorag_tpu_torch.ops.topk import dense_topk_kernel, dense_topk_ref
+    from anorag_tpu_torch.retrieval.retriever import VectorRetriever
+    from anorag_tpu_torch.testing import check_topk, flat_scores
+    from anorag_tpu_torch.utils.file_io import latest_work_dir, read_json, read_jsonl
+
+    tmp = Path(tempfile.mkdtemp(prefix="anorag_offline_"))
+    synth = tmp / "synth.jsonl"
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, str(Path(__file__).resolve().parent / "scripts"
+                                        / "gen_synth_musique.py"),
+                    str(synth), "--n", str(OFFLINE_ITEMS), "--seed", str(seed)],
+                   check=True, stdout=subprocess.DEVNULL)
+    items = read_jsonl(synth)
+    n_par = sum(len(it["paragraphs"]) for it in items)
+    print(f"offline corpus: {len(items)} synthetic items, {n_par} paragraphs "
+          f"({time.perf_counter() - t0:.2f} s to draw)", flush=True)
+    cfg = Config({"storage": {"result_root": str(tmp / "result")}})
+    root_log = logging.getLogger()
+    log_state = (root_log.level, list(root_log.handlers))
+
+    # 1. the build: stages timed, the self-join's launches counted from 0,
+    # the card's activity traced for the idle share
+    times: dict = {}
+    undo = _time_parts(times, OFFLINE_PARTS)
+    built: list = []
+    cached = ArtifactStore.cached
+
+    def counting(self, name, cfg_, input_hash, build, save, load, force=False):
+        def build_():
+            built.append(name)
+            return build()
+        return cached(self, name, cfg_, input_hash, build_, save, load, force)
+
+    ArtifactStore.cached = counting
+    try:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        dense_topk_kernel.launches = 0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            rc = tmain.main(["process", str(synth), "--no-llm"], cfg)
+            torch.cuda.synchronize(dev)
+            build_s = time.perf_counter() - t0
+        launches = dense_topk_kernel.launches
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    finally:
+        undo()
+        ArtifactStore.cached = cached
+    if rc != 0:
+        raise AssertionError(f"main process exited {rc}")
+    t0 = time.perf_counter()
+    busy_ms, n_events = _kineto_busy_ms(prof)
+    parse_s = time.perf_counter() - t0
+    del prof
+    work = latest_work_dir(tmp / "result")
+    result = read_json(work / "result.json")
+    stats = result["processing_stats"]
+    notes = read_json(work / "atomic_notes.json")
+    graph = read_json(work / "graph.json")
+    by_type = Counter(link["relation_type"] for link in graph["links"])
+    print(f"offline build ({len(items)} items) through main process: "
+          f"{build_s:.3f} s, by stage (s; the card synchronised after the "
+          f"device stages): " + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+          + f"; device busy {busy_ms / 1e3:.3f} s in {n_events} device events (read "
+          f"in {parse_s:.3f} s), idle share {1 - busy_ms / 1e3 / build_s:.4f}; peak "
+          f"device memory {peak_gb:.2f} GB | {smi_line}", flush=True)
+    print(f"offline KB: {n_par} paragraphs, {stats['n_chunks']} chunks, "
+          f"{stats['n_notes']} notes, {stats['n_clusters']} clusters, "
+          f"{stats['n_edges']} edges by type {dict(by_type.most_common())}; "
+          f"self-join launches {launches}; stages built {built}", flush=True)
+
+    # 2. gates: every artifact written, consistent, above the crossing, the
+    # self-join's launches and its top-k
+    for key in ("embeddings_path", "graph_file"):
+        if not Path(result[key]).exists():
+            raise AssertionError(f"result.json names {result[key]}, which is missing")
+    missing = [a for a in OFFLINE_ARTIFACTS if not (work / a).exists()]
+    if missing:
+        raise AssertionError(f"the build wrote no {missing}")
+    if not result["consistency"]["consistent"]:
+        raise AssertionError(f"consistency: {result['consistency']['issues'][:3]}")
+    n = len(notes)
+    if n <= OFFLINE_MIN_NOTES:
+        raise AssertionError(f"{n} notes, not above {OFFLINE_MIN_NOTES}: the self-join "
+                             f"ran on the host")
+    if launches != -(-n // SEMANTIC_QUERY_CHUNK):
+        raise AssertionError(f"the self-join launched {launches} times for {n} notes")
+    emb = torch.from_numpy(np.load(work / "embeddings.npy")).to(dev)
+    if emb.shape != (n, 1024) or not bool(torch.isfinite(emb).all()):
+        raise AssertionError(f"embeddings.npy of shape {tuple(emb.shape)}, or not finite")
+    unit = (emb / torch.linalg.vector_norm(emb, dim=1, keepdim=True).clamp_min(1e-9)).contiguous()
+    del emb
+    k = 6
+    rng = np.random.default_rng(seed + 4)
+    rows = torch.from_numpy(np.sort(rng.choice(n, min(512, n), replace=False))).to(dev)
+    q = unit[rows].contiguous()
+    err = check_topk(dense_topk_kernel(unit, q, k), dense_topk_ref(unit, q, k),
+                     flat_scores(unit, q))
+    ms, _ = _time_ms(lambda: dense_topk_kernel(unit, unit, k), n=1, reps=3, warm=1)
+    plain_ms, _ = _time_ms(lambda: dense_topk_ref(unit, unit, k), n=1, reps=3, warm=1)
+    lib_ms, _ = _time_ms(lambda: torch.topk(torch.matmul(unit, unit.T), k), n=1,
+                         reps=3, warm=1)
+    bound_ms, bound_by = _topk_bound(n, n, unit.shape[1], k, 4)
+    print(f"offline self-join (f32, k {k}) against dense_topk_ref on 512 rows: max abs "
+          f"err {err:.3g}; one launch of {n} x {n} x {unit.shape[1]}: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, torch.matmul + torch.topk {lib_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}) | {smi_line}", flush=True)
+    del unit, q
+
+    # 3. a second process of the same file: cache hits only, artifacts unchanged
+    before = _sha1s(work)
+    built.clear()
+    ArtifactStore.cached = counting
+    try:
+        t0 = time.perf_counter()
+        rc = tmain.main(["process", str(synth), "--no-llm"], cfg)
+        again_s = time.perf_counter() - t0
+    finally:
+        ArtifactStore.cached = cached
+    if rc != 0 or built or latest_work_dir(tmp / "result") != work:
+        raise AssertionError(f"second process: exit {rc}, rebuilt {built}")
+    changed = [a for a, h in _sha1s(work).items() if before[a] != h]
+    if changed:
+        raise AssertionError(f"second process changed {changed}")
+    print(f"second process: every stage a cache hit, {len(before)} artifacts' SHA1 "
+          f"unchanged, {again_s:.3f} s", flush=True)
+
+    # 4. the first items' questions through process() over main query's processor
+    t0 = time.perf_counter()
+    qp = tmain.load_query_processor(work, cfg)
+    load_s = time.perf_counter() - t0
+    lat, methods, em_hits = [], Counter(), 0
+    for it in items[:OFFLINE_QUERIES]:
+        t0 = time.perf_counter()
+        a = qp.process(it["question"])
+        lat.append(time.perf_counter() - t0)
+        if not PROCESS_KEYS <= set(a):
+            raise AssertionError(f"process({it['question']!r}) gave keys {sorted(a)}")
+        methods[a["answer_method"]] += 1
+        gold = {_normalize_answer(g) for g in [it["answer"], *it.get("answer_aliases", [])]}
+        em_hits += _normalize_answer(a["answer"]) in gold
+    lat_s = sorted(lat[1:])
+    print(f"main query's processor over the KB: loaded in {load_s:.3f} s; "
+          f"{OFFLINE_QUERIES} questions through process(): first {lat[0]:.4f} s, then "
+          f"median {lat_s[len(lat_s) // 2]:.4f} s, p90 {lat_s[int(0.9 * len(lat_s))]:.4f} s; "
+          f"answer methods {dict(methods.most_common())}; exact match "
+          f"{em_hits / OFFLINE_QUERIES:.4f} (random encoder weights; not gated) "
+          f"| {smi_line}", flush=True)
+
+    # 5. the retriever over the built notes and embeddings on the card
+    emb = torch.from_numpy(np.load(work / "embeddings.npy")).to(dev)
+    vr = VectorRetriever(qp.em, top_k=10)
+    vr.build_index(notes, emb)
+    questions = [it["question"] for it in items[:OFFLINE_RETRIEVE]]
+    first = [vr.retrieve(q, threshold=-1.0) for q in questions]
+    t0 = time.perf_counter()
+    vr.save(tmp / "retriever")
+    save_s = time.perf_counter() - t0
+    loaded = VectorRetriever(qp.em, top_k=10)
+    t0 = time.perf_counter()
+    if not loaded.load(tmp / "retriever"):
+        raise AssertionError("VectorRetriever.load refused its own save")
+    load_rt_s = time.perf_counter() - t0
+    for q, got in zip(questions, first):
+        again = loaded.retrieve(q, threshold=-1.0)
+        if [r["note_id"] for r in again] != [r["note_id"] for r in got] or max(
+                (abs(x["similarity"] - y["similarity"]) for x, y in zip(again, got)),
+                default=0.0) > 1e-6:
+            raise AssertionError(f"save -> load changed retrieve({q!r})")
+    gone = [nt["note_id"] for nt in notes[::max(1, n // OFFLINE_REMOVED)][:OFFLINE_REMOVED]]
+    removed_notes = [nt for nt in notes if nt["note_id"] in set(gone)]
+    t0 = time.perf_counter()
+    if vr.remove_notes(gone) != len(gone):
+        raise AssertionError("remove_notes removed another count")
+    vr.add_notes(removed_notes)
+    churn_s = time.perf_counter() - t0
+    for q, got in zip(questions, first):
+        if {r["note_id"] for r in vr.retrieve(q, threshold=-1.0)} != {r["note_id"] for r in got}:
+            raise AssertionError(f"remove_notes + add_notes changed retrieve({q!r})'s top 10")
+    doc = str(notes[0]["doc_id"])
+    in_doc = vr.search_with_namespace_fallback(items[0]["question"], doc, top_k=10)
+    if not in_doc or any(str(r.get("doc_id")) != doc for r in in_doc):
+        raise AssertionError(f"namespace search for {doc} gave docs "
+                             f"{sorted({str(r.get('doc_id')) for r in in_doc})}")
+    hits = vr.lexical_fallback_search(items[0]["question"], top_k=5)
+    rss_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+    print(f"retriever over the KB: save {save_s:.3f} s -> load {load_rt_s:.3f} s gives "
+          f"equal retrieve ids and scores for {len(questions)} questions; {len(gone)} "
+          f"notes removed and added back "
+          f"({churn_s:.3f} s), equal top-10 sets; namespace {doc}: {len(in_doc)} notes "
+          f"of that doc only; lexical fallback hits "
+          f"{[(r['note_id'], round(r['final_score'], 4)) for r in hits]}; peak device "
+          f"memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB, host peak RSS "
+          f"{rss_gb:.2f} GB | {smi_line}", flush=True)
+    del qp, vr, loaded, emb
+    for h in root_log.handlers[:]:           # main's log handlers go with the KB
+        if h not in log_state[1]:
+            root_log.removeHandler(h)
+            h.close()
+    root_log.setLevel(log_state[0])
+    for f in sorted(tmp.rglob("*"), reverse=True):
+        f.unlink() if f.is_file() else f.rmdir()
+    tmp.rmdir()
+    return dict(launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+
+
 # the llm phase: the decoder LM at checkpoints/note_lm_tpu_large's shape
-LLM_ZIPF = 5                   # Zipf queries through process() with the LLM
-LLM_SERVED = 8                 # queries of the request served with the LLM
+# (cut from 5 and 8 when the offline phase joined, to keep the script
+# near half its time limit)
+LLM_ZIPF = 3                   # Zipf queries through process() with the LLM
+LLM_SERVED = 4                 # queries of the request served with the LLM
 LLM_CONCURRENT = 8             # concurrent requests to serve_llm
 LLM_SERVE_MAX_NEW = 512        # serve_llm's byte budget (its --max-new default)
 # llm.max_output_tokens (the provider generates 4 bytes a token) of the
@@ -1964,9 +2294,8 @@ def _serve_llm_burst(dev, ckpt, cfg, smi_line: str) -> dict:
     once; one batch must serve them all. Returns the part's numbers."""
     import threading
     from concurrent.futures import ThreadPoolExecutor
-    from http.server import ThreadingHTTPServer
 
-    from anorag_tpu_torch import serve_llm
+    from anorag_tpu_torch import serve, serve_llm
     from anorag_tpu_torch.llm.clients import OllamaClient
     from anorag_tpu_torch.models import decoder_lm as dlm
 
@@ -1974,7 +2303,7 @@ def _serve_llm_burst(dev, ckpt, cfg, smi_line: str) -> dict:
     lm = dlm.DecoderLM(params, cfg, prompt_bucket=cfg.max_len // 2)
     # the window only waits while fewer than LLM_CONCURRENT have come
     batcher = serve_llm.MicroBatcher(lm, LLM_CONCURRENT, LLM_SERVE_MAX_NEW, window_s=5.0)
-    server = ThreadingHTTPServer(("127.0.0.1", 0), serve_llm.make_handler(batcher, "note-lm"))
+    server = serve.Server(("127.0.0.1", 0), serve_llm.make_handler(batcher, "note-lm"))
     thread = threading.Thread(target=server.serve_forever, name="serve-llm-smoke")
     thread.start()
     url = f"http://127.0.0.1:{server.server_address[1]}"
@@ -2032,7 +2361,6 @@ def _llm_phase(dev, qp, notes, words, rng, seed: int, smi_line: str) -> None:
     import copy
     import tempfile
     import threading
-    from http.server import ThreadingHTTPServer
     from pathlib import Path
 
     import torch
@@ -2168,7 +2496,7 @@ def _llm_phase(dev, qp, notes, words, rng, seed: int, smi_line: str) -> None:
 
             engine = ServingEngine(qp2, sub_batch=int(qp2.cfg.get("serving.stream_batch")),
                                    depth=int(qp2.cfg.get("serving.stream_depth")))
-            server = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(qp2, engine))
+            server = serve.Server(("127.0.0.1", 0), serve.make_handler(qp2, engine))
             thread = threading.Thread(target=server.serve_forever, name="http-llm-smoke")
             thread.start()
             qp2.cfg.set("llm.max_output_tokens", full_budget)
@@ -2330,7 +2658,7 @@ def run(dev, seed: int = 0):
     # the constructor builds the note graph (the main path of process()):
     # its parts timed, the top-k kernel's launches counted from 0
     graph_times: dict = {}
-    untime_graph = _time_graph_parts(graph_times)
+    untime_graph = _time_parts(graph_times)
     dense_topk_kernel.launches = 0
     t_qp = time.perf_counter()
     qp = QueryProcessor(notes, embeddings=emb, cfg=cfg, device=dev,
@@ -2526,21 +2854,25 @@ def run(dev, seed: int = 0):
         untime_graph()
     t = _phase("process", t)
 
-    # 11. llm: the LLM layer and the decoder LM through process(), the
+    # 11. offline: the knowledge-base build of main process, then main query
+    offline_join = _offline_phase(dev, seed, smi_line)
+    t = _phase("offline", t)
+
+    # 12. llm: the LLM layer and the decoder LM through process(), the
     # served path, /query and serve_llm
     _llm_phase(dev, qp, notes, words, np.random.default_rng(seed + 3), seed, smi_line)
     t = _phase("llm", t)
 
-    # 12. http: the port's server at the config defaults
+    # 13. http: the port's server at the config defaults
     _http_phase(qp, requests[0], responses[0], kb_process, notes, top_k, smi_line)
     t = _phase("http", t)
 
-    # 13. search: VectorRetriever.search / retrieve through the top-k kernel
+    # 14. search: VectorRetriever.search / retrieve through the top-k kernel
     dense_launches = _search_phase(dev, em, notes, retriever.index.flat_device_emb(),
                                    requests[1:3], smi_line)
     t = _phase("search", t)
 
-    # 14. bench: the port's benchmark entry point, in-process
+    # 15. bench: the port's benchmark entry point, in-process
     for name, count in _bench_phase(dev, smi_line).items():
         bucket_launches[name] += count
     idle = [name for name, count in bucket_launches.items() if count < 1]
@@ -2549,7 +2881,7 @@ def run(dev, seed: int = 0):
                              f"kernel {idle}: {bucket_launches}")
     t = _phase("bench", t)
 
-    # 15. ivf: the default IVFFlat index at 5,000,000 rows
+    # 16. ivf: the default IVFFlat index at 5,000,000 rows
     ivf_launches, ivf_err, ivf_main, plan_launches, plan_main = _ivf_phase(
         dev, seed, smi_line)
     scan_errs.append(ivf_err)
@@ -2584,7 +2916,8 @@ def run(dev, seed: int = 0):
                   "merge path; units of one wave, the query tiles of a corpus "
                   "range side by side",
         "replaces": "anorag_tpu/ops/topk.py:40",
-        "launches": dense_launches + build_launches, "max_abs_err": max(dense_errs),
+        "launches": dense_launches + build_launches + offline_join["launches"],
+        "max_abs_err": max(dense_errs),
         **dense_main,
     }, {
         "name": "dense_topk_f32_self_join", "route": "cuda",
@@ -2596,6 +2929,16 @@ def run(dev, seed: int = 0):
         "part_of": "dense_topk",
         "replaces": "anorag_tpu/ops/topk.py:40",
         **self_join,
+    }, {
+        "name": "dense_topk_f32_offline_self_join", "route": "cuda",
+        "source": "anorag_tpu_torch/csrc/streaming_topk.cu",
+        "design": "part of dense_topk, not a kernel of its own: the note graph's "
+                  "semantic edges in the offline build of main process, the KB's "
+                  "f32 unit rows against themselves at k 6 in one launch; timed "
+                  "at that launch's shape",
+        "part_of": "dense_topk",
+        "replaces": "anorag_tpu/ops/topk.py:40",
+        **offline_join,
     }, {
         "name": "ivf_scan", "route": "cuda",
         "source": "anorag_tpu_torch/csrc/ivf_scan.cu",

@@ -199,19 +199,19 @@ def test_every_port_module_with_an_original_is_a_copy_or_a_rewrite():
     """A port file named as a reference file is either a copy held above
     or one of the port's own rewrites, listed here."""
     from test_torch_llm import LLM_COPIED
+    from test_torch_offline import OFFLINE_COPIED
 
     rewritten = {"device.py", "serving.py", "models/decoder_lm.py",
                  "query/processor.py", "retrieval/retriever.py", "ops/bm25.py",
                  "ops/topk.py", "ops/ivf.py", "ops/kmeans.py", "ops/graph.py",
                  "index/bm25_index.py", "index/vector_index.py",
                  "models/embedding_manager.py", "models/encoder.py",
-                 "models/hash_embedder.py", "models/tokenizer.py",
-                 "validators/note_validator.py"}
+                 "models/hash_embedder.py", "models/tokenizer.py"}
     both = {str(p.relative_to(ROOT / "anorag_tpu_torch"))
             for p in (ROOT / "anorag_tpu_torch").rglob("*.py")
             if p.name != "__init__.py"}
     both = {p for p in both if (ROOT / "anorag_tpu" / p).exists()}
-    assert both == set(COPIED) | set(LLM_COPIED) | rewritten
+    assert both == set(COPIED) | set(LLM_COPIED) | set(OFFLINE_COPIED) | rewritten
 
 
 def test_copied_package_inits_are_empty():

@@ -623,3 +623,45 @@ def test_decoder_on_the_card_matches_the_cpu(cuda_device, b):
                              cuda_device)
     out = decoder_parity(params, b, steps=64, pb=256, seed=b)
     assert out["max_abs_err"] <= 1e-4 and out["steps_compared"] >= 32, out
+
+
+def _blobs(n, d, centres, seed):
+    rng = np.random.default_rng(seed)
+    c = rng.normal(size=(centres, d)).astype(np.float32) * 4
+    x = c[rng.integers(0, centres, n)] + rng.normal(size=(n, d)).astype(np.float32)
+    return torch.from_numpy(x / np.linalg.norm(x, axis=1, keepdims=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,centres", [(300, 4), (6000, 6)])
+def test_auto_k_on_the_card_picks_the_cpus_k(cuda_device, n, centres):
+    """The elbow auto-K of the offline build (doc/clustering.py) on the
+    card against the CPU on well-separated rows: the same K (the card's
+    Lloyd draws its init from a CUDA generator, so only the elbow is held
+    equal), and kmeans_fit at that K the same partition."""
+    from anorag_tpu_torch.ops.kmeans import auto_k, kmeans_fit
+
+    x = _blobs(n, 48, centres, seed=n)
+    k = auto_k(x, max_k=12, iters=7)
+    assert auto_k(x.to(cuda_device), max_k=12, iters=7) == k == centres
+    _, got = kmeans_fit(x.to(cuda_device), k)
+    _, want = kmeans_fit(x, k)
+    pairs = set(zip(got.cpu().tolist(), want.tolist()))
+    assert len(pairs) == k                  # the same clusters up to their order
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eps", [None, 0.5])
+def test_density_cluster_on_the_card_matches_the_cpu(cuda_device, eps):
+    from anorag_tpu_torch.doc.clustering import TopicClustering, density_cluster
+
+    x = _blobs(800, 32, 5, seed=3)
+    got, got_eps = density_cluster(x.to(cuda_device), eps=eps)
+    want, want_eps = density_cluster(x, eps=eps)
+    assert got_eps == pytest.approx(want_eps, abs=1e-6)
+    np.testing.assert_array_equal(got, want)
+    notes = [{"note_id": f"n{i}", "content": f"w{i % 9}"} for i in range(len(x))]
+    card = TopicClustering(method="dbscan", device=cuda_device).cluster_notes(notes, x)
+    cpu = TopicClustering(method="dbscan", device="cpu").cluster_notes(notes, x)
+    assert card.pop("eps") == pytest.approx(cpu.pop("eps"), abs=1e-6)
+    assert card == cpu

@@ -67,8 +67,8 @@ def test_copied_llm_module_equals_the_original(rel):
 
 
 def test_llm_package_exports_the_references_names():
-    """All but AtomicNoteGenerator, which waits for the offline pipeline."""
-    assert tllm.__all__ == [n for n in J_ALL if n != "AtomicNoteGenerator"]
+    """AtomicNoteGenerator too, since the offline pipeline was ported."""
+    assert tllm.__all__ == J_ALL
     assert all(getattr(tllm, n).__name__ == n for n in tllm.__all__)
 
 

@@ -14,9 +14,10 @@ server with an engine runs the batched path in both.
 import concurrent.futures as cf
 import json
 import threading
+import time
 import urllib.error
 import urllib.request
-from http.server import ThreadingHTTPServer
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 import pytest
@@ -230,6 +231,46 @@ def test_concurrent_clients(urls, kind):
             _same_answer(body, alone[i % 3][1])
         else:
             assert body == alone[i % 3][1]
+
+
+class _Slow(BaseHTTPRequestHandler):
+    def log_message(self, *a):
+        pass
+
+    def do_POST(self):
+        body = self.rfile.read(int(self.headers.get("Content-Length") or 0))
+        time.sleep(0.2)
+        self.send_response(200)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+
+def test_server_takes_a_burst_above_the_default_backlog():
+    """64 clients post at once to a handler that takes 0.2 s: every one
+    is queued and answered. ThreadingHTTPServer's backlog of 5 overflows
+    when they come faster than the accepting thread takes them, and the
+    kernel resets the connections that do not fit."""
+    n = 64
+    srv = tserve.Server(("127.0.0.1", 0), _Slow)
+    assert srv.request_queue_size >= n
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}/"
+    start = threading.Barrier(n)
+
+    def ask(i):
+        data = json.dumps({"client": i, "pad": "x" * 2048}).encode()
+        start.wait()
+        with urllib.request.urlopen(urllib.request.Request(url, data=data), timeout=60) as r:
+            return r.status, r.read() == data
+
+    try:
+        with cf.ThreadPoolExecutor(max_workers=n) as ex:
+            got = list(ex.map(ask, range(n)))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    assert got == [(200, True)] * n
 
 
 def test_build_processor_and_main(tmp_path, monkeypatch, capsys):

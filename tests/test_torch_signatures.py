@@ -27,6 +27,14 @@ from anorag_tpu.ops import graph as jgraph
 from anorag_tpu.query import processor as jproc
 from anorag_tpu.retrieval import retriever as jret
 from anorag_tpu import serving as jserving
+from anorag_tpu.doc import chunker as jchunk
+from anorag_tpu.doc import clustering as jclust
+from anorag_tpu.doc import incremental as jinc
+from anorag_tpu.doc import processor as jdoc
+from anorag_tpu.index import store as jstore
+from anorag_tpu.llm import note_generator as jnote
+from anorag_tpu.models import embedding_manager as jem
+from anorag_tpu.ops import kmeans as jkmeans
 from anorag_tpu_torch import bench as tbench
 from anorag_tpu_torch.index import bm25_index as tindex
 from anorag_tpu_torch.index import vector_index as tvi
@@ -42,6 +50,14 @@ from anorag_tpu_torch.query import processor as tproc
 from anorag_tpu_torch.retrieval import retriever as tret
 from anorag_tpu_torch import serve as tserve
 from anorag_tpu_torch import serving as tserving
+from anorag_tpu_torch.doc import chunker as tchunk
+from anorag_tpu_torch.doc import clustering as tclust
+from anorag_tpu_torch.doc import incremental as tinc
+from anorag_tpu_torch.doc import processor as tdoc
+from anorag_tpu_torch.index import store as tstore
+from anorag_tpu_torch.llm import note_generator as tnote
+from anorag_tpu_torch.models import embedding_manager as tem
+from anorag_tpu_torch.ops import kmeans as tkmeans
 
 # The port's names for the reference's.
 RENAMES = {"use_pallas": "use_kernel"}   # the kernels are CUDA, not Pallas
@@ -76,7 +92,41 @@ PAIRS = [
     *[(f"VectorRetriever.{m}", getattr(jret.VectorRetriever, m),
        getattr(tret.VectorRetriever, m))
       for m in ("build_index", "search", "retrieve", "hybrid_search",
-                "hybrid_search_dispatch", "hybrid_search_finalize")],
+                "hybrid_search_dispatch", "hybrid_search_finalize",
+                "_lexical_terms", "lexical_fallback_search",
+                "search_with_namespace_fallback", "add_notes", "remove_notes",
+                "update_note", "save", "load")],
+    ("optimize_retrieval_params", jret.optimize_retrieval_params,
+     tret.optimize_retrieval_params),
+    *[(f"VectorIndex.{m}", getattr(jvi.VectorIndex, m), getattr(tvi.VectorIndex, m))
+      for m in ("save", "load")],
+    *[(f"EmbeddingManager.{m}", getattr(jem.EmbeddingManager, m),
+       getattr(tem.EmbeddingManager, m))
+      for m in ("load_checkpoint", "model_signature", "check_signature",
+                "encode_atomic_notes", "encode_queries")],
+    *[(f"{cls}.{m}", getattr(jcls, m), getattr(tcls, m))
+      for cls, jcls, tcls, methods in (
+          ("DocumentProcessor", jdoc.DocumentProcessor, tdoc.DocumentProcessor,
+           ("__init__", "process_documents")),
+          ("DocumentChunker", jchunk.DocumentChunker, tchunk.DocumentChunker,
+           ("__init__", "chunk_file", "chunk_document")),
+          ("TopicClustering", jclust.TopicClustering, tclust.TopicClustering,
+           ("__init__", "cluster_notes")),
+          ("AtomicNoteGenerator", jnote.AtomicNoteGenerator, tnote.AtomicNoteGenerator,
+           ("__init__", "generate_atomic_notes", "generate_for_chunk")),
+          ("ArtifactStore", jstore.ArtifactStore, tstore.ArtifactStore,
+           ("__init__", "is_fresh", "write_manifest", "cached", "save_arrays",
+            "save_json")),
+          ("IncrementalProcessor", jinc.IncrementalProcessor, tinc.IncrementalProcessor,
+           ("__init__", "get_processing_plan", "commit", "update_file_cache",
+            "get_cached_result", "validate_cache_integrity", "repair_cache")))
+      for m in methods],
+    *[(name, getattr(jclust, name), getattr(tclust, name))
+      for name in ("density_cluster", "find_optimal_eps", "_pairwise_sq_dists")],
+    *[(name, getattr(jkmeans, name), getattr(tkmeans, name))
+      for name in ("auto_k", "kmeans_fit", "kmeans_inertia")],
+    ("resolve_note_abbreviations", jnote.resolve_note_abbreviations,
+     tnote.resolve_note_abbreviations),
     *[(f"QueryProcessor.{m}", getattr(jproc.QueryProcessor, m),
        getattr(tproc.QueryProcessor, m))
       for m in ("__init__", "process", "process_batch", "process_stream")],
