@@ -14,6 +14,7 @@ provider was constructed with `temperature > 0`.
 """
 from __future__ import annotations
 
+import threading
 from pathlib import Path
 from typing import Any, Dict, List, Optional
 
@@ -54,16 +55,20 @@ class DecoderLLMClient(LLMClient):
         self.max_batch = int(max_batch)
         self.device = resolve_device(device)
         self._lm = None
+        self._lm_lock = threading.Lock()
 
     # ------------------------------------------------------------- model
     def _ensure_lm(self):
-        if self._lm is None:
-            from anorag_tpu_torch.models.decoder_lm import DecoderLM, load_lm
-            params, cfg = load_lm(self.model, device=self.device)
-            self._lm = DecoderLM(params, cfg, prompt_bucket=self.prompt_bucket)
-            logger.info("decoder llm loaded on %s: %s (%d layers, %d hidden, "
-                        "max_len %d)", self.device, self.model, cfg.num_layers,
-                        cfg.hidden_size, cfg.max_len)
+        """The decoder, loaded on first use; under a lock, since worker
+        threads share one client (the MuSiQue pipeline)."""
+        with self._lm_lock:
+            if self._lm is None:
+                from anorag_tpu_torch.models.decoder_lm import DecoderLM, load_lm
+                params, cfg = load_lm(self.model, device=self.device)
+                self._lm = DecoderLM(params, cfg, prompt_bucket=self.prompt_bucket)
+                logger.info("decoder llm loaded on %s: %s (%d layers, %d hidden, "
+                            "max_len %d)", self.device, self.model, cfg.num_layers,
+                            cfg.hidden_size, cfg.max_len)
         return self._lm
 
     def _max_new(self, params: Dict[str, Any]) -> int:

@@ -14,7 +14,8 @@ so the artifact caches apply across runs; --force rebuilds every stage.
 into the port's QueryProcessor and answers one question or, without one,
 reads questions from stdin. Both run on system.device: cuda by default (the
 reference's "tpu" and "gpu" name the card too), cpu only when the config
-says so. --config reads YAML as the port's server does (serve.load_config).
+says so. --config reads the YAML file with the port's ConfigLoader (its
+own reader, no PyYAML; serve.load_config).
 --parallel (the reference's engine-parallel document fan-out) is not ported
 yet and raises NotImplementedError.
 """

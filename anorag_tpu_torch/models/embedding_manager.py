@@ -4,7 +4,7 @@ Counterpart of anorag_tpu/models/embedding_manager.py (load_checkpoint
 :117, encode_texts, encode_atomic_notes, encode_queries :134-165,
 model_signature and check_signature :191-204). Backends:
   * 'torch' -- the transformer encoder (models/encoder.py); it replaces the
-    reference's default 'jax' backend. Weights are drawn from a seeded
+    reference's default 'jax' backend, and a config's 'jax' names it. Weights are drawn from a seeded
     torch.Generator unless a state_dict is loaded (load_encoder_state);
   * 'hash' -- the deterministic feature-hash embedder (host numpy).
 Unlike the reference this is a plain object, not a process-wide singleton.
@@ -35,7 +35,10 @@ class EmbeddingManager:
         self.device = resolve_device(device)
         self.seed = seed
         emb = self.cfg.get("embedding")
-        self.backend = emb.get("backend", "torch")
+        # the reference's configs name its encoder backend jax: here that is
+        # the torch encoder, as index/embedding_strategy.py reads it
+        backend = emb.get("backend", "torch")
+        self.backend = "torch" if backend == "jax" else backend
         if self.backend not in ("torch", "hash"):
             raise ValueError(f"unknown embedding backend {self.backend!r}")
         self.model_name = emb.get("model_name", "BAAI/bge-m3")

@@ -175,17 +175,15 @@ def make_handler(qp, engine=None):
 
 
 def load_config(path):
-    """The YAML file at `path` over the port's defaults; the defaults alone
-    when `path` is None."""
-    if not path:
-        return Config()
-    try:
-        import yaml
-    except ImportError:
-        raise SystemExit(f"--config {path}: reading YAML needs the PyYAML "
-                         "package (import yaml), which is not installed")
-    with open(path, "r", encoding="utf-8") as fh:
-        return Config(yaml.safe_load(fh) or {})
+    """The YAML file at `path` over the port's defaults, read by the port's
+    own reader (no PyYAML), aliases synchronised as the reference's
+    ConfigLoader does; the defaults alone when `path` is None."""
+    cfg = Config()
+    if path:
+        if not Path(path).exists():
+            raise FileNotFoundError(f"--config {path}: no such file")
+        cfg.load_config(path)
+    return cfg
 
 
 def main(argv=None) -> int:

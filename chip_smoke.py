@@ -132,7 +132,7 @@ Phases, each printing its seconds:
                 torch.matmul + torch.topk (f32, no TF32) and the bound; a
                 second `process` of the same file all cache hits with every
                 artifact's SHA1 unchanged; `main query`'s QueryProcessor over
-                the work dir answering the first 64 items' questions through
+                the work dir answering the first 32 items' questions through
                 process() with the reference's keys (latency median and p90,
                 answer methods, exact match against the gold answers and
                 aliases, printed, not gated: the encoder's weights are
@@ -142,7 +142,25 @@ Phases, each printing its seconds:
                 same top-10 sets, the namespace fallback with one item's doc
                 id giving notes of that doc only, the lexical fallback's hits;
                 peak device memory and the host's peak RSS;
-  12. llm    -- the LLM layer and the decoder LM: seeded weights at
+  12. musique -- the MuSiQue batch pipeline over the offline phase's items:
+                8 items through pipeline_musique.process_musique_item on the
+                card and on the CPU (hash backend, Flat), every row field
+                equal; `python -m anorag_tpu_torch.main_musique` in-process
+                (main_musique.main(argv, Config)) over the first 64 items at full
+                width (--no-llm, --workers 2): one row per item, no error
+                row, a second run adding no row, items/s and each item's
+                seconds (median, p90) split into the KB build, the
+                QueryProcessor's construction and process(), the notes an
+                item, peak device memory, the hand kernels' launches (none
+                at this size), one item under torch.profiler (idle share);
+                run_evaluation plain and --enhanced over the predictions
+                (EM, F1, support EM and F1 printed, not gated: random
+                encoder weights); --enable-cor over 4 items, no error row;
+                2 items with llm.provider jax (seeded decoder weights at
+                note_lm_tpu_large's shape, notes_llm max_tokens 16,
+                llm.max_output_tokens 64) on 2 worker threads: no error row,
+                the decoder loaded once;
+  13. llm    -- the LLM layer and the decoder LM: seeded weights at
                 checkpoints/note_lm_tpu_large's shape (6 layers, hidden 384,
                 8 heads, FFN 1536, max_len 2048; f32) written with save_lm
                 into a temporary directory; prefill and 64 decode steps on
@@ -156,7 +174,7 @@ Phases, each printing its seconds:
                 False) with llm.provider jax and answer_selector.
                 apply_before_llm off (LocalLLM -> LLMFactory -> the decoder
                 provider), llm.max_output_tokens 64 (256 decode steps a
-                call); the KB questions and 3 Zipf queries through
+                call); the KB questions and 2 Zipf queries through
                 process() (host s a query by stage, the LLM's share; the KB
                 answers equal to the same processor's without the LLM where
                 EFSA rescues them), one request of 4 through a
@@ -168,7 +186,7 @@ Phases, each printing its seconds:
                 logits finite, hand kernels' launches counted from 0 (the
                 served request's window winners); one process() profiled
                 at llm.max_output_tokens 16 (idle share);
-  13. http   -- the port's HTTP server (anorag_tpu_torch/serve.py) on
+  14. http   -- the port's HTTP server (anorag_tpu_torch/serve.py) on
                 127.0.0.1 over the same QueryProcessor, its engine at the
                 config defaults (sub-batch 64, depth 3): /healthz; /search
                 with a KB question gives qp.retriever.retrieve's note ids;
@@ -179,7 +197,7 @@ Phases, each printing its seconds:
                 the KB answers; each call's latency, and how many of
                 request 0's answers equal the serve phase's (they may
                 differ only where the 64-query batches' note lists do);
-  14. search -- a VectorRetriever with use_kernel=True over the same notes
+  15. search -- a VectorRetriever with use_kernel=True over the same notes
                 and embeddings: search for one 512-query request at top_k
                 20 and retrieve for 32 single queries at top_k 10 (fetch 30,
                 the /search endpoint's traffic); the top-k kernel's
@@ -188,12 +206,12 @@ Phases, each printing its seconds:
                 (use_kernel None: chunked matmul + exact top-k, what
                 QueryProcessor's retriever takes below 5,000,000 notes),
                 its scores equal to the kernel route's to 1e-5;
-  15. bench  -- the port's benchmark entry point in-process
+  16. bench  -- the port's benchmark entry point in-process
                 (anorag_tpu_torch/bench.py): kernel_parity, bench_hybrid at
                 200,000 docs with its recall gate (recall@10 against exact
                 f32 at least 0.985) and bench_encoder, their JSON on one
                 line; every kernel they reach, counted from 0, launched;
-  16. ivf    -- a default VectorIndex(index_type="IVFFlat") (nlist 20,
+  17. ivf    -- a default VectorIndex(index_type="IVFFlat") (nlist 20,
                 nprobe 4, 15 k-means rounds) over 5,000,000 x 1024 rows
                 drawn on the card around 1,000 centres: build time, 4
                 batches of 512 queries at top_k 20 and 64 single queries at
@@ -1851,7 +1869,9 @@ def _process_phase(dev, qp, graph_times: dict, build_launches: int, rng, words,
 # the offline phase: the knowledge-base build of `main process`
 OFFLINE_ITEMS = 200            # synthetic MuSiQue-style items, 40 paragraphs each
 OFFLINE_MIN_NOTES = 20_000     # above this the self-join runs on the card (SEMANTIC_HOST_ROWS)
-OFFLINE_QUERIES = 64           # items whose questions go through process()
+# items whose questions go through process() (cut from 64 when the musique
+# phase joined, to keep the script near its time)
+OFFLINE_QUERIES = 32
 OFFLINE_RETRIEVE = 32          # questions of the retriever's round trips
 OFFLINE_REMOVED = 100          # notes removed and added back
 _DOC = "doc.processor"
@@ -2118,22 +2138,303 @@ def _offline_phase(dev, seed: int, smi_line: str) -> dict:
           f"memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB, host peak RSS "
           f"{rss_gb:.2f} GB | {smi_line}", flush=True)
     del qp, vr, loaded, emb
-    for h in root_log.handlers[:]:           # main's log handlers go with the KB
+    _drop_log_handlers(log_state)            # main's log handlers go with the KB
+    for f in sorted(tmp.rglob("*"), reverse=True):   # all but the items (phase musique)
+        if f != synth:
+            f.unlink() if f.is_file() else f.rmdir()
+    return dict(launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms), synth
+
+
+def _drop_log_handlers(log_state) -> None:
+    """Removes the log handlers an entry point's setup_logging added."""
+    import logging
+
+    root_log = logging.getLogger()
+    for h in root_log.handlers[:]:
         if h not in log_state[1]:
             root_log.removeHandler(h)
             h.close()
     root_log.setLevel(log_state[0])
-    for f in sorted(tmp.rglob("*"), reverse=True):
-        f.unlink() if f.is_file() else f.rmdir()
-    tmp.rmdir()
-    return dict(launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+
+
+# the musique phase: main_musique over phase offline's items
+# items of the full-width run: the first 64 of phase offline's 200 (all 200
+# took 218 s of a 271 s phase on an H100; the phase is to stay near 200 s)
+MUSIQUE_ITEMS = 64
+MUSIQUE_PARITY = 8             # items through process_musique_item on the card and the CPU
+MUSIQUE_COR = 4                # items of the --enable-cor run
+MUSIQUE_LLM = 2                # items of the run with the decoder LM
+MUSIQUE_PARTS = ("kb", "qp", "process")   # DocumentProcessor, QueryProcessor(), process()
+
+
+def _item_part_timers(times: dict):
+    """Times each item's KB build (DocumentProcessor.process_documents),
+    QueryProcessor construction and process(), and the whole item
+    (pipeline_musique.process_musique_item), by item id, from any worker
+    thread. Returns the function that undoes it."""
+    import threading
+    from pathlib import Path
+
+    from anorag_tpu_torch import pipeline_musique as pm
+    from anorag_tpu_torch.doc.processor import DocumentProcessor
+    from anorag_tpu_torch.query.processor import QueryProcessor
+
+    lock = threading.Lock()
+
+    def add(key, part, dt):
+        with lock:
+            times.setdefault(str(key), dict.fromkeys((*MUSIQUE_PARTS, "item"), 0.0))
+            times[str(key)][part] += dt
+
+    def wrap(owner, name, part, key_of):
+        inner = getattr(owner, name)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return inner(*args, **kwargs)
+            finally:
+                add(key_of(args, kwargs), part, time.perf_counter() - t0)
+        setattr(owner, name, timed)
+        return lambda: setattr(owner, name, inner)
+
+    undo = [
+        wrap(DocumentProcessor, "process_documents", "kb",
+             lambda a, k: a[0].output_dir.parent.name),
+        wrap(QueryProcessor, "__init__", "qp",
+             lambda a, k: Path(k.get("work_dir") or "").name),
+        wrap(QueryProcessor, "process", "process", lambda a, k: k.get("qid")),
+        wrap(pm, "process_musique_item", "item", lambda a, k: a[0].get("id")),
+    ]
+    return lambda: [u() for u in undo]
+
+
+def _musique_phase(dev, synth, seed: int, smi_line: str) -> None:
+    """The MuSiQue batch pipeline and its evaluation on the card over phase
+    offline's items: (i) MUSIQUE_PARITY items through process_musique_item
+    on the card and on the CPU (hash backend, Flat), every row field equal;
+    (ii) main_musique at full width (the 24-layer, 1024-hidden bf16 encoder
+    with seeded weights, --no-llm, --workers 2) over MUSIQUE_ITEMS items:
+    one row per item, no error row, a second run that adds no row; items/s,
+    each item's seconds (median, p90) by part, one item's idle share under
+    torch.profiler, peak device memory, the hand kernels' launches; (iii)
+    run_evaluation plain and --enhanced over the predictions (printed, not
+    gated: the encoder's weights are random); (iv) --enable-cor over
+    MUSIQUE_COR items, no error row; (v) MUSIQUE_LLM items with llm.provider
+    jax (seeded decoder weights at note_lm_tpu_large's shape, output tokens
+    cut), --workers 2: no error row, the decoder loaded once."""
+    import contextlib
+    import io
+    import logging
+    import shutil
+    import statistics
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from anorag_tpu_torch import main_musique, run_evaluation
+    from anorag_tpu_torch import pipeline_musique as pm
+    from anorag_tpu_torch.config import Config
+    from anorag_tpu_torch.models import decoder_lm as dlm
+    from anorag_tpu_torch.models.embedding_manager import EmbeddingManager
+    from anorag_tpu_torch.ops import bm25, ivf, topk
+    from anorag_tpu_torch.testing import NOTE_LM_TPU_LARGE
+    from anorag_tpu_torch.utils.batch_processor import device_memory_stats
+    from anorag_tpu_torch.utils.file_io import latest_work_dir, read_json, read_jsonl
+
+    counted = {"window_winners": bm25.window_winners, "segment_totals": bm25.segment_totals,
+               "segment_winners": bm25.segment_winners,
+               "streaming_topk": topk.dense_topk_kernel,
+               "bucket_winners": topk.bucket_winners, "ivf_scan": ivf.ivf_scan}
+    tmp = Path(tempfile.mkdtemp(prefix="anorag_musique_"))
+    items = read_jsonl(synth)[:MUSIQUE_ITEMS]
+    root_log = logging.getLogger()
+    log_state = (root_log.level, list(root_log.handlers))
+
+    def cfg_for(name, sets=None):
+        cfg = Config({"storage": {"result_root": str(tmp / name / "result")}})
+        for key, value in (sets or {}).items():
+            cfg.set(key, value)
+        return cfg
+
+    def rows_of(path, n, what):
+        rows = read_jsonl(path)
+        ids = sorted(str(r["id"]) for r in rows)
+        if ids != sorted(str(it["id"]) for it in items[:n]):
+            raise AssertionError(f"{what}: {len(rows)} rows for {n} items")
+        bad = [r for r in rows if r.get("error")]
+        if bad:
+            raise AssertionError(f"{what}: error rows {bad[:3]}")
+        return rows
+
+    # (i) the card against the CPU, hash backend and Flat
+    hashed = {"embedding.backend": "hash", "embedding.dim": 128,
+              "vector_store.index_type": "Flat"}
+    got = {}
+    for device in ("cuda", "cpu"):
+        cfg = cfg_for("parity", hashed)
+        em = EmbeddingManager(cfg, device)
+        t0 = time.perf_counter()
+        got[device] = [pm.process_musique_item(it, tmp / "parity" / device / str(it["id"]),
+                                               cfg=cfg, embedding_manager=em, device=device)
+                       for it in items[:MUSIQUE_PARITY]]
+        got[device + "_s"] = time.perf_counter() - t0
+    diff = [(c, p) for c, p in zip(got["cuda"], got["cpu"]) if c != p]
+    if diff:
+        raise AssertionError(f"card and CPU rows differ: {diff[:2]}")
+    print(f"musique: {MUSIQUE_PARITY} items through process_musique_item, hash backend, "
+          f"Flat: card rows equal to the CPU's in every field ({got['cuda_s']:.3f} s on "
+          f"the card, {got['cpu_s']:.3f} s on the CPU; answers "
+          f"{[r['predicted_answer'] for r in got['cuda']][:4]}...)", flush=True)
+    _drop_log_handlers(log_state)
+
+    # (ii) the full-width run through main_musique, timed by item and part
+    cfg = cfg_for("full")
+    preds = tmp / "preds.jsonl"
+    args = [str(synth), str(preds), "--no-llm", "--workers", "2", "--limit", str(len(items))]
+    times: dict = {}
+    undo = _item_part_timers(times)
+    try:
+        for fn in counted.values():
+            fn.launches = 0
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        rc = main_musique.main(args, cfg)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        launches = {name: fn.launches for name, fn in counted.items()}
+        mem = device_memory_stats()
+    finally:
+        undo()
+    _drop_log_handlers(log_state)
+    if rc != 0:
+        raise AssertionError(f"main_musique exited {rc}")
+    rows = rows_of(preds, len(items), "main_musique")
+    card = mem.get(f"cuda:{dev.index or 0}", {})
+    if not (isinstance(card.get("bytes_in_use"), int)
+            and 0 <= card["bytes_in_use"] < (card.get("bytes_limit") or 0)):
+        raise AssertionError(f"device_memory_stats() gave {mem}")
+    per = [times[str(it["id"])] for it in items]
+    work = latest_work_dir(tmp / "full" / "result")
+    n_notes = sorted(len(read_json(work / str(it["id"]) / "kb" / "atomic_notes.json"))
+                     for it in items)
+
+    def q(part):
+        vals = sorted(t[part] for t in per)
+        return f"median {statistics.median(vals):.4f} p90 {vals[int(0.9 * len(vals))]:.4f}"
+
+    print(f"musique full width (24 layers, hidden 1024, bf16, seeded; --no-llm, "
+          f"--workers 2): {len(items)} items in {wall:.3f} s, {len(items) / wall:.4f} "
+          f"items/s; s an item {q('item')}; KB build {q('kb')}; QueryProcessor() "
+          f"{q('qp')}; process() {q('process')}; notes an item {n_notes[0]}-{n_notes[-1]} "
+          f"(median {statistics.median(n_notes):.0f}); peak device memory {peak_gb:.2f} GB "
+          f"(device_memory_stats {card}); hand kernels' "
+          f"launches {launches} | {smi_line}", flush=True)
+
+    before = preds.read_bytes()
+    t0 = time.perf_counter()
+    rc = main_musique.main(args, cfg_for("full"))
+    again_s = time.perf_counter() - t0
+    _drop_log_handlers(log_state)
+    if rc != 0 or preds.read_bytes() != before:
+        raise AssertionError(f"the second main_musique run (exit {rc}) changed the "
+                             f"predictions")
+    print(f"musique resume: a second run over the same predictions adds no row "
+          f"({again_s:.3f} s)", flush=True)
+
+    # one item under torch.profiler: the card's idle share
+    em = EmbeddingManager(cfg, dev)
+    pm.process_musique_item(items[1], tmp / "warm", cfg=cfg, embedding_manager=em,
+                            device=dev)
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pm.process_musique_item(items[0], tmp / "profiled", cfg=cfg, embedding_manager=em,
+                                device=dev)
+        torch.cuda.synchronize(dev)
+        item_s = time.perf_counter() - t0
+    busy_ms, n_events = _kineto_busy_ms(prof)
+    del prof, em
+    _drop_log_handlers(log_state)
+    print(f"musique one item profiled: {item_s:.4f} s, device busy {busy_ms:.2f} ms in "
+          f"{n_events} device events, idle share {1 - busy_ms / 1e3 / item_s:.4f} "
+          f"| {smi_line}", flush=True)
+
+    # (iii) the evaluation, plain and --enhanced
+    for extra in ([], ["--enhanced"]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = run_evaluation.main([str(preds), str(synth), *extra])
+        metrics = json.loads(buf.getvalue())
+        if rc != 0 or metrics["n_evaluated"] < 1:
+            raise AssertionError(f"run_evaluation {extra}: exit {rc}, {metrics}")
+        print(f"run_evaluation {' '.join(extra) or 'plain'} over {len(rows)} predictions: "
+              + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                          for k, v in metrics.items())
+              + " (random encoder weights; not gated)", flush=True)
+
+    # (iv) Chain-of-Retrieval
+    cor_preds = tmp / "cor.jsonl"
+    t0 = time.perf_counter()
+    rc = main_musique.main([str(synth), str(cor_preds), "--no-llm", "--workers", "2",
+                            "--limit", str(MUSIQUE_COR), "--enable-cor"], cfg_for("cor"))
+    cor_s = time.perf_counter() - t0
+    _drop_log_handlers(log_state)
+    if rc != 0:
+        raise AssertionError(f"main_musique --enable-cor exited {rc}")
+    rows_of(cor_preds, MUSIQUE_COR, "--enable-cor")
+    print(f"musique --enable-cor: {MUSIQUE_COR} items, no error row ({cor_s:.3f} s)",
+          flush=True)
+
+    # (v) one decoder LM shared by two workers
+    lm_cfg = dlm.DecoderConfig(**NOTE_LM_TPU_LARGE)
+    params = dlm.init_params(lm_cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    dlm.save_lm(tmp / "lm", params, lm_cfg)
+    del params
+    loads = []
+    load_lm = dlm.load_lm
+
+    def counting_load(*a, **k):
+        loads.append(a[0] if a else k.get("path"))
+        return load_lm(*a, **k)
+
+    dlm.load_lm = counting_load
+    llm_preds = tmp / "llm.jsonl"
+    try:
+        t0 = time.perf_counter()
+        rc = main_musique.main(
+            [str(synth), str(llm_preds), "--workers", "2", "--limit", str(MUSIQUE_LLM)],
+            cfg_for("llm", {"llm.provider": "jax", "llm.jax": {"model": str(tmp / "lm")},
+                            "notes_llm.llm_params.max_tokens": 16,
+                            "llm.max_output_tokens": 64}))
+        llm_s = time.perf_counter() - t0
+    finally:
+        dlm.load_lm = load_lm
+        _drop_log_handlers(log_state)
+    if rc != 0:
+        raise AssertionError(f"main_musique with the LLM exited {rc}")
+    llm_rows = rows_of(llm_preds, MUSIQUE_LLM, "the LLM run")
+    if len(loads) != 1:
+        raise AssertionError(f"the decoder was loaded {len(loads)} times, not once")
+    print(f"musique with the decoder LM (llm.provider jax, note_lm_tpu_large's shape, "
+          f"seeded; notes max_tokens 16, llm.max_output_tokens 64; --workers 2): "
+          f"{MUSIQUE_LLM} items in {llm_s:.3f} s, no error row, the decoder loaded "
+          f"once; answer methods {[r.get('answer_method') for r in llm_rows]} "
+          f"| {smi_line}", flush=True)
+    shutil.rmtree(tmp)
+    shutil.rmtree(synth.parent)
 
 
 # the llm phase: the decoder LM at checkpoints/note_lm_tpu_large's shape
-# (cut from 5 and 8 when the offline phase joined, to keep the script
+# (cut from 5 and 8 when the offline phase joined, and LLM_ZIPF to 2 when
+# the musique phase did, to keep the script
 # near half its time limit)
-LLM_ZIPF = 3                   # Zipf queries through process() with the LLM
+LLM_ZIPF = 2                   # Zipf queries through process() with the LLM
 LLM_SERVED = 4                 # queries of the request served with the LLM
 LLM_CONCURRENT = 8             # concurrent requests to serve_llm
 LLM_SERVE_MAX_NEW = 512        # serve_llm's byte budget (its --max-new default)
@@ -2855,24 +3156,28 @@ def run(dev, seed: int = 0):
     t = _phase("process", t)
 
     # 11. offline: the knowledge-base build of main process, then main query
-    offline_join = _offline_phase(dev, seed, smi_line)
+    offline_join, synth = _offline_phase(dev, seed, smi_line)
     t = _phase("offline", t)
 
-    # 12. llm: the LLM layer and the decoder LM through process(), the
+    # 12. musique: main_musique over the offline phase's items, and its evaluation
+    _musique_phase(dev, synth, seed, smi_line)
+    t = _phase("musique", t)
+
+    # 13. llm: the LLM layer and the decoder LM through process(), the
     # served path, /query and serve_llm
     _llm_phase(dev, qp, notes, words, np.random.default_rng(seed + 3), seed, smi_line)
     t = _phase("llm", t)
 
-    # 13. http: the port's server at the config defaults
+    # 14. http: the port's server at the config defaults
     _http_phase(qp, requests[0], responses[0], kb_process, notes, top_k, smi_line)
     t = _phase("http", t)
 
-    # 14. search: VectorRetriever.search / retrieve through the top-k kernel
+    # 15. search: VectorRetriever.search / retrieve through the top-k kernel
     dense_launches = _search_phase(dev, em, notes, retriever.index.flat_device_emb(),
                                    requests[1:3], smi_line)
     t = _phase("search", t)
 
-    # 15. bench: the port's benchmark entry point, in-process
+    # 16. bench: the port's benchmark entry point, in-process
     for name, count in _bench_phase(dev, smi_line).items():
         bucket_launches[name] += count
     idle = [name for name, count in bucket_launches.items() if count < 1]
@@ -2881,7 +3186,7 @@ def run(dev, seed: int = 0):
                              f"kernel {idle}: {bucket_launches}")
     t = _phase("bench", t)
 
-    # 16. ivf: the default IVFFlat index at 5,000,000 rows
+    # 17. ivf: the default IVFFlat index at 5,000,000 rows
     ivf_launches, ivf_err, ivf_main, plan_launches, plan_main = _ivf_phase(
         dev, seed, smi_line)
     scan_errs.append(ivf_err)

@@ -150,6 +150,7 @@ def _normalized(path: Path, original: bool):
             if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
                 funcs[prefix + node.name] = (body, i)
             elif isinstance(node, ast.ClassDef):
+                funcs[prefix + node.name] = (body, i)
                 walk(node.body, prefix + node.name + ".")
 
     walk(tree.body, "")
@@ -157,6 +158,8 @@ def _normalized(path: Path, original: bool):
         if isinstance(node, ast.Assign) and len(node.targets) == 1 \
                 and isinstance(node.targets[0], ast.Name):
             funcs[node.targets[0].id] = (tree.body, i)
+        if isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+            funcs[node.target.id] = (tree.body, i)
     return tree, funcs
 
 
@@ -198,7 +201,9 @@ def assert_copy_equal(rel, differs):
 def test_every_port_module_with_an_original_is_a_copy_or_a_rewrite():
     """A port file named as a reference file is either a copy held above
     or one of the port's own rewrites, listed here."""
+    from test_torch_config import CONFIG_COPIED
     from test_torch_llm import LLM_COPIED
+    from test_torch_musique import MUSIQUE_COPIED
     from test_torch_offline import OFFLINE_COPIED
 
     rewritten = {"device.py", "serving.py", "models/decoder_lm.py",
@@ -211,7 +216,8 @@ def test_every_port_module_with_an_original_is_a_copy_or_a_rewrite():
             for p in (ROOT / "anorag_tpu_torch").rglob("*.py")
             if p.name != "__init__.py"}
     both = {p for p in both if (ROOT / "anorag_tpu" / p).exists()}
-    assert both == set(COPIED) | set(LLM_COPIED) | set(OFFLINE_COPIED) | rewritten
+    assert both == (set(COPIED) | set(LLM_COPIED) | set(OFFLINE_COPIED)
+                    | set(CONFIG_COPIED) | set(MUSIQUE_COPIED) | rewritten)
 
 
 def test_copied_package_inits_are_empty():

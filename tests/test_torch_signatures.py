@@ -58,6 +58,24 @@ from anorag_tpu_torch.index import store as tstore
 from anorag_tpu_torch.llm import note_generator as tnote
 from anorag_tpu_torch.models import embedding_manager as tem
 from anorag_tpu_torch.ops import kmeans as tkmeans
+import anorag_tpu.pipeline_musique as jpm
+import anorag_tpu_torch.pipeline_musique as tpm
+from anorag_tpu.config import loader as jloader
+from anorag_tpu.eval import evaluator as jevaluator
+from anorag_tpu.eval import musique as jmusique
+from anorag_tpu.llm import cor_controller as jcor
+from anorag_tpu.utils import batch_processor as jbatch
+from anorag_tpu.utils import dataset_guard as jguard
+from anorag_tpu.utils import padding as jpadding
+from anorag_tpu.utils import progress as jprogress
+from anorag_tpu_torch.config import loader as tloader
+from anorag_tpu_torch.eval import evaluator as tevaluator
+from anorag_tpu_torch.eval import musique as tmusique
+from anorag_tpu_torch.llm import cor_controller as tcor
+from anorag_tpu_torch.utils import batch_processor as tbatch
+from anorag_tpu_torch.utils import dataset_guard as tguard
+from anorag_tpu_torch.utils import padding as tpadding
+from anorag_tpu_torch.utils import progress as tprogress
 
 # The port's names for the reference's.
 RENAMES = {"use_pallas": "use_kernel"}   # the kernels are CUDA, not Pallas
@@ -177,6 +195,32 @@ PAIRS = [
                    "kernel_parity", "bench_hybrid", "bench_true_device",
                    "bench_encoder", "main")],
 ]
+
+
+
+def _public(jmod, tmod):
+    """(label, reference, port) for each public function of `jmod` and each
+    method of its public classes, defined in the module itself."""
+    out = []
+    for name, obj in sorted(vars(jmod).items()):
+        if name.startswith("_") or getattr(obj, "__module__", None) != jmod.__name__:
+            continue
+        if inspect.isfunction(obj):
+            out.append((f"{jmod.__name__}.{name}", obj, getattr(tmod, name)))
+        elif inspect.isclass(obj):
+            out += [(f"{jmod.__name__}.{name}.{m}", fn, getattr(getattr(tmod, name), m))
+                    for m, fn in sorted(vars(obj).items())
+                    if inspect.isfunction(fn) and (m == "__init__" or not m.startswith("_"))]
+    return out
+
+
+# the MuSiQue pipeline, its evaluation and the config loader (the root
+# CLIs' main() take no parameters; the port's take argv)
+PAIRS += [pair for jmod, tmod in ((jpm, tpm), (jloader, tloader), (jevaluator, tevaluator),
+                                  (jmusique, tmusique), (jcor, tcor), (jbatch, tbatch),
+                                  (jguard, tguard), (jpadding, tpadding),
+                                  (jprogress, tprogress))
+          for pair in _public(jmod, tmod)]
 
 
 def _params(fn):
