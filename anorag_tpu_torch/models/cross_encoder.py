@@ -11,7 +11,7 @@ candidate [SEP]`: the port's encoder layers (models/encoder.py, cls
 pooling, no normalization, f32), segment embeddings for the two spans and
 a scalar relevance head on the CLS state. Training is listwise softmax
 cross-entropy over slates of one positive and in-domain negatives, with
-torch.optim.AdamW(lr, weight_decay=0.01), the update optax.adamw applies.
+training/optim.py's adamw(lr, weight_decay=0.01), optax.adamw's update.
 Checkpoints are a state dict written with torch.save, where the reference
 writes orbax (the card has none); params_from_jax carries the reference's
 parameters into the port.
@@ -30,6 +30,7 @@ from torch import nn
 from anorag_tpu_torch.device import DeviceLike, resolve_device
 from anorag_tpu_torch.models import encoder as enc
 from anorag_tpu_torch.models.tokenizer import CLS_ID, PAD_ID, SEP_ID, HashTokenizer
+from anorag_tpu_torch.training.optim import adamw, make_step
 from anorag_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("anorag.xenc")
@@ -140,16 +141,9 @@ def listwise_loss(params: CrossEncoder, batch: Dict[str, torch.Tensor],
 
 def make_train_step(cfg: CrossEncoderConfig, optimizer: torch.optim.Optimizer):
     """train_step(params, opt_state, batch) -> (params, opt_state, loss):
-    one optimizer step on the listwise loss. The optimizer holds its own
-    state, so opt_state passes through."""
-    def train_step(params, opt_state, batch):
-        optimizer.zero_grad(set_to_none=True)
-        loss = listwise_loss(params, batch, cfg)
-        loss.backward()
-        optimizer.step()
-        return params, opt_state, loss.detach()
-
-    return train_step
+    one optimizer step on the listwise loss (training/optim.py's
+    make_step)."""
+    return make_step(lambda params, batch: listwise_loss(params, batch, cfg), optimizer)
 
 
 def pack_pair(tokenizer, query_ids: List[int], text: str,
@@ -247,8 +241,7 @@ class CrossEncoderReranker:
         slates are drawn from np.random.default_rng(seed) as the
         reference draws them."""
         self.model.requires_grad_(True)
-        optimizer = torch.optim.AdamW(self.model.parameters(), lr=learning_rate,
-                                      weight_decay=0.01)
+        optimizer = adamw(self.model.parameters(), learning_rate, weight_decay=0.01)
         step_fn = make_train_step(self.cfg, optimizer)
         rng = np.random.default_rng(seed)
         history: List[float] = []

@@ -1,11 +1,14 @@
 """Byte-level causal decoder LM: the framework's own generative model.
 
 Counterpart of anorag_tpu/models/decoder_lm.py: ByteTokenizer, DecoderConfig,
-init_params, forward, the generator (_prefill, _decode_step, _mask_unused,
+init_params, forward, the training loss and step (lm_loss :229,
+make_train_step :246; autograd where the reference takes
+jax.value_and_grad), the generator (_prefill, _decode_step, _mask_unused,
 _pick, generate; the reference's generate_fn), DecoderLM and the checkpoint
 files (save_lm, load_lm: the same params.npz and config.json, read and
 written with numpy). params_from_jax carries the reference's parameter
-pytree across. The training step and the sharding specs are not ported.
+pytree across. The sharding specs (param_pspecs) wait for the sharded
+branch.
 
 The arithmetic follows the reference's: pre-LN blocks with layer norm in
 f32 (eps 1e-5), RoPE at absolute positions over the left-padded row
@@ -28,7 +31,7 @@ import dataclasses
 import json
 import math
 from pathlib import Path
-from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +39,7 @@ from torch import nn
 
 from anorag_tpu_torch.device import DeviceLike, resolve_device
 from anorag_tpu_torch.models.encoder import _layer_norm
+from anorag_tpu_torch.training.optim import make_step
 
 PAD_ID = 0
 BOS_ID = 1
@@ -259,6 +263,12 @@ def forward(params: DecoderParams, token_ids: torch.Tensor, cfg: DecoderConfig,
     attn_mask (B, S) marks valid tokens (left- OR right-padding excluded
     from keys); causality is applied on top.
     """
+    return _forward(params, token_ids, cfg, attn_mask)
+
+
+def _forward(params: DecoderParams, token_ids: torch.Tensor, cfg: DecoderConfig,
+             attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """forward, with autograd's graph when the parameters take gradients."""
     b, s = token_ids.shape
     x = params.tok_emb[token_ids.long()].to(cfg.dtype)
     pos = torch.arange(s, device=x.device)
@@ -275,6 +285,33 @@ def forward(params: DecoderParams, token_ids: torch.Tensor, cfg: DecoderConfig,
         x = x + _attend(q, k, v, allowed, lp, cfg)
         x = x + _ffn(_layer_norm(x, lp.ln2_scale, lp.ln2_bias), lp)
     return _logits(params, x)
+
+
+# ----------------------------------------------------------------- loss
+def lm_loss(params: DecoderParams, batch: Mapping[str, torch.Tensor],
+            cfg: DecoderConfig) -> torch.Tensor:
+    """Next-token CE masked to completion tokens.
+
+    batch: ids (B, S) int, loss_mask (B, S) f32 -- mask[i, t] weights the
+    prediction OF token t (from position t-1).
+    """
+    ids, mask = batch["ids"], batch["loss_mask"]
+    logits = _forward(params, ids[:, :-1], cfg,
+                      attn_mask=(ids[:, :-1] != PAD_ID).to(torch.int32))
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, ids[:, 1:, None].long())[:, :, 0]
+    w = mask[:, 1:]
+    return torch.sum(nll * w) / torch.clamp_min(torch.sum(w), 1.0)
+
+
+def make_train_step(cfg: DecoderConfig, optimizer: torch.optim.Optimizer,
+                    clip: Optional[Callable[[Sequence[torch.Tensor]], None]] = None):
+    """train_step(params, opt_state, batch) -> (params, opt_state, loss):
+    lm_loss's gradients, `clip` applied to them (training/optim.py's
+    clip_by_global_norm: the reference chains optax.clip_by_global_norm
+    before its adamw), then one optimizer step (training/optim.py's
+    make_step)."""
+    return make_step(lambda params, batch: lm_loss(params, batch, cfg), optimizer, clip)
 
 
 # ------------------------------------------------------------ generation

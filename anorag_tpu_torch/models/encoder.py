@@ -1,24 +1,34 @@
-"""Transformer text encoder (XLM-R-large geometry by default).
+"""Transformer text encoder (XLM-R-large geometry by default) and its
+contrastive training step.
 
 Counterpart of anorag_tpu/models/encoder.py: EncoderConfig (:29), and
-Encoder.forward for encode (:166). The parameters keep the JAX package's
+Encoder.forward for encode (:166), info_nce_loss (:197) and
+make_train_step (:210). The parameters keep the JAX package's
 layout (qkv (h, 3, n, dh), attn_out (n, dh, h), ...) so that
 params_from_jax is a renaming, and the
 forward pass mirrors the reference's rounding points: layer norm statistics
 in f32 (eps 1e-5), attention logits in f32 masked with the f32 minimum,
 post-LN blocks with erf GELU, cls or mean pooling, L2 normalisation with a
 1e-9 floor. The encoder is plain tensor code: its matmuls go to
-torch.matmul, as the reference left them to XLA.
+torch.matmul, as the reference left them to XLA, and autograd takes its
+gradients where the reference's jax.value_and_grad does. With
+cfg.param_dtype f32 and cfg.dtype bf16 the parameters are f32 masters and
+the forward casts every one of them (layer norms too) to bf16 at entry, as
+the reference's encode casts its tree; cfg.remat recomputes each block in
+the backward pass (torch.utils.checkpoint, the reference's jax.checkpoint).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
+
+from anorag_tpu_torch.training.optim import make_step
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -34,10 +44,19 @@ class EncoderConfig:
     pooling: str = "cls"          # cls | mean
     dtype: torch.dtype = torch.bfloat16
     normalize: bool = True
+    remat: bool = False           # checkpoint each block (training big configs)
+    # master-parameter dtype; None -> dtype. f32 masters with bf16 compute
+    # keep adamw's small updates that bf16 weights would round away
+    param_dtype: Optional[torch.dtype] = None
 
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
+
+    @property
+    def masters(self) -> bool:
+        """Whether the parameters are masters cast to dtype in the forward."""
+        return self.param_dtype is not None and self.param_dtype != self.dtype
 
     @staticmethod
     def small() -> "EncoderConfig":
@@ -66,6 +85,16 @@ def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return ((xf - mu) * torch.rsqrt(var + eps) * scale + bias).to(x.dtype)
 
 
+def _compute(t: torch.Tensor, cfg: EncoderConfig) -> torch.Tensor:
+    """A parameter at the compute dtype: f32 masters cast to cfg.dtype (the
+    layer norms too, as the reference casts its whole tree), else as it is."""
+    return t.to(cfg.dtype) if cfg.masters else t
+
+
+_LAYER_PARAMS = ("qkv", "qkv_b", "attn_out", "attn_out_b", "ln1_scale", "ln1_bias",
+                 "ffn_in", "ffn_in_b", "ffn_out", "ffn_out_b", "ln2_scale", "ln2_bias")
+
+
 class EncoderLayer(nn.Module):
     def __init__(self, cfg: EncoderConfig, device: torch.device):
         super().__init__()
@@ -73,7 +102,7 @@ class EncoderLayer(nn.Module):
                           cfg.intermediate_size)
         self.cfg = cfg
 
-        def p(*shape, dtype=cfg.dtype):
+        def p(*shape, dtype=cfg.param_dtype or cfg.dtype):
             return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device),
                                 requires_grad=False)
 
@@ -90,8 +119,8 @@ class EncoderLayer(nn.Module):
         self.ln2_scale = p(h, dtype=torch.float32)
         self.ln2_bias = p(h, dtype=torch.float32)
 
-    def _attention(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        qkv = torch.einsum("bsh,htnd->tbsnd", x, self.qkv) + self.qkv_b[:, None, None]
+    def _attention(self, x: torch.Tensor, mask: torch.Tensor, w) -> torch.Tensor:
+        qkv = torch.einsum("bsh,htnd->tbsnd", x, w["qkv"]) + w["qkv_b"][:, None, None]
         q, k, v = qkv[0], qkv[1], qkv[2]                      # (B, S, N, Dh)
         logits = torch.einsum("bsnd,btnd->bnst", q, k).float()
         logits = logits / math.sqrt(self.cfg.head_dim)
@@ -99,29 +128,33 @@ class EncoderLayer(nn.Module):
         logits = logits.masked_fill(~(mask[:, None, None, :] > 0), neg)
         probs = torch.softmax(logits, dim=-1).to(x.dtype)
         ctx = torch.einsum("bnst,btnd->bsnd", probs, v)
-        return torch.einsum("bsnd,ndh->bsh", ctx, self.attn_out) + self.attn_out_b
+        return torch.einsum("bsnd,ndh->bsh", ctx, w["attn_out"]) + w["attn_out_b"]
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        x = _layer_norm(x + self._attention(x, mask), self.ln1_scale, self.ln1_bias)
-        ff = torch.matmul(x, self.ffn_in) + self.ffn_in_b
+        w = {name: _compute(getattr(self, name), self.cfg) for name in _LAYER_PARAMS}
+        x = _layer_norm(x + self._attention(x, mask, w), w["ln1_scale"], w["ln1_bias"])
+        ff = torch.matmul(x, w["ffn_in"]) + w["ffn_in_b"]
         ff = torch.nn.functional.gelu(ff, approximate="none")  # erf GELU
-        ff = torch.matmul(ff, self.ffn_out) + self.ffn_out_b
-        return _layer_norm(x + ff, self.ln2_scale, self.ln2_bias)
+        ff = torch.matmul(ff, w["ffn_out"]) + w["ffn_out_b"]
+        return _layer_norm(x + ff, w["ln2_scale"], w["ln2_bias"])
 
 
 class Encoder(nn.Module):
-    """Inference-only encoder; parameters are zero until loaded
-    (load_state_dict, e.g. from params_from_jax) or drawn (init_random)."""
+    """The encoder's parameters and forward pass; parameters are zero until
+    loaded (load_state_dict, e.g. from params_from_jax) or drawn
+    (init_random), and take no gradients until a trainer asks for them
+    (requires_grad_)."""
 
     def __init__(self, cfg: EncoderConfig, device: torch.device):
         super().__init__()
         h = cfg.hidden_size
+        pdtype = cfg.param_dtype or cfg.dtype
         self.cfg = cfg
         self.tok_emb = nn.Parameter(
-            torch.zeros(cfg.vocab_size, h, dtype=cfg.dtype, device=device),
+            torch.zeros(cfg.vocab_size, h, dtype=pdtype, device=device),
             requires_grad=False)
         self.pos_emb = nn.Parameter(
-            torch.zeros(cfg.max_position, h, dtype=cfg.dtype, device=device),
+            torch.zeros(cfg.max_position, h, dtype=pdtype, device=device),
             requires_grad=False)
         self.emb_ln_scale = nn.Parameter(
             torch.ones(h, device=device), requires_grad=False)
@@ -136,15 +169,20 @@ class Encoder(nn.Module):
         draw_weights(self, self.cfg.num_layers, generator)
         return self
 
-    @torch.no_grad()
     def forward(self, token_ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """(B, L) ids + mask -> (B, H) f32 (L2-normalized) embeddings."""
         cfg = self.cfg
         s = token_ids.shape[1]
-        x = self.tok_emb[token_ids] + self.pos_emb[:s][None, :, :]
-        x = _layer_norm(x.to(cfg.dtype), self.emb_ln_scale, self.emb_ln_bias)
+        # the rows gathered, then cast: the reference's cast-then-gather values
+        x = (_compute(self.tok_emb[token_ids], cfg)
+             + _compute(self.pos_emb[:s], cfg)[None, :, :])
+        x = _layer_norm(x.to(cfg.dtype), _compute(self.emb_ln_scale, cfg),
+                        _compute(self.emb_ln_bias, cfg))
         for lp in self.layers:
-            x = lp(x, mask)
+            if cfg.remat and torch.is_grad_enabled():
+                x = torch.utils.checkpoint.checkpoint(lp, x, mask, use_reentrant=False)
+            else:
+                x = lp(x, mask)
         if cfg.pooling == "mean":
             m = mask[:, :, None].float()
             pooled = (x.float() * m).sum(dim=1) / m.sum(dim=1).clamp_min(1.0)
@@ -189,10 +227,11 @@ def draw_weights(module: nn.Module, num_layers: int, generator: torch.Generator)
 def params_from_jax(np_params: Mapping[str, Any],
                     cfg: EncoderConfig) -> Dict[str, torch.Tensor]:
     """Carry the reference's parameter pytree (init_params :73, as numpy
-    arrays) into an Encoder state_dict. Weights take cfg.dtype; layer-norm
-    scales and biases stay f32, as in the reference."""
+    arrays) into an Encoder state_dict. Weights take cfg.param_dtype (the
+    masters) or else cfg.dtype; layer-norm scales and biases stay f32, as in
+    the reference."""
 
-    def t(a, dtype=cfg.dtype) -> torch.Tensor:
+    def t(a, dtype=cfg.param_dtype or cfg.dtype) -> torch.Tensor:
         return torch.tensor(np.asarray(a, np.float32)).to(dtype)
 
     f32 = torch.float32
@@ -211,3 +250,27 @@ def params_from_jax(np_params: Mapping[str, Any],
             sd[pre + ln + "_scale"] = t(lp[ln]["scale"], f32)
             sd[pre + ln + "_bias"] = t(lp[ln]["bias"], f32)
     return sd
+
+
+# ------------------------------------------------------------- training
+def info_nce_loss(params: Encoder, batch: Mapping[str, torch.Tensor],
+                  cfg: Optional[EncoderConfig] = None,
+                  temperature: float = 0.05) -> torch.Tensor:
+    """Contrastive loss: query i matches positive i, in-batch negatives;
+    the mean of the row-wise and the column-wise -log_softmax diagonal,
+    times 0.5. `params` is the Encoder; cfg is taken for the reference's
+    signature (the model carries its own)."""
+    q = params(batch["q_ids"], batch["q_mask"])
+    p = params(batch["p_ids"], batch["p_mask"])
+    logits = torch.matmul(q, p.T) / temperature                  # (B, B)
+    rows = torch.diagonal(torch.log_softmax(logits, dim=-1))
+    cols = torch.diagonal(torch.log_softmax(logits, dim=0))
+    return torch.mean(-rows - cols) * 0.5
+
+
+def make_train_step(cfg: EncoderConfig, optimizer: torch.optim.Optimizer):
+    """train_step(params, opt_state, batch) -> (params, opt_state, loss):
+    the InfoNCE loss's gradients into the parameters (the f32 masters when
+    cfg.param_dtype is f32) and one optimizer step (training/optim.py's
+    make_step)."""
+    return make_step(lambda params, batch: info_nce_loss(params, batch, cfg), optimizer)

@@ -596,3 +596,138 @@ def hf_state_dict(gen, vocab_size: int, hidden_size: int, num_layers: int,
         sd[p + "output.LayerNorm.weight"] = w(h, base=1.0)
         sd[p + "output.LayerNorm.bias"] = w(h)
     return sd
+
+
+def _adam_noise_check(name, got, want, grad, lr: float, atol: float) -> int:
+    """Parameters after one adamw step from the same weights: within `atol`
+    but where the CPU's gradient `grad` is below 1e-6 and not zero (Adam
+    divides a gradient by its size plus 1e-8, so rounding noise there
+    moves an element by up to lr); those within 2 lr. Returns their
+    count."""
+    diff = (got - want).abs()
+    noise = (grad.abs() < 1e-6) & (grad != 0)
+    kept = diff[~noise]
+    if kept.numel() and float(kept.max()) > atol:
+        raise AssertionError(f"{name}: off by {float(kept.max()):.3g} > {atol} after the step")
+    if float(diff.max()) > 2 * lr + atol:
+        raise AssertionError(f"{name}: off by {float(diff.max()):.3g} > 2 lr after the step")
+    return int(noise.sum())
+
+
+def _assert_f32_matmuls(device) -> None:
+    """f32 parity on the card needs true f32 matmuls (torch's default)."""
+    import torch
+
+    if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on; f32 parity with the CPU needs them off")
+
+
+def encoder_step_parity(cfg, device, b: int = 16, s: int = 128, seed: int = 0,
+                        lr: float = 1e-4, tol: float = 2e-2) -> dict:
+    """One InfoNCE adamw step of the encoder `cfg` on `device` against the
+    same step on the CPU from the same seeded weights and batch (b pairs of
+    s tokens, right-padded): the loss to rtol `tol` and the gradients as
+    one vector to a relative norm of `tol` (bf16 compute rounds at other
+    points on the two; use 1e-5 for f32). The parameters after the step: in
+    f32 as _adam_noise_check holds them (atol 1e-6); with bf16 compute
+    within 2 lr (Adam's first step is about lr times the gradient's sign,
+    which bf16 rounding flips where a gradient is near zero), the share
+    moved otherwise reported. Raises AssertionError; returns the errors."""
+    import torch
+
+    from anorag_tpu_torch.models import encoder as enc
+    from anorag_tpu_torch.training.optim import adamw
+
+    _assert_f32_matmuls(device)
+    rng = np.random.default_rng(seed)
+    batch = {}
+    for side in "qp":
+        lens = rng.integers(4, s + 1, b)
+        mask = (np.arange(s)[None, :] < lens[:, None]).astype(np.int32)
+        ids = rng.integers(3, cfg.vocab_size, (b, s))
+        batch[f"{side}_ids"] = np.where(mask > 0, ids, 2).astype(np.int64)
+        batch[f"{side}_mask"] = mask
+    runs = []
+    host = enc.Encoder(cfg, torch.device("cpu")).init_random(
+        torch.Generator().manual_seed(seed))
+    for dev in (torch.device("cpu"), device):
+        model = enc.Encoder(cfg, dev)
+        model.load_state_dict(host.state_dict())
+        model.requires_grad_(True)
+        step = enc.make_train_step(cfg, adamw(model.parameters(), lr, weight_decay=0.01))
+        _, _, loss = step(model, None, {k: torch.from_numpy(v).to(dev)
+                                        for k, v in batch.items()})
+        runs.append((float(loss), {n: p.grad.float().cpu() for n, p in model.named_parameters()},
+                     {n: p.detach().float().cpu() for n, p in model.named_parameters()}))
+    (l_h, g_h, p_h), (l_c, g_c, p_c) = runs
+    loss_err = abs(l_c - l_h) / abs(l_h)
+    diff = torch.cat([(g_c[n] - g_h[n]).flatten() for n in g_h])
+    grad_err = float(diff.norm() / torch.cat([g.flatten() for g in g_h.values()]).norm())
+    if not (loss_err <= tol and grad_err <= tol):
+        raise AssertionError(f"encoder step: loss {l_c} against the CPU's {l_h}, "
+                             f"gradients off by {grad_err:.3g} (relative norm)")
+    out = {"loss": l_c, "loss_cpu": l_h, "loss_rel_err": loss_err, "grad_rel_err": grad_err}
+    if cfg.dtype == torch.float32:
+        out["noise_elements"] = sum(_adam_noise_check(n, p_c[n], p_h[n], g_h[n], lr, 1e-6)
+                                    for n in p_h)
+    else:
+        moved = torch.cat([(p_c[n] - p_h[n]).abs().flatten() for n in p_h])
+        if float(moved.max()) > 2 * lr + 1e-6:
+            raise AssertionError(f"encoder step: a parameter off by {float(moved.max()):.3g} "
+                                 f"> 2 lr after the step")
+        out["share_moved_otherwise"] = float((moved > 1e-2 * lr).float().mean())
+    out["param_max_err"] = max(float((p_c[n] - p_h[n]).abs().max()) for n in p_h)
+    return out
+
+
+def lm_batch(b: int, s: int, seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """(ids (b, s) int64, loss_mask (b, s) f32) for lm_loss: seeded rows of
+    printable bytes after BOS, right-padded from a length in [s/2, s], the
+    loss on each row's second half."""
+    from anorag_tpu_torch.models import decoder_lm as dlm
+
+    rng = np.random.default_rng(seed)
+    ids = np.full((b, s), dlm.PAD_ID, np.int64)
+    w = np.zeros((b, s), np.float32)
+    for i, n in enumerate(rng.integers(s // 2, s + 1, b)):
+        ids[i, 0] = dlm.BOS_ID
+        ids[i, 1:n] = rng.integers(dlm._BYTE0 + 32, dlm._BYTE0 + 127, n - 1)
+        w[i, n // 2:n] = 1.0
+    return ids, w
+
+
+def decoder_step_parity(cfg, device, b: int = 8, s: int = 1536, seed: int = 0,
+                        lr: float = 1e-4) -> dict:
+    """One lm_loss step of the decoder `cfg` (f32) on `device`, under
+    clip_by_global_norm(1.0) and adamw, against the same step on the CPU
+    from the same seeded weights and batch (lm_batch): the loss to rtol 1e-4, the
+    parameters after the step to atol 1e-5 as _adam_noise_check holds them.
+    Raises AssertionError; returns the errors."""
+    import torch
+
+    from anorag_tpu_torch.models import decoder_lm as dlm
+    from anorag_tpu_torch.training.optim import adamw, clip_by_global_norm
+
+    _assert_f32_matmuls(device)
+    ids, w = lm_batch(b, s, seed)
+    host = dlm.init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    runs = []
+    for dev in (torch.device("cpu"), device):
+        params = dlm.DecoderParams(cfg, dev)
+        params.load_state_dict(host.state_dict())
+        params.requires_grad_(True)
+        step = dlm.make_train_step(cfg, adamw(params.parameters(), lr),
+                                   clip=clip_by_global_norm(1.0))
+        _, _, loss = step(params, None, {"ids": torch.from_numpy(ids).to(dev),
+                                         "loss_mask": torch.from_numpy(w).to(dev)})
+        runs.append((float(loss), {n: p.grad.float().cpu() for n, p in params.named_parameters()},
+                     {n: p.detach().float().cpu() for n, p in params.named_parameters()}))
+    (l_h, g_h, p_h), (l_c, g_c, p_c) = runs
+    loss_err = abs(l_c - l_h) / abs(l_h)
+    if loss_err > 1e-4:
+        raise AssertionError(f"decoder step: loss {l_c} against the CPU's {l_h}")
+    noise = sum(_adam_noise_check(n, p_c[n], p_h[n], g_h[n], lr, 1e-5) for n in p_h)
+    grad_err = max(float((g_c[n] - g_h[n]).abs().max()) for n in g_h)
+    param_err = max(float((p_c[n] - p_h[n]).abs().max()) for n in p_h)
+    return {"loss": l_c, "loss_cpu": l_h, "loss_rel_err": loss_err,
+            "grad_max_err": grad_err, "param_max_err": param_err, "noise_elements": noise}

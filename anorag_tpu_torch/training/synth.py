@@ -1,0 +1,24 @@
+"""The repo's synthetic MuSiQue-style generator, scripts/gen_synth_musique.py
+(numpy only, outside both packages), loaded by its path for the training
+CLIs, as the reference's scripts load it from their own directory."""
+from __future__ import annotations
+
+import importlib.util
+import sys
+from pathlib import Path
+from types import ModuleType
+
+SCRIPTS = Path(__file__).resolve().parents[2] / "scripts"
+
+
+def synth_generator() -> ModuleType:
+    """scripts/gen_synth_musique.py as the module gen_synth_musique (its
+    _world, _paragraphs and make_items), imported once."""
+    mod = sys.modules.get("gen_synth_musique")
+    if mod is None:
+        spec = importlib.util.spec_from_file_location(
+            "gen_synth_musique", SCRIPTS / "gen_synth_musique.py")
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules["gen_synth_musique"] = mod
+        spec.loader.exec_module(mod)
+    return mod

@@ -146,7 +146,7 @@ Phases, each printing its seconds:
                 8 items through pipeline_musique.process_musique_item on the
                 card and on the CPU (hash backend, Flat), every row field
                 equal; `python -m anorag_tpu_torch.main_musique` in-process
-                (main_musique.main(argv, Config)) over the first 64 items at full
+                (main_musique.main(argv, Config)) over the first 48 items at full
                 width (--no-llm, --workers 2): one row per item, no error
                 row, a second run adding no row, items/s and each item's
                 seconds (median, p90) split into the KB build, the
@@ -257,7 +257,36 @@ Phases, each printing its seconds:
                 CLS states on the card within 1e-4 of the CPU's, and which
                 weights setup's EmbeddingManager holds; fuse_candidate_table
                 on the card equal to the CPU's (1e-6) over process()'s
-                candidate tables, linear and rrf.
+                candidate tables, linear and rrf;
+  19. train  -- training on the card (no hand kernel on this path; the
+                wrappers' launches are counted from 0 and printed):
+                train_retrieval_encoder.main at encoder_synth_full's shape
+                (vocab 8192, hidden 1024, 24 layers, 16 heads, ffn 4096,
+                mean pooling, 128 positions; --f32-params --remat, batch
+                128, 20 steps at lr 1e-4 after a 5-step warmup, 40 train
+                and 100 eval worlds): its three
+                recall@10 lines, the loss finite and falling, the saved
+                checkpoint through EmbeddingManager (embedding.
+                checkpoint_path) giving the shipped bf16 encoder's
+                embeddings and the trainer's recall; one step with remat
+                against one without (loss equal, gradients to 1e-6 of
+                their scale), each timed (wall, device busy, idle share,
+                peak memory) beside its bound; one step at 2 layers (full
+                width, batch 16) against the CPU's (testing.
+                encoder_step_parity, bf16 compute, 2e-2);
+                train_note_lm.main at note_lm_tpu_large's shape (6 layers,
+                hidden 384, seq 1536, batch 8, 30 steps, 8 items, 4
+                held out, 64 eval bytes): the loss falling; a step timed
+                beside its f32 bound; save_lm -> load_lm keeping the greedy
+                bytes of the params in memory; one step at 2 layers against
+                the CPU's (testing.decoder_step_parity: loss 1e-4,
+                parameters 1e-5); train_answer_models.main (its
+                calibration.json equal to train_answer_models' own) and
+                run_calibration.main --dev-n 2 on the card, timed;
+                train_encoder.main at the config's encoder (bf16, vocab
+                250,002) on the first 2,048 notes of phase offline's
+                build, its checkpoint read by
+                EmbeddingManager.load_checkpoint.
 Then one JSON line of kernel numbers (dense_topk's launches count both
 graph builds' self-joins; dense_topk_f32_self_join and
 dense_topk_f32_offline_self_join hold their shapes), the
@@ -2748,9 +2777,10 @@ def _drop_log_handlers(log_state) -> None:
 
 
 # the musique phase: main_musique over phase offline's items
-# items of the full-width run: the first 64 of phase offline's 200 (all 200
-# took 218 s of a 271 s phase on an H100; the phase is to stay near 200 s)
-MUSIQUE_ITEMS = 64
+# items of the full-width run: the first 48 of phase offline's 200 (all 200
+# took 218 s of a 271 s phase on an H100; 64 until phase train joined, to
+# keep the script near its length)
+MUSIQUE_ITEMS = 48
 MUSIQUE_PARITY = 8             # items through process_musique_item on the card and the CPU
 MUSIQUE_COR = 4                # items of the --enable-cor run
 MUSIQUE_LLM = 2                # items of the run with the decoder LM
@@ -3480,6 +3510,373 @@ def _check_llm_kb_answers(with_llm, alone) -> dict:
     return rescued
 
 
+# the train phase: the encoder's InfoNCE trainer, the decoder LM's train
+# step, the answer heads, calibration and the training CLIs on the card
+TRAIN_NOTES = 2048             # phase offline's notes that train_encoder trains on
+TRAIN_TIMED_STEPS = 3          # steps a timing takes (after one warm step)
+# checkpoints/encoder_synth_full_report.json's shape, and the run's cut:
+# 20 steps of 128 pairs (40 worlds make 280 pairs, 2 steps an epoch) at lr
+# 1e-4, since at the CLI's 3e-4 a 5-step warmup sends this 24-layer encoder
+# from loss 2.015 to 5.863 in 20 steps, remat on or off (PERF.md §6)
+ENCODER_FULL = {"vocab_size": 8192, "hidden_size": 1024, "num_layers": 24, "num_heads": 16,
+                "intermediate_size": 4096, "max_position": 128, "pooling": "mean"}
+ENCODER_BATCH = 128
+ENCODER_CUT = ["--train-worlds", "40", "--eval-worlds", "100", "--steps", "20",
+               "--warmup", "5", "--lr", "1e-4"]
+# train_note_lm's cut (note_lm_tpu_large's shape from testing.NOTE_LM_TPU_LARGE)
+LM_BATCH, LM_SEQ = 8, 1536
+LM_CUT = ["--items", "8", "--held-out", "4", "--eval-max-new", "64", "--warmup", "5",
+          "--steps", "30"]
+# (batch, positions) of the steps held against the CPU's, at 2 layers
+ENCODER_PARITY, LM_PARITY = (16, 128), (8, 1536)
+LM_PROMPTS = ("Who founded Nexus Labs?", "Aurora Lane recorded Blue Horizon in 1983.",
+              'Generate atomic notes: {"text": "Chris Reed married Aurora Lane."}')
+
+
+def _step_bound(flops: float, ops_per_s: float, n_params: int, state_bytes: int):
+    """(bound ms, bound_by, bytes) of a train step: its matmul FLOP at the
+    compute dtype's peak against the bytes adamw must move (each parameter,
+    gradient and moment read once and each parameter and moment written
+    once: state_bytes a parameter)."""
+    moved = n_params * state_bytes
+    t_ops, t_bytes = flops / ops_per_s, moved / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), moved
+
+
+def _encoder_step_flops(cfg, b: int, s: int, remat: bool) -> float:
+    """Matmul FLOP of one InfoNCE step over b pairs of s positions (pads
+    included: the step computes them): two encodes of b rows, each layer
+    2 x its weights a position plus 4 s^2 h a row for attention; the
+    backward twice the forward, remat one more forward."""
+    h, f = cfg.hidden_size, cfg.intermediate_size
+    rows = 2 * b
+    fwd = cfg.num_layers * (2 * (4 * h * h + 2 * h * f) * rows * s + 4 * rows * s * s * h)
+    return fwd * (4 if remat else 3)
+
+
+def _decoder_step_flops(cfg, b: int, s: int) -> float:
+    """Matmul FLOP of one lm_loss step over (b, s) next-token positions:
+    each layer 2 x its weights a position plus 4 s^2 h a row for attention,
+    the tied output projection 2 h V a position; the backward twice the
+    forward."""
+    h, f = cfg.hidden_size, cfg.intermediate_size
+    fwd = (cfg.num_layers * (2 * (4 * h * h + 2 * h * f) * b * s + 4 * b * s * s * h)
+           + 2 * b * s * h * cfg.vocab_size)
+    return 3 * fwd
+
+
+def _timed_step(dev, step, label: str, flops: float, ops_per_s: float, n_params: int,
+                state_bytes: int, smi_line: str) -> dict:
+    """A train step timed (_profiled_ms) with its peak memory and bound,
+    printed as one line, then the device time of one more step by kernel
+    name, the largest five."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    wall, busy, events = _profiled_ms(dev, step, TRAIN_TIMED_STEPS)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize(dev)
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            span = (e.time_range.end - e.time_range.start) / 1e3
+            by_name[e.name] = by_name.get(e.name, 0.0) + span
+    bound, bound_by, moved = _step_bound(flops, ops_per_s, n_params, state_bytes)
+    print(f"{label}: wall {wall:.4f} ms, device busy {busy:.4f} ms, idle share "
+          f"{1 - busy / wall:.4f}, {events:.0f} device events a step, peak memory "
+          f"{peak:.2f} GB; bound {bound:.4f} ms ({bound_by}: {flops / 1e12:.3f} TFLOP at "
+          f"{ops_per_s / 1e12:.0f} TFLOP/s, {moved / 1e9:.2f} GB of weights and adamw "
+          f"state at {HBM_BYTES_PER_S / 1e12:.2f} TB/s) | {smi_line}", flush=True)
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:5]:
+        print(f"  device {ms:9.3f} ms  {name[:120]}")
+    return {"wall_ms": wall, "busy_ms": busy, "peak_gb": peak, "bound_ms": bound}
+
+
+def _train_encoder_checks(dev, tmp, seed: int, smi_line: str) -> None:
+    """(a) train_retrieval_encoder.main at ENCODER_FULL's shape, its
+    checkpoint through EmbeddingManager, remat against no remat, a step
+    timed each way, one step against the CPU's."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from anorag_tpu_torch import train_retrieval_encoder as tre
+    from anorag_tpu_torch.models import encoder as enc
+    from anorag_tpu_torch.models.embedding_manager import EmbeddingManager
+    from anorag_tpu_torch.models.tokenizer import HashTokenizer
+    from anorag_tpu_torch.models.train import make_pair_batches
+    from anorag_tpu_torch.testing import encoder_step_parity
+    from anorag_tpu_torch.training.optim import adamw, linear_schedule
+    from anorag_tpu_torch.utils.file_io import read_json
+
+    full = ENCODER_FULL
+    out = tmp / "encoder_synth_full"
+    argv = ["--out", str(out), "--vocab", str(full["vocab_size"]),
+            "--hidden", str(full["hidden_size"]), "--layers", str(full["num_layers"]),
+            "--heads", str(full["num_heads"]), "--ffn", str(full["intermediate_size"]),
+            *ENCODER_CUT, "--batch", str(ENCODER_BATCH), "--f32-params", "--remat",
+            "--device", dev.type]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    if tre.main(argv) != 0:
+        raise AssertionError("train_retrieval_encoder failed")
+    cli_s = time.perf_counter() - t0
+    report = read_json(tmp / "encoder_synth_full_report.json")
+    first, last = report["loss_first"], report["loss_last"]
+    if not (np.isfinite(first) and np.isfinite(last) and last < first):
+        raise AssertionError(f"encoder loss {first} -> {last}: not finite and falling")
+    print(f"train_retrieval_encoder at encoder_synth_full's shape: {cli_s:.2f} s in all, "
+          f"{report['steps']} steps in {report['train_seconds']} s, loss {first} -> {last}, "
+          f"recall@10 {report['recall_at_10']}, peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB | {smi_line}", flush=True)
+
+    # the checkpoint, named as embedding.checkpoint_path
+    shipped_cfg = enc.EncoderConfig(**full)
+    shipped = enc.Encoder(shipped_cfg, dev)
+    shipped.load_state_dict(torch.load(out, map_location=dev, weights_only=True))
+    em = EmbeddingManager({"embedding": {"backend": "torch", "model_name": "",
+                                         "max_length": 128, "batch_size": 256,
+                                         "checkpoint_path": str(out)},
+                           "encoder": dict(full, dtype="bfloat16")}, device=dev)
+    pairs, corpus = tre.make_world_pairs(report["eval_corpus"] // 5, seed=99)
+    queries, gold = [q for q, _, _ in pairs], [g for _, _, g in pairs]
+    tok = HashTokenizer(full["vocab_size"], full["max_position"])
+    want = tre.embed(shipped, tok, corpus)
+    got = em.encode_texts(corpus).cpu().numpy()
+    if not em.weights_source.endswith(f"+checkpoint:{out}"):
+        raise AssertionError(f"EmbeddingManager holds {em.weights_source}")
+    chunk_err = float(np.abs(got[:256] - want[:256]).max())
+    cos = float((got * want).sum(axis=1).min())
+    recall = tre.recall_at_k(em.encode_texts(queries).cpu().numpy(), got, gold)
+    if chunk_err > 1e-3 or cos < 0.999 or abs(recall - report["recall_at_10"]["trained"]) > 0.01:
+        raise AssertionError(f"the checkpoint through embedding.checkpoint_path: max err "
+                             f"{chunk_err:.3g} on a full chunk, least cosine {cos:.6f}, "
+                             f"recall@10 {recall} against the trainer's "
+                             f"{report['recall_at_10']['trained']}")
+    print(f"encoder checkpoint through embedding.checkpoint_path: {len(corpus)} corpus "
+          f"embeddings against the shipped bf16 encoder's, max abs err {chunk_err:.3g} on "
+          f"the first 256-row chunk, least cosine {cos:.6f}; recall@10 {recall:.4f} "
+          f"(trainer {report['recall_at_10']['trained']})", flush=True)
+    del shipped, em
+
+    # remat against no remat on one batch, then a timed step each way
+    cfg = enc.EncoderConfig(**full, dtype=torch.bfloat16, param_dtype=torch.float32)
+    train_pairs, _ = tre.make_world_pairs(report["train_pairs"] // 7, seed=0)
+    batch = next(make_pair_batches([(q, p) for q, p, _ in train_pairs], tok, ENCODER_BATCH,
+                                   full["max_position"], seed=0))
+    b, s = batch["q_ids"].shape
+    batch = {k: torch.from_numpy(v).to(dev, torch.long if k.endswith("ids") else torch.int32)
+             for k, v in batch.items()}
+    state = enc.Encoder(cfg, dev).init_random(
+        torch.Generator(device=dev).manual_seed(seed)).state_dict()
+    n_params = sum(v.numel() for v in state.values())
+    losses, grads = {}, {}
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, remat=remat)
+        model = enc.Encoder(c, dev)
+        model.load_state_dict(state)
+        model.requires_grad_(True)
+        loss = enc.info_nce_loss(model, batch, c)
+        loss.backward()
+        losses[remat] = loss.item()
+        grads[remat] = torch.cat([p.grad.flatten() for p in model.parameters()])
+        model.zero_grad(set_to_none=True)
+        step = enc.make_train_step(c, adamw(model.parameters(), linear_schedule(0.0, 3e-4, 5),
+                                            weight_decay=0.01))
+        _timed_step(dev, lambda: step(model, None, batch),
+                    f"encoder train step ({cfg.num_layers} layers, {cfg.hidden_size} wide, "
+                    f"{b} pairs x {s}, f32 masters, "
+                    f"bf16 compute, remat {'on' if remat else 'off'})",
+                    _encoder_step_flops(cfg, b, s, remat), BF16_OPS_PER_S, n_params, 28,
+                    smi_line)
+        del model, step
+        torch.cuda.empty_cache()
+    scale = float(grads[False].abs().max())
+    grad_err = float((grads[True] - grads[False]).abs().max()) / scale
+    if losses[True] != losses[False] or grad_err > 1e-6:
+        raise AssertionError(f"remat: loss {losses[True]} against {losses[False]}, gradients "
+                             f"off by {grad_err:.3g} of their scale")
+    print(f"remat against no remat: loss {losses[True]} both, gradients off by "
+          f"{grad_err:.3g} of their largest ({scale:.4g})", flush=True)
+    del grads, state
+    torch.cuda.empty_cache()
+
+    # one step at 2 layers against the CPU's
+    t0 = time.perf_counter()
+    b, s = ENCODER_PARITY
+    par = encoder_step_parity(dataclasses.replace(cfg, num_layers=2), dev, b=b, s=s,
+                              seed=seed)
+    print(f"encoder step on the card against the CPU (2 layers, full width, {b} pairs x "
+          f"{s}, f32 masters, bf16 compute): {par} ({time.perf_counter() - t0:.2f} s)",
+          flush=True)
+
+
+def _train_decoder_checks(dev, tmp, seed: int, smi_line: str) -> None:
+    """(b) train_note_lm.main at note_lm_tpu_large's shape, a step timed,
+    save_lm -> load_lm, one step against the CPU's."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from anorag_tpu_torch import train_note_lm
+    from anorag_tpu_torch.models import decoder_lm as dlm
+    from anorag_tpu_torch.testing import NOTE_LM_TPU_LARGE, decoder_step_parity, lm_batch
+    from anorag_tpu_torch.training.optim import adamw, clip_by_global_norm
+
+    cfg = dlm.DecoderConfig(**NOTE_LM_TPU_LARGE)
+    argv = ["--out", str(tmp / "note_lm"), *LM_CUT, "--seq", str(LM_SEQ), "--batch",
+            str(LM_BATCH), "--hidden", str(cfg.hidden_size), "--layers",
+            str(cfg.num_layers), "--heads", str(cfg.num_heads), "--ffn",
+            str(cfg.intermediate_size), "--max-len", str(cfg.max_len), "--device", dev.type]
+    t0 = time.perf_counter()
+    if train_note_lm.main(argv) != 0:
+        raise AssertionError("train_note_lm failed")
+    cli_s = time.perf_counter() - t0
+    report = json.loads((tmp / "note_lm" / "report.json").read_text())
+    hist = report["loss_history"]
+    if not (np.isfinite(hist[-1]["loss"]) and hist[-1]["loss"] < hist[0]["loss"]):
+        raise AssertionError(f"note LM loss {hist}: not falling")
+    print(f"train_note_lm at note_lm_tpu_large's shape: {cli_s:.2f} s in all, "
+          f"{report['steps']} steps in {report['train_seconds']} s, loss {hist}, held out "
+          f"{report['held_out']} | {smi_line}", flush=True)
+
+    # a step at the CLI's shape, timed, then save_lm -> load_lm
+    params = dlm.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    params.requires_grad_(True)
+    ids, w = lm_batch(LM_BATCH, LM_SEQ, seed)
+    batch = {"ids": torch.from_numpy(ids).to(dev), "loss_mask": torch.from_numpy(w).to(dev)}
+    step = dlm.make_train_step(cfg, adamw(params.parameters(), 3e-3),
+                               clip=clip_by_global_norm(1.0))
+    _timed_step(dev, lambda: step(params, None, batch),
+                f"decoder train step ({cfg.num_layers} layers, {cfg.hidden_size} wide, "
+                f"{LM_BATCH} x {LM_SEQ - 1} positions, f32, clip and adamw)",
+                _decoder_step_flops(cfg, LM_BATCH, LM_SEQ - 1), F32_OPS_PER_S,
+                sum(p.numel() for p in params.parameters()), 28, smi_line)
+    params.requires_grad_(False)
+    dlm.save_lm(tmp / "lm_round_trip", params, cfg)
+    loaded, loaded_cfg = dlm.load_lm(tmp / "lm_round_trip", dev)
+    lm = dlm.DecoderLM(params, cfg, prompt_bucket=256)
+    ids_p, pad = (torch.from_numpy(a).to(dev) for a in lm.encode_batch(list(LM_PROMPTS)))
+    mine = dlm.generate(params, ids_p, pad, cfg, 64)
+    theirs = dlm.generate(loaded, ids_p, pad, loaded_cfg, 64)
+    if loaded_cfg != cfg or not torch.equal(mine, theirs):
+        raise AssertionError("save_lm -> load_lm changed the greedy bytes")
+    print(f"save_lm -> load_lm after {2 * TRAIN_TIMED_STEPS + 1} steps: greedy bytes equal "
+          f"({mine.shape[0]} rows x 64)", flush=True)
+    del params, loaded, step
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    b, s = LM_PARITY
+    par = decoder_step_parity(dataclasses.replace(cfg, num_layers=2), dev, b=b, s=s,
+                              seed=seed)
+    print(f"decoder step on the card against the CPU (2 layers, {cfg.hidden_size} wide, "
+          f"{b} x {s}, f32): {par} ({time.perf_counter() - t0:.2f} s)", flush=True)
+
+
+def _train_phase(dev, train_notes, seed: int, smi_line: str) -> None:
+    """Training on the card: (a) the encoder, (b) the decoder LM, (c) the
+    answer heads and run_calibration, (d) train_encoder at the config's
+    encoder on `train_notes` (phase offline's first TRAIN_NOTES notes).
+    The hand kernels' launches are counted from 0 and printed."""
+    import contextlib
+    import io
+    import logging
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from anorag_tpu_torch import run_calibration, train_answer_models, train_encoder
+    from anorag_tpu_torch.config import Config
+    from anorag_tpu_torch.models.embedding_manager import EmbeddingManager
+    from anorag_tpu_torch.ops import bm25, ivf, topk
+    from anorag_tpu_torch.training.answer_models import train_answer_models as train_heads
+    from anorag_tpu_torch.utils.file_io import read_json, write_json
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on; the train phase holds f32 to the CPU")
+    counted = (topk.dense_topk_kernel, topk.bucket_winners, topk.bucket_merge,
+               bm25.window_winners, bm25.segment_totals, bm25.segment_winners,
+               ivf.ivf_scan, ivf.ivf_work_plan)
+    torch.cuda.synchronize(dev)
+    for fn in counted:
+        fn.launches = 0
+    tmp = Path(tempfile.mkdtemp(prefix="anorag_train_"))
+    root_log = logging.getLogger()
+    log_state = (root_log.level, list(root_log.handlers))
+    try:
+        t = time.perf_counter()
+        _train_encoder_checks(dev, tmp, seed, smi_line)
+        t = _phase("train (a) encoder", t)
+        _train_decoder_checks(dev, tmp, seed, smi_line)
+        t = _phase("train (b) decoder", t)
+
+        # (c) the answer heads and calibration
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            train_answer_models.main(["--out", str(tmp / "cal" / "calibration.json")])
+        got = read_json(tmp / "cal" / "calibration.json")["components"]
+        if got != json.loads(json.dumps(train_heads(seed=0))):
+            raise AssertionError("train_answer_models' calibration.json differs from "
+                                 "train_answer_models(seed=0)")
+        print("train_answer_models: " + "; ".join(out.getvalue().splitlines()), flush=True)
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            code = run_calibration.main([str(tmp / "calib"), "--dev-n", "2",
+                                         "--device", dev.type])
+        cal_s = time.perf_counter() - t0
+        report = read_json(tmp / "calib" / "calibration_report.json")
+        if code != 0 or report["n_pipeline_evals"] < 1:
+            raise AssertionError(f"run_calibration: exit {code}, {report}")
+        lines = [ln for ln in out.getvalue().splitlines()
+                 if ln.startswith(("uncalibrated:", "calibrated:"))]
+        print(f"run_calibration --dev-n 2 on the card: {cal_s:.2f} s, "
+              f"{report['n_pipeline_evals']} pipeline evals ({cal_s / (report['n_pipeline_evals'] + 2):.3f} "
+              f"s each), {'; '.join(lines)}, delta {report['delta_score']} | {smi_line}",
+              flush=True)
+        t = _phase("train (c) heads and calibration", t)
+
+        # (d) train_encoder at the config's encoder on phase offline's notes
+        write_json(tmp / "notes.json", train_notes)
+        ckpt = tmp / "encoder_config.pt"
+        cfg = Config({"storage": {"result_root": str(tmp / "result")},
+                      "system": {"device": dev.type}})
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            code = train_encoder.main([str(tmp / "notes.json"), "--checkpoint", str(ckpt)], cfg)
+        enc_s = time.perf_counter() - t0
+        if code != 0 or "saved to" not in out.getvalue():
+            raise AssertionError(f"train_encoder: exit {code}, {out.getvalue()!r}")
+        em = EmbeddingManager(cfg, device=dev)
+        if not em.load_checkpoint(str(ckpt)):
+            raise AssertionError("EmbeddingManager.load_checkpoint could not read "
+                                 "train_encoder's checkpoint")
+        print(f"train_encoder at the config's encoder ({cfg.get('encoder')}) on {len(train_notes)} of phase offline's notes: "
+              f"{out.getvalue().strip()} ({enc_s:.2f} s, peak memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB); read back by "
+              f"EmbeddingManager.load_checkpoint | {smi_line}", flush=True)
+        del em
+        _phase("train (d) train_encoder", t)
+    finally:
+        _drop_log_handlers(log_state)
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    launches = {fn.__name__: fn.launches for fn in counted}
+    print(f"hand kernels launched in the train phase (counted from 0): {launches} "
+          f"| {smi_line}", flush=True)
+
+
 def run(dev, seed: int = 0):
     """All phases on device `dev`; returns (kernel numbers, nvidia-smi
     line, device name)."""
@@ -3782,6 +4179,9 @@ def run(dev, seed: int = 0):
     t = _phase("ivf", t)
 
     # 18. indexes: IVFPQ, LSH and HNSW, the cross-encoder, HF weights, fusion
+    from anorag_tpu_torch.utils.file_io import read_json
+
+    train_notes = read_json(kb["work"] / "atomic_notes.json")[:TRAIN_NOTES]
     try:
         _indexes_phase(dev, ivf_index, ivf_q, qp, kb, requests[1][:INDEX_CHECK_QUERIES],
                        smi_line)
@@ -3791,6 +4191,10 @@ def run(dev, seed: int = 0):
         shutil.rmtree(kb["work"].parent, ignore_errors=True)
     del ivf_index, ivf_q
     t = _phase("indexes", t)
+
+    # 19. train: the encoder and decoder trainers, the heads, the training CLIs
+    _train_phase(dev, train_notes, seed, smi_line)
+    t = _phase("train", t)
 
     return {"kernels": [{
         "name": "bm25_window_winners", "route": "cuda",

@@ -824,3 +824,36 @@ def test_hf_conversion_on_the_card_matches_the_cpu(cuda_device):
     card.load_state_dict(state)
     torch.testing.assert_close(card(ids.to(cuda_device), mask.to(cuda_device)).cpu(),
                                host(ids, mask), rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["f32", "masters"])
+def test_encoder_train_step_on_the_card_matches_the_cpu(cuda_device, mode):
+    """One InfoNCE adamw step of a 2-layer encoder at full width (1024,
+    16 heads, ffn 4096, vocab 8192, mean pooling), batch 16 x 128, on the
+    card against the CPU from the same seeded weights: in f32 the loss and
+    the gradients to 1e-5, f32 masters with bf16 compute within 2e-2
+    (testing.encoder_step_parity)."""
+    from anorag_tpu_torch.models.encoder import EncoderConfig
+    from anorag_tpu_torch.testing import encoder_step_parity
+
+    kw = ({"dtype": torch.float32} if mode == "f32"
+          else {"dtype": torch.bfloat16, "param_dtype": torch.float32})
+    cfg = EncoderConfig(vocab_size=8192, hidden_size=1024, num_layers=2, num_heads=16,
+                        intermediate_size=4096, max_position=128, pooling="mean", **kw)
+    out = encoder_step_parity(cfg, cuda_device, tol=1e-5 if mode == "f32" else 2e-2)
+    assert out["loss_rel_err"] <= 2e-2 and np.isfinite(out["loss"]), out
+
+
+@pytest.mark.cuda
+def test_decoder_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """One clipped adamw step of the decoder at checkpoints/
+    note_lm_tpu_large's width, 2 layers, batch 8 x 1536, on the card
+    against the CPU (f32): the loss to 1e-4, the parameters to 1e-5
+    (testing.decoder_step_parity)."""
+    from anorag_tpu_torch.models import decoder_lm as dlm
+    from anorag_tpu_torch.testing import NOTE_LM_TPU_LARGE, decoder_step_parity
+
+    cfg = dlm.DecoderConfig(**{**NOTE_LM_TPU_LARGE, "num_layers": 2})
+    out = decoder_step_parity(cfg, cuda_device)
+    assert out["loss_rel_err"] <= 1e-4, out

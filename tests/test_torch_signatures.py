@@ -98,6 +98,16 @@ from anorag_tpu_torch.retrieval import guardrail as tguardrail
 from anorag_tpu_torch.retrieval import hybrid as thybrid
 from anorag_tpu_torch.retrieval import learned_fusion as tlf
 from anorag_tpu_torch.retrieval import reranker as trerank
+from anorag_tpu.models import decoder_lm as jdlm
+from anorag_tpu.models import encoder as jenc
+from anorag_tpu.models import train as jtrain
+from anorag_tpu.training import answer_models as janswer_models
+from anorag_tpu.training import calibrate as jcalibrate
+from anorag_tpu_torch.models import decoder_lm as tdlm
+from anorag_tpu_torch.models import encoder as tenc
+from anorag_tpu_torch.models import train as ttrain
+from anorag_tpu_torch.training import answer_models as tanswer_models
+from anorag_tpu_torch.training import calibrate as tcalibrate
 
 # The port's names for the reference's.
 RENAMES = {"use_pallas": "use_kernel"}   # the kernels are CUDA, not Pallas
@@ -257,6 +267,17 @@ PAIRS += [(f"{jmod.__name__}.{name}", getattr(jmod, name), getattr(tmod, name))
           for jmod, tmod, names in ((jpq, tpq, ("_encode_chunk", "pq_lut", "pq_topk",
                                                 "device_refine")),
                                     (jsq, tsq, ("_quantize_rows", "sq_topk")))
+          for name in names]
+
+
+# training: the encoder's and the decoder's loss and step, the trainer,
+# the answer heads and the calibrator
+PAIRS += [pair for jmod, tmod in ((jtrain, ttrain), (janswer_models, tanswer_models),
+                                  (jcalibrate, tcalibrate))
+          for pair in _public(jmod, tmod)]
+PAIRS += [(f"{jmod.__name__}.{name}", getattr(jmod, name), getattr(tmod, name))
+          for jmod, tmod, names in ((jenc, tenc, ("info_nce_loss", "make_train_step")),
+                                    (jdlm, tdlm, ("lm_loss", "make_train_step")))
           for name in names]
 
 
