@@ -3,8 +3,8 @@
 Counterpart of anorag_tpu/config/defaults.py: the same keys and values
 (configs written for the reference work here), except the two that name
 the port's own device and encoder backend, listed in PORT_VALUES. The
-`tpu` section keeps its name; the port reads its sharded_search and ivf
-keys.
+`tpu` section keeps its name; the port reads its sharded_search,
+mesh.model_parallel_size and ivf keys.
 """
 from __future__ import annotations
 

@@ -11,8 +11,10 @@ C++ graph, native/anorag_native.cpp, on the host; Flat when the native
 runtime cannot be built, as in the reference). save (:382) and load (:422)
 write and read the reference's files (<path>.npz with the normalized f32
 rows, the codebooks, rotation, planes and the HNSW graph;
-<stem>_metadata.json), so either package reads the other's. A mesh is not
-ported yet (ROADMAP: the sharded branch) and raises NotImplementedError.
+<stem>_metadata.json), so either package reads the other's. With a mesh
+(parallel/mesh.py) Flat rows are sharded over its 'data' axis and search
+takes the shard-local top-k and merge of parallel/sharded_search.py; the
+other types stay on the index's device, as in the reference.
 
 The normalized f32 rows stay on the host, where the reference keeps
 _emb_f32; the device holds the storage-dtype copy (Flat: original order,
@@ -74,10 +76,6 @@ class VectorIndex:
             index_type = "Flat"
         if index_type not in INDEX_TYPES:
             raise ValueError(f"index_type {index_type!r}; one of {INDEX_TYPES} or PQ")
-        if mesh is not None:
-            raise NotImplementedError(
-                "a mesh (corpus rows sharded over devices) is not ported yet "
-                "(ROADMAP: the sharded branch)")
         if storage_dtype not in _DTYPES:
             raise ValueError(f"storage_dtype {storage_dtype!r}; one of {tuple(_DTYPES)}")
         self.dimension = dimension
@@ -96,7 +94,10 @@ class VectorIndex:
         self.use_kernel = use_kernel
         # recall_target is accepted for the reference's signature and
         # unused: every search route of the port is exact.
+        # A mesh shards Flat rows over its 'data' axis (is_sharded); the
+        # searchers built for it are cached by shape until the next add.
         self.mesh = mesh
+        self._sharded_fns: Dict[Any, Any] = {}
         # IVFPQ: the codes are the only corpus-sized device residency. pq_m
         # 0 = auto (D/8 code bytes a row), pq_rerank 0 = auto (the refine
         # pool of search_arrays); impl 'sketch' (ops/sq.py) or 'codebook'
@@ -118,6 +119,7 @@ class VectorIndex:
                              "IVF scan kernel always runs")
         self._emb_f32: Optional[torch.Tensor] = None   # host, original order
         self._device_emb: Optional[torch.Tensor] = None  # flat, or IVF sorted
+        self._shards: Optional[List[torch.Tensor]] = None  # sharded Flat rows
         self._flat_cache: Optional[torch.Tensor] = None
         self._layout = None
         self._pq_codebooks: Optional[np.ndarray] = None
@@ -201,13 +203,23 @@ class VectorIndex:
                 self.device).to(dtype)
         return out
 
+    @property
+    def is_sharded(self) -> bool:
+        return self.mesh is not None and self._effective_type == "Flat"
+
     def _materialize(self) -> None:
         if not self._dirty or self._emb_f32 is None:
             return
         self._device_emb = None
+        self._shards = None
         self._layout = None
         kind = self._effective_type
-        if kind == "Flat":
+        if self.is_sharded:
+            from anorag_tpu_torch.parallel.mesh import shard_rows
+
+            self._shards, _ = shard_rows(self.mesh, self._emb_f32, dtype=self._dtype)
+            self._sharded_fns.clear()
+        elif kind == "Flat":
             self._device_emb = self._to_device(self._dtype)
         elif kind == "IVFPQ" and self.pq_impl == "codebook":
             if self._pq_codebooks is None:
@@ -267,6 +279,10 @@ class VectorIndex:
         self._materialize()
         q = self._preprocess(torch.atleast_2d(torch.as_tensor(queries)))
         kind = self._effective_type
+        if self.is_sharded:
+            vals, idx = self._sharded_dense_fn(min(top_k, self.ntotal))(self._shards, q)
+            vals, idx = pad_results(vals.cpu().numpy(), idx.cpu().numpy(), top_k)
+            return vals, idx
         if kind == "Flat":
             vals, idx = dense_topk(self._device_emb, q.to(self._device_emb.dtype),
                                    top_k, use_kernel=self.use_kernel)
@@ -300,14 +316,55 @@ class VectorIndex:
                                use_kernel=self.use_kernel)
         return vals, idx.astype(np.int64)
 
+    def _sharded_dense_fn(self, k_eff: int):
+        """The cached shard-local top-k + merge for this (k, N)."""
+        key = ("dense", k_eff, self.ntotal)
+        fn = self._sharded_fns.get(key)
+        if fn is None:
+            from anorag_tpu_torch.parallel.sharded_search import make_sharded_topk
+
+            fn = make_sharded_topk(self.mesh, k_eff, self.ntotal, self.use_kernel)
+            self._sharded_fns[key] = fn
+        return fn
+
+    def sharded_hybrid_fn(self, k_eff: int, dense_k: int, sparse_m: int,
+                          sparse_weight: float, recall_target: float = 0.95):
+        """The cached sharded candidate-union hybrid searcher, called as
+        fn(self.sharded_rows(), queries, doc_rows, weight_rows).
+        recall_target is accepted for the reference's signature and has no
+        effect: every route is exact."""
+        key = ("hybrid", k_eff, dense_k, sparse_m, sparse_weight,
+               recall_target, self.ntotal)
+        fn = self._sharded_fns.get(key)
+        if fn is None:
+            from anorag_tpu_torch.parallel.sharded_search import (
+                make_sharded_hybrid_union_topk)
+
+            fn = make_sharded_hybrid_union_topk(
+                self.mesh, k_eff, self.ntotal, dense_k=dense_k,
+                sparse_m=sparse_m, sparse_weight=sparse_weight,
+                recall_target=recall_target)
+            self._sharded_fns[key] = fn
+        return fn
+
+    def sharded_rows(self) -> List[torch.Tensor]:
+        """The row shards of a sharded index (mesh.shard_rows' list, in the
+        storage dtype, pad rows 0)."""
+        self._materialize()
+        return self._shards
+
     def reconstruct(self, i: int) -> np.ndarray:
         return self._emb_f32[i].numpy()
 
     def flat_device_emb(self) -> torch.Tensor:
         """(N, D) device rows in ORIGINAL order (the IVF layout is cluster
         sorted; callers indexing by corpus row need this view). For IVF it
-        is a further storage-dtype copy, made on first use."""
+        is a further storage-dtype copy, made on first use; for a sharded
+        index, the real rows of its shards gathered on the index's device,
+        made on each call."""
         self._materialize()
+        if self.is_sharded:
+            return torch.cat([s.to(self.device) for s in self._shards])[:self.ntotal]
         if self._effective_type == "Flat":
             return self._device_emb
         if self._flat_cache is None:

@@ -16,8 +16,10 @@ reads questions from stdin. Both run on system.device: cuda by default (the
 reference's "tpu" and "gpu" name the card too), cpu only when the config
 says so. --config reads the YAML file with the port's ConfigLoader (its
 own reader, no PyYAML; serve.load_config).
---parallel (the reference's engine-parallel document fan-out) is not ported
-yet and raises NotImplementedError.
+`process --parallel` with more than one file fans the files out over the
+task engine (parallel/interface.py): each file's KB is built in its own
+directory, <work dir>/<file stem>, by --workers threads under --strategy;
+with one file it runs the serial build, as the root CLI does.
 """
 from __future__ import annotations
 
@@ -56,10 +58,6 @@ def _make_llm(args, cfg, device):
 
 
 def process_docs(args, cfg: Config) -> int:
-    if args.parallel:
-        raise NotImplementedError(
-            "process --parallel (the engine-parallel document fan-out) is not "
-            "ported yet (ROADMAP: the sharded branch); run without --parallel")
     # default REUSES the latest work dir so the incremental/artifact caches
     # apply across runs; --new forces a fresh numbered dir, --force
     # reprocesses inside the reused dir
@@ -72,12 +70,24 @@ def process_docs(args, cfg: Config) -> int:
                   level=logging.DEBUG if args.debug else logging.INFO)
     llm = _make_llm(args, cfg, device)
 
-    from anorag_tpu_torch.doc.processor import DocumentProcessor
+    files = [str(p) for p in args.files]
+    if args.parallel and len(files) > 1:
+        from anorag_tpu_torch.parallel.interface import create_parallel_interface
 
-    dp = DocumentProcessor(work, llm=llm, cfg=cfg, device=device)
-    result = dp.process_documents(file_paths=[str(p) for p in args.files],
-                                  force_reprocess=args.force)
-    print(f"processed -> {work}: {result['processing_stats']}")
+        iface = create_parallel_interface(
+            mode="document", work_dir=work, llm=llm, cfg=cfg,
+            workers=args.workers, strategy=args.strategy, device=device,
+        )
+        out = iface.process_documents(files)
+        print(f"processed {len(files)} files -> {work} "
+              f"({out['results']['n_runs']} runs, {len(out['errors'])} errors)")
+    else:
+        from anorag_tpu_torch.doc.processor import DocumentProcessor
+
+        dp = DocumentProcessor(work, llm=llm, cfg=cfg, device=device)
+        result = dp.process_documents(file_paths=files,
+                                      force_reprocess=args.force)
+        print(f"processed -> {work}: {result['processing_stats']}")
     return 0
 
 
@@ -140,8 +150,7 @@ def main(argv: Optional[Sequence[str]] = None, cfg: Optional[Config] = None) -> 
     p.add_argument("--force", action="store_true",
                    help="force reprocess (ignore incremental/artifact caches)")
     p.add_argument("--debug", action="store_true", help="debug logging")
-    p.add_argument("--parallel", action="store_true",
-                   help="not ported yet: raises NotImplementedError")
+    p.add_argument("--parallel", action="store_true")
     p.add_argument("--workers", type=int, default=4)
     p.add_argument("--strategy", default="hybrid",
                    choices=["copy", "split", "dispatch", "hybrid"])

@@ -7,8 +7,8 @@ jax.value_and_grad), the generator (_prefill, _decode_step, _mask_unused,
 _pick, generate; the reference's generate_fn), DecoderLM and the checkpoint
 files (save_lm, load_lm: the same params.npz and config.json, read and
 written with numpy). params_from_jax carries the reference's parameter
-pytree across. The sharding specs (param_pspecs) wait for the sharded
-branch.
+pytree across, and param_pspecs gives the reference's sharding specs (a
+tuple of axis names for each PartitionSpec).
 
 The arithmetic follows the reference's: pre-LN blocks with layer norm in
 f32 (eps 1e-5), RoPE at absolute positions over the left-padded row
@@ -179,6 +179,25 @@ def init_params(cfg: DecoderConfig, generator: torch.Generator,
         lp.ln1_scale.fill_(1.0)
         lp.ln2_scale.fill_(1.0)
     return params
+
+
+def param_pspecs(cfg: DecoderConfig, model_axis: str = "model") -> Dict[str, Any]:
+    """The reference's PartitionSpec tree (param_pspecs :139), each spec a
+    tuple of axis names and None (() replicated)."""
+    m = model_axis
+    layer = {
+        "ln1": {"scale": (), "bias": ()},
+        "qkv": (None, None, m, None),
+        "attn_out": (m, None, None),
+        "ln2": {"scale": (), "bias": ()},
+        "ffn_in": (None, m),
+        "ffn_out": (m, None),
+    }
+    return {
+        "tok_emb": (m, None),
+        "final_ln": {"scale": (), "bias": ()},
+        "layers": [layer for _ in range(cfg.num_layers)],
+    }
 
 
 def params_from_jax(np_params: Mapping[str, Any], cfg: DecoderConfig,

@@ -1,9 +1,9 @@
 """Transformer text encoder (XLM-R-large geometry by default) and its
 contrastive training step.
 
-Counterpart of anorag_tpu/models/encoder.py: EncoderConfig (:29), and
-Encoder.forward for encode (:166), info_nce_loss (:197) and
-make_train_step (:210). The parameters keep the JAX package's
+Counterpart of anorag_tpu/models/encoder.py: EncoderConfig (:29),
+param_pspecs (:115), and Encoder.forward for encode (:166), info_nce_loss
+(:197) and make_train_step (:210). The parameters keep the JAX package's
 layout (qkv (h, 3, n, dh), attn_out (n, dh, h), ...) so that
 params_from_jax is a renaming, and the
 forward pass mirrors the reference's rounding points: layer norm statistics
@@ -250,6 +250,31 @@ def params_from_jax(np_params: Mapping[str, Any],
             sd[pre + ln + "_scale"] = t(lp[ln]["scale"], f32)
             sd[pre + ln + "_bias"] = t(lp[ln]["bias"], f32)
     return sd
+
+
+def param_pspecs(cfg: EncoderConfig, model_axis: str = "model") -> Dict[str, Any]:
+    """The reference's PartitionSpec tree (param_pspecs :115), each spec a
+    tuple of axis names and None (() replicated): heads, the FFN width and
+    the vocabulary sharded over the model axis."""
+    m = model_axis
+    layer = {
+        "qkv": (None, None, m, None),
+        "qkv_b": (None, m, None),
+        "attn_out": (m, None, None),
+        "attn_out_b": (),
+        "ln1": {"scale": (), "bias": ()},
+        "ffn_in": (None, m),
+        "ffn_in_b": (m,),
+        "ffn_out": (m, None),
+        "ffn_out_b": (),
+        "ln2": {"scale": (), "bias": ()},
+    }
+    return {
+        "tok_emb": (m, None),
+        "pos_emb": (),
+        "emb_ln": {"scale": (), "bias": ()},
+        "layers": [layer for _ in range(cfg.num_layers)],
+    }
 
 
 # ------------------------------------------------------------- training

@@ -6,8 +6,11 @@ pairs_from_notes (:136, copied). InfoNCE over (query, positive-note) pairs
 with in-batch negatives (models/encoder.py's info_nce_loss and
 make_train_step), adamw as optax applies it (training/optim.py),
 deterministic data iteration. It runs on the card unless the caller asks
-for the CPU. The reference's dp x tp mesh is the sharded branch, which is
-not ported: model_parallel above 1 raises NotImplementedError. A
+for the CPU. The trainer builds its mesh as the reference does
+(make_mesh(model_parallel=...)), over its one device, where the clamp makes
+it (1, 1), as the reference's on one chip: model_parallel above 1 trains as
+1 does. Data and tensor parallel training over more than one device is not
+ported and raises NotImplementedError. A
 checkpoint is the encoder's state dict written with torch.save, the file
 EmbeddingManager.load_checkpoint and embedding.checkpoint_path read, where
 the reference writes orbax (the card has none).
@@ -24,6 +27,7 @@ import torch
 from anorag_tpu_torch.device import DeviceLike, resolve_device
 from anorag_tpu_torch.models import encoder as enc
 from anorag_tpu_torch.models.tokenizer import HashTokenizer
+from anorag_tpu_torch.parallel.mesh import make_mesh
 from anorag_tpu_torch.training.optim import ScalarOrSchedule, adamw
 from anorag_tpu_torch.utils.logging import get_logger
 
@@ -70,12 +74,13 @@ class EncoderTrainer:
         seed: int = 0,
         device: DeviceLike = None,
     ):
-        if model_parallel > 1:
-            raise NotImplementedError(
-                "model_parallel > 1 shards the encoder over a device mesh, the "
-                "sharded branch (ROADMAP.md), which is not ported yet")
         self.cfg = cfg or enc.EncoderConfig.small()
         self.device = resolve_device(device)
+        self.mesh = make_mesh(model_parallel=model_parallel, devices=[self.device])
+        if len(self.mesh.distinct_devices()) > 1:
+            raise NotImplementedError(
+                "training over more than one device (data and tensor parallel "
+                "over a mesh, ROADMAP.md) is not ported")
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.model = enc.Encoder(self.cfg, self.device).init_random(gen)
         self.model.requires_grad_(True)

@@ -120,10 +120,6 @@ class QueryProcessor:
     ):
         self.cfg = as_config(cfg)
         self.device = resolve_device(device)
-        if str(self.cfg.get("tpu.sharded_search", "auto")).lower() == "on":
-            raise NotImplementedError(
-                "sharded search across devices is not ported yet (ROADMAP: "
-                "the sharded branch)")
         self.llm = llm
         self.work_dir = Path(work_dir) if work_dir else None
         self.notes = [normalize_note(n) for n in atomic_notes]
@@ -131,8 +127,14 @@ class QueryProcessor:
         # --- dense retrieval -------------------------------------------------
         vs = self.cfg.get("vector_store", {}) or {}
         self.em = embedding_manager or EmbeddingManager(self.cfg, self.device)
+        # shard the corpus over the product mesh when more than one GPU is
+        # attached, or over this device with tpu.sharded_search: on
+        from anorag_tpu_torch.parallel.runtime import product_mesh
+
+        self.mesh = product_mesh(self.cfg, self.device)
         self.retriever = VectorRetriever(
             embedding_manager=self.em,
+            mesh=self.mesh,
             index_type=vs.get("index_type", "IVFFlat"),
             similarity_threshold=0.0,
             top_k=vs.get("top_k", 20),

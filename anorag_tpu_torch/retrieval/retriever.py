@@ -14,7 +14,10 @@ are kept as a tensor without a copy (the device rows the encoder made, or
 those a caller passed); the rows that add_notes and update_note write are
 f32, as the reference's. search and retrieve go through
 VectorIndex.search_arrays: Flat (the streaming top-k kernel with
-use_kernel=True) or IVFFlat (the IVF scan kernel).
+use_kernel=True) or IVFFlat (the IVF scan kernel). With a mesh
+(parallel/mesh.py) the index shards Flat rows over its 'data' axis: search
+takes the shard-local top-k and merge, and the hybrid search the sharded
+candidate union of parallel/sharded_search.py (reference :227-234).
 Dispatch only enqueues device work; finalize waits for it and builds the
 note rows, so a caller can overlap one batch's host work with the next
 batch's device work.
@@ -48,7 +51,7 @@ OVERFETCH = 3
 class HybridBatch:
     """Everything hybrid_topk takes for one batch of queries."""
     queries: List[str]
-    q_emb: torch.Tensor          # (B, D) in the corpus storage dtype
+    q_emb: torch.Tensor          # (B, D) in the corpus storage dtype; f32 if sharded
     doc_rows: torch.Tensor       # (B, L) int32 sorted posting doc ids
     weight_rows: torch.Tensor    # (B, L) f32 posting weights
     k: int
@@ -227,11 +230,12 @@ class VectorRetriever:
         q_terms = self.query_terms(queries)
         doc_rows, weight_rows, lens = gather_plan_sorted(self._lexical.postings,
                                                          q_terms)
-        emb = self.index.flat_device_emb()
+        q_emb = self.index._preprocess(q_emb)
         k_eff = min(top_k, n)
         return HybridBatch(
             queries=queries,
-            q_emb=self.index._preprocess(q_emb).to(emb.dtype),
+            # the sharded union takes f32 queries against widened rows
+            q_emb=q_emb if self.index.is_sharded else q_emb.to(self.index._dtype),
             doc_rows=torch.from_numpy(doc_rows).to(self.device),
             weight_rows=torch.from_numpy(weight_rows).to(self.device),
             k=k_eff,
@@ -242,7 +246,15 @@ class VectorRetriever:
             lens=lens)
 
     def search_batch(self, batch: HybridBatch, sparse_weight: float = 0.6):
-        """Enqueue hybrid_topk for a prepared batch: (scores, ids) (B, k)."""
+        """Enqueue hybrid_topk for a prepared batch: (scores, ids) (B, k).
+        A sharded index (corpus rows on the mesh's 'data' axis) takes the
+        sharded candidate union over the untiled (B, L) plan instead, before
+        hybrid_topk's window or segment routing."""
+        if self.index.is_sharded:
+            fn = self.index.sharded_hybrid_fn(batch.k, batch.dense_k, batch.sparse_m,
+                                              sparse_weight)
+            return fn(self.index.sharded_rows(), batch.q_emb, batch.doc_rows,
+                      batch.weight_rows)
         return hybrid_topk(
             self.index.flat_device_emb(), batch.q_emb, batch.doc_rows,
             batch.weight_rows, batch.k, n_docs=len(self.notes),

@@ -11,8 +11,9 @@ Contrastive InfoNCE over (pseudo-query, note) pairs (models/train.py) with
 the config's encoder (encoder.*; --small for the debug geometry). It runs on
 system.device: cuda by default, cpu only when the config says so. The
 checkpoint is the encoder's state dict (torch.save), the file
-embedding.checkpoint_path reads; --resume reads one. --model-parallel above
-1 (the reference's dp x tp mesh) raises NotImplementedError.
+embedding.checkpoint_path reads; --resume reads one. --model-parallel is
+clamped by the trainer's one-device mesh to 1, as the reference's on one
+chip.
 """
 from __future__ import annotations
 

@@ -132,7 +132,7 @@ Phases, each printing its seconds:
                 torch.matmul + torch.topk (f32, no TF32) and the bound; a
                 second `process` of the same file all cache hits with every
                 artifact's SHA1 unchanged; `main query`'s QueryProcessor over
-                the work dir answering the first 32 items' questions through
+                the work dir answering the first 16 items' questions through
                 process() with the reference's keys (latency median and p90,
                 answer methods, exact match against the gold answers and
                 aliases, printed, not gated: the encoder's weights are
@@ -146,7 +146,7 @@ Phases, each printing its seconds:
                 8 items through pipeline_musique.process_musique_item on the
                 card and on the CPU (hash backend, Flat), every row field
                 equal; `python -m anorag_tpu_torch.main_musique` in-process
-                (main_musique.main(argv, Config)) over the first 48 items at full
+                (main_musique.main(argv, Config)) over the first 16 items at full
                 width (--no-llm, --workers 2): one row per item, no error
                 row, a second run adding no row, items/s and each item's
                 seconds (median, p90) split into the KB build, the
@@ -232,7 +232,7 @@ Phases, each printing its seconds:
   18. indexes -- the compressed and graph indexes, built one after the
                 other from phase ivf's host rows and freed in turn: IVFPQ
                 (sketch) and LSH over the 5,000,000 x 1024 rows and phase
-                ivf's traffic (train and encode s, device bytes beside the
+                ivf's singles and 2 of its batches (train and encode s, device bytes beside the
                 bf16 Flat copy, peak device memory, batch and single
                 latency, recall@10 against exact f32 from the streaming
                 top-k kernel, printed, not gated); on 8 queries each
@@ -286,9 +286,32 @@ Phases, each printing its seconds:
                 train_encoder.main at the config's encoder (bf16, vocab
                 250,002) on the first 2,048 notes of phase offline's
                 build, its checkpoint read by
-                EmbeddingManager.load_checkpoint.
+                EmbeddingManager.load_checkpoint;
+  20. sharded -- the sharded branch (anorag_tpu_torch/parallel/) on the
+                card: setup's 200,000 x 1024 bf16 rows sharded over a mesh
+                of 4 shards that repeats the card and over the product
+                mesh of tpu.sharded_search 'on' (one shard);
+                VectorIndex(use_kernel=True) at k 20 on 2 batches of 512
+                encoded queries held to the unsharded index (testing.
+                check_topk), the streaming top-k kernel launched once a
+                shard a batch; VectorRetriever.hybrid_search (the sharded
+                candidate union: f32 queries, the untiled plan, its sparse
+                stage through the segment-totals kernel, at least once a
+                batch) on 2 served batches held to the same union over the
+                unsharded rows (values to 1e-5, ids equal outside near
+                ties); each route's ms a batch beside the unsharded ones;
+                QueryProcessor.process() over 2,000 setup notes and the KB
+                with sharded_search on and off, answers equal;
+                make_sharded_encode over the 4 shards against the encoder's
+                own 512-query batch (bf16, 2e-2); `main process --parallel`
+                over two files of 3 synthetic items on 2 worker threads,
+                each file's KB equal to a serial build of it (density
+                clustering: k-means sums by atomics on the card), with times and
+                peak device memory; the two kernels' launches on the
+                sharded path counted from 0 and added to the kernel line.
 Then one JSON line of kernel numbers (dense_topk's launches count both
-graph builds' self-joins; dense_topk_f32_self_join and
+graph builds' self-joins and the sharded phase's; segment totals' the
+sharded phase's; dense_topk_f32_self_join and
 dense_topk_f32_offline_self_join hold their shapes), the
 nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure prints its traceback and exits
@@ -1483,6 +1506,7 @@ def _hybrid_memory_check(dev, index, queries, seed: int, smi_line: str):
 # ------------------------------------------------------------ phase indexes
 INDEX_CHECK_QUERIES = 8        # queries of the exact checks on each index
 INDEX_SERVED_SINGLES = 16      # single queries timed at the served size
+INDEX_BATCHES = 2              # of phase ivf's IVF_BATCHES batches, timed at 5,000,000 rows
 CODEBOOK_SAMPLE = 4096         # rows whose codes are held to the plain codes
 INDEX_KB_QUESTIONS = 4         # offline KB questions a configuration
 KB_INDEX_TYPES = (("IVFPQ sketch", {"index_type": "IVFPQ", "pq_impl": "sketch"}),
@@ -1617,14 +1641,18 @@ def _big_indexes(dev, rows, queries, smi_line: str) -> None:
         scales = (torch.ones(n, device=dev) if name == "LSH" else index._sq_scales)
         dev_gb = (codes.numel() + (0 if name == "LSH" else scales.numel() * 4)) / 1e9
         peak_build = torch.cuda.max_memory_allocated(dev) / 1e9
+        # the first INDEX_BATCHES batches, then phase ivf's singles (the
+        # yardstick's rows)
+        traffic = torch.cat([queries[:INDEX_BATCHES * BATCH],
+                             queries[IVF_BATCHES * BATCH:]])
         lat_b, lat_1, first, singles, peak = _traffic(
-            index, queries, 20, 30, IVF_BATCHES, IVF_SINGLES, dev)
+            index, traffic, 20, 30, INDEX_BATCHES, IVF_SINGLES, dev)
         recall = _recall(list(first) + singles, exact)
         cand = index._candidates(30)
         print(f"{name} at {n} x {d}: train {t_train:.2f} s, encode {t_encode:.2f} s; "
               f"codes {codes.shape[1]} bytes a row, {dev_gb:.3f} GB on the card beside "
               f"{bf16_gb:.2f} GB for the bf16 Flat copy; peak device memory build "
-              f"{peak_build:.2f} GB, search {peak:.2f} GB; {IVF_BATCHES} x {BATCH} at k 20 "
+              f"{peak_build:.2f} GB, search {peak:.2f} GB; {INDEX_BATCHES} x {BATCH} at k 20 "
               f"{', '.join(f'{x:.4f}' for x in lat_b)} s; {IVF_SINGLES} singles at k 30 "
               f"mean {sum(lat_1) / len(lat_1):.4f} s, max {max(lat_1):.4f} s; refine pool "
               f"{cand}; recall@10 against exact f32 {recall:.4f} over "
@@ -2480,7 +2508,7 @@ OFFLINE_ITEMS = 200            # synthetic MuSiQue-style items, 40 paragraphs ea
 OFFLINE_MIN_NOTES = 20_000     # above this the self-join runs on the card (SEMANTIC_HOST_ROWS)
 # items whose questions go through process() (cut from 64 when the musique
 # phase joined, to keep the script near its time)
-OFFLINE_QUERIES = 32
+OFFLINE_QUERIES = 16           # 32 before phase sharded
 OFFLINE_RETRIEVE = 32          # questions of the retriever's round trips
 OFFLINE_REMOVED = 100          # notes removed and added back
 _DOC = "doc.processor"
@@ -2777,10 +2805,10 @@ def _drop_log_handlers(log_state) -> None:
 
 
 # the musique phase: main_musique over phase offline's items
-# items of the full-width run: the first 48 of phase offline's 200 (all 200
-# took 218 s of a 271 s phase on an H100; 64 until phase train joined, to
-# keep the script near its length)
-MUSIQUE_ITEMS = 48
+# items of the full-width run: the first 16 of phase offline's 200 (all 200
+# took 218 s of a 271 s phase on an H100; 64 until phase train joined and
+# 48 until phase sharded did, to keep the script near its length)
+MUSIQUE_ITEMS = 16
 MUSIQUE_PARITY = 8             # items through process_musique_item on the card and the CPU
 MUSIQUE_COR = 4                # items of the --enable-cor run
 MUSIQUE_LLM = 2                # items of the run with the decoder LM
@@ -3877,6 +3905,307 @@ def _train_phase(dev, train_notes, seed: int, smi_line: str) -> None:
           f"| {smi_line}", flush=True)
 
 
+# the sharded phase: the corpus sharded over a mesh on the one card
+SHARDED_SHARDS = 4             # the repeated-device mesh's 'data' shards
+SHARDED_BATCHES = 2            # 512-query batches of each sharded search
+SHARDED_KB_NOTES = 2_000       # setup notes beside the KB under process()
+SHARDED_ITEMS = 3              # synthetic items in each of main process's two files
+SHARDED_REPS = 3               # timed calls a route (median)
+
+
+def _wall_ms(fn, reps: int = SHARDED_REPS) -> float:
+    """Median host ms of fn() between two synchronisations, after one warm
+    call (the sharded routes end on the host: they gather and merge)."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def _same_outside_ties(got, want, atol: float, what: str) -> float:
+    """(vals, ids) (B, k) held to want's: the same slots filled, values to
+    atol, ids equal wherever want's neighbouring values are more than atol
+    apart (near ties may trade places). Returns the largest value error."""
+    import torch
+
+    (gv, gi), (wv, wi) = ((torch.as_tensor(v).float().cpu(), torch.as_tensor(i).long().cpu())
+                          for v, i in (got, want))
+    if not torch.equal(gi >= 0, wi >= 0):
+        raise AssertionError(f"{what}: filled slots differ")
+    filled = wi >= 0
+    err = float((gv - wv).abs().where(filled, torch.zeros_like(gv)).max())
+    if err > atol:
+        raise AssertionError(f"{what}: values differ by {err:.3g} > {atol}")
+    gap = torch.full_like(wv, float("inf"))
+    step = (wv[:, :-1] - wv[:, 1:]).abs()
+    gap[:, :-1] = torch.minimum(gap[:, :-1], step)
+    gap[:, 1:] = torch.minimum(gap[:, 1:], step)
+    clear = filled & (gap > atol)
+    if not torch.equal(gi[clear], wi[clear]):
+        raise AssertionError(f"{what}: {int((gi != wi)[clear].sum())} ids differ "
+                             f"outside near ties")
+    return err
+
+
+def _sharded_phase(dev, qp, em, notes, requests, top_k: int, seed: int,
+                   smi_line: str) -> dict:
+    """The sharded branch on the card: setup's 200,000 x 1024 bf16 rows on a
+    mesh of SHARDED_SHARDS shards over the one card and on the product
+    mesh of tpu.sharded_search 'on' (one shard), held to the unsharded
+    index: VectorIndex(use_kernel=True) at k 20 and
+    VectorRetriever.hybrid_search, SHARDED_BATCHES 512-query batches each,
+    each route timed; QueryProcessor.process() with sharded_search on and
+    off; make_sharded_encode against the encoder's own batch; main process
+    --parallel over two small files against a serial build of each. The
+    streaming top-k and segment-totals kernels' launches on the sharded
+    path, counted from 0 just before it, are returned."""
+    import copy
+    import logging
+    import shutil
+    import subprocess
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from anorag_tpu_torch import main as tmain
+    from anorag_tpu_torch.config import Config
+    from anorag_tpu_torch.index.vector_index import VectorIndex
+    from anorag_tpu_torch.ops import bm25
+    from anorag_tpu_torch.ops.topk import dense_topk_kernel, hybrid_fuse, hybrid_topk
+    from anorag_tpu_torch.parallel.mesh import make_mesh
+    from anorag_tpu_torch.parallel.runtime import product_mesh
+    from anorag_tpu_torch.parallel.sharded_search import make_sharded_encode
+    from anorag_tpu_torch.query.processor import QueryProcessor
+    from anorag_tpu_torch.retrieval.retriever import VectorRetriever
+    from anorag_tpu_torch.testing import KB_QUESTIONS, check_topk, flat_scores, kb_notes
+    from anorag_tpu_torch.utils.file_io import read_jsonl, write_jsonl
+
+    rows = qp.retriever.index.flat_device_emb()
+    n, d = rows.shape
+    meshes = {f"{SHARDED_SHARDS} shards": make_mesh(devices=[dev] * SHARDED_SHARDS),
+              "product mesh (on)": product_mesh({"tpu": {"sharded_search": "on"}}, dev)}
+    if meshes["product mesh (on)"].shape != {"data": 1, "model": 1}:
+        raise AssertionError(f"product mesh on one card: {meshes['product mesh (on)']}")
+    t0 = time.perf_counter()
+    plain = VectorIndex(dimension=d, index_type="Flat", use_kernel=True, device=dev)
+    indexes = {name: VectorIndex(dimension=d, index_type="Flat", use_kernel=True,
+                                 device=dev, mesh=mesh) for name, mesh in meshes.items()}
+    for idx in (plain, *indexes.values()):
+        idx.add(rows)
+        idx.sharded_rows() if idx.is_sharded else idx.flat_device_emb()
+    torch.cuda.synchronize(dev)
+    print(f"sharded indexes over {n} x {d} bf16 rows built in "
+          f"{time.perf_counter() - t0:.2f} s: "
+          + ", ".join(f"{name} {[tuple(s.shape) for s in i.sharded_rows()]}"
+                      for name, i in indexes.items()), flush=True)
+    queries = [em.encode_queries(req) for req in requests[:SHARDED_BATCHES]]
+
+    # dense: the streaming top-k kernel once a shard a batch
+    unit = plain.flat_device_emb()
+    dense_topk_kernel.launches = 0
+    results = {name: [i.search_arrays(q, 20) for q in queries]
+               for name, i in indexes.items()}
+    dense_launches = dense_topk_kernel.launches
+    want_launches = SHARDED_BATCHES * sum(m.shape["data"] for m in meshes.values())
+    if dense_launches != want_launches:
+        raise AssertionError(f"sharded dense search launched the top-k kernel "
+                             f"{dense_launches} times, not {want_launches}")
+    errs = []
+    for bi, q in enumerate(queries):
+        want = plain.search_arrays(q, 20)
+        qn = plain._preprocess(q)
+        for name in indexes:
+            got = results[name][bi]
+            errs.append(check_topk(tuple(torch.from_numpy(a).to(dev) for a in got),
+                                   tuple(torch.from_numpy(a).to(dev) for a in want),
+                                   flat_scores(unit, qn)))
+    times = {"unsharded": _wall_ms(lambda: plain.search_arrays(queries[0], 20)),
+             **{name: _wall_ms(lambda i=i: i.search_arrays(queries[0], 20))
+                for name, i in indexes.items()}}
+    print(f"sharded VectorIndex(use_kernel=True), {len(queries)} batches of "
+          f"{len(queries[0])} queries at k 20: equal to the unsharded index "
+          f"(testing.check_topk, max abs err {max(errs):.3g}); top-k kernel launches "
+          f"{dense_launches} ({want_launches} expected); ms a batch (host wall, "
+          f"median of {SHARDED_REPS}): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in times.items()) + f" | {smi_line}",
+          flush=True)
+
+    # hybrid: the sharded candidate union, its sparse stage through the
+    # segment-totals kernel; held to the same union over the unsharded rows
+    # (sparse_topm_from_sorted, then hybrid_fuse) with the same f32 queries
+    # and plan. hybrid_topk, the unsharded served route, takes its sparse
+    # top-m from bucket winners instead, so it is timed, not compared. The
+    # second retriever shares the first's notes and BM25 index and takes
+    # the product mesh's index.
+    r4 = VectorRetriever(em, index_type="Flat", top_k=top_k,
+                         mesh=meshes[f"{SHARDED_SHARDS} shards"])
+    r4.build_index(notes, embeddings=rows)
+    r1 = copy.copy(r4)
+    r1.index = indexes["product mesh (on)"]
+    retrievers = {f"{SHARDED_SHARDS} shards": r4, "product mesh (on)": r1}
+    batches = [r4.prepare(req, top_k=top_k) for req in requests[:SHARDED_BATCHES]]
+    widths = [b.doc_rows.shape[1] for b in batches]
+    if min(widths) < 2048:
+        raise AssertionError(f"hybrid plans {widths} wide; the phase needs >= 2048")
+    bm25.segment_totals.launches = 0
+    hyb = {name: [r.hybrid_search_dispatch(req, top_k=top_k)
+                  for req in requests[:SHARDED_BATCHES]]
+           for name, r in retrievers.items()}
+    totals_launches = bm25.segment_totals.launches
+    if totals_launches < SHARDED_BATCHES * len(retrievers):
+        raise AssertionError(f"the sharded union launched segment_totals "
+                             f"{totals_launches} times for "
+                             f"{SHARDED_BATCHES * len(retrievers)} batches")
+    def union(b):
+        sp = bm25.sparse_topm_from_sorted(b.doc_rows, b.weight_rows, b.sparse_m, n)[1:]
+        return hybrid_fuse(unit, b.q_emb, *sp, b.k, n_docs=n, dense_k=b.dense_k)
+
+    herrs = []
+    for bi, b in enumerate(batches):
+        want = union(b)
+        for name in retrievers:
+            _, _, vals, ids = hyb[name][bi]
+            herrs.append(_same_outside_ties((vals, ids), want, 1e-5,
+                                            f"sharded hybrid ({name}), batch {bi}"))
+    rows_out = r4.hybrid_search(requests[0], top_k=top_k)
+    ids0 = hyb[f"{SHARDED_SHARDS} shards"][0][3].cpu()
+    for qi, row in enumerate(rows_out):
+        if [int(x["note_id"][1:]) for x in row] != [int(i) for i in ids0[qi] if i >= 0]:
+            raise AssertionError("hybrid_search's rows differ from its dispatch's ids")
+    b0 = batches[0]
+    htimes = {"unsharded union": _wall_ms(lambda: union(b0)[1].cpu()),
+              "unsharded hybrid_topk (served route)": _wall_ms(lambda: hybrid_topk(
+                  unit, b0.q_emb, b0.doc_rows, b0.weight_rows, b0.k, n,
+                  dense_k=b0.dense_k, sparse_m=b0.sparse_m, max_seg=b0.max_seg)[1].cpu()),
+        **{name: _wall_ms(lambda r=r: r.search_batch(b0)[1].cpu())
+           for name, r in retrievers.items()},
+        f"hybrid_search ({SHARDED_SHARDS} shards, prepare and rows)": _wall_ms(
+            lambda: r4.hybrid_search(requests[0], top_k=top_k))}
+    print(f"sharded VectorRetriever.hybrid_search, {len(batches)} batches of "
+          f"{len(requests[0])} queries, plans {widths} wide, k {b0.k}: equal to "
+          f"the union over the unsharded rows (values to 1e-5, max abs err "
+          f"{max(herrs):.3g}, ids equal outside near ties); segment_totals launches "
+          f"{totals_launches}; ms a batch (host wall, median of {SHARDED_REPS}): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in htimes.items()) + f" | {smi_line}",
+          flush=True)
+    del r4, r1, retrievers, indexes, plain, hyb, results
+
+    # QueryProcessor.process() with tpu.sharded_search on and off
+    small = [dict(x) for x in notes[:SHARDED_KB_NOTES]] + kb_notes("kb")
+    small_emb = em.encode_atomic_notes(small)
+    answers = {}
+    for mode in ("on", "off"):
+        cfg = {"vector_store": {"top_k": 20}, "context": {"max_notes_for_llm": 20},
+               "tpu": {"sharded_search": mode}}
+        t0 = time.perf_counter()
+        sqp = QueryProcessor(small, embeddings=small_emb, cfg=cfg, device=dev,
+                             embedding_manager=em)
+        build_s = time.perf_counter() - t0
+        if sqp.retriever.index.is_sharded != (mode == "on"):
+            raise AssertionError(f"sharded_search {mode}: index sharded "
+                                 f"{sqp.retriever.index.is_sharded}")
+        t0 = time.perf_counter()
+        answers[mode] = [sqp.process(q) for q, *_ in KB_QUESTIONS]
+        print(f"QueryProcessor over {len(small)} notes, tpu.sharded_search {mode}: "
+              f"built in {build_s:.2f} s, {len(KB_QUESTIONS)} KB questions through "
+              f"process() in {time.perf_counter() - t0:.2f} s | {smi_line}", flush=True)
+    keys = ("answer", "predicted_support_idxs", "answer_method")
+    for on, off in zip(answers["on"], answers["off"]):
+        if [on[k] for k in keys] != [off[k] for k in keys]:
+            raise AssertionError(f"process() with sharded_search on answered "
+                                 f"{[on[k] for k in keys]}, off {[off[k] for k in keys]}")
+    print(f"process() answers equal with sharded_search on and off: "
+          f"{[a['answer'] for a in answers['on']]}", flush=True)
+
+    # make_sharded_encode against the encoder's own batch
+    enc = em._encoder
+    ids, mask = em._tokenizer.encode_batch(requests[0], em.max_length)
+    ids_t, mask_t = (torch.from_numpy(a).to(dev) for a in (ids, mask))
+    sharded_encode = make_sharded_encode(meshes[f"{SHARDED_SHARDS} shards"],
+                                         lambda p, i, m: p(i.long(), m))
+    want = enc(ids_t.long(), mask_t)
+    got = sharded_encode(enc, ids_t, mask_t)
+    enc_err = float((got - want).abs().max())
+    if got.shape != want.shape or enc_err > 2e-2:
+        raise AssertionError(f"make_sharded_encode differs from encode by {enc_err}")
+    etimes = {"encode": _wall_ms(lambda: enc(ids_t.long(), mask_t)),
+              f"make_sharded_encode ({SHARDED_SHARDS} shards)": _wall_ms(
+                  lambda: sharded_encode(enc, ids_t, mask_t))}
+    print(f"make_sharded_encode over {len(requests[0])} queries x {ids.shape[1]} tokens: "
+          f"max abs err {enc_err:.3g} against the full batch (bf16 compute, "
+          f"tolerance 2e-2); ms: " + ", ".join(f"{k} {v:.3f}" for k, v in etimes.items())
+          + f" | {smi_line}", flush=True)
+
+    # main process --parallel over two small files against serial builds
+    tmp = Path(tempfile.mkdtemp(prefix="anorag_parallel_"))
+    root_log = logging.getLogger()
+    log_state = (root_log.level, list(root_log.handlers))
+    try:
+        synth = tmp / "synth.jsonl"
+        subprocess.run([sys.executable, str(Path(__file__).resolve().parent / "scripts"
+                                            / "gen_synth_musique.py"), str(synth), "--n",
+                        str(2 * SHARDED_ITEMS), "--seed", str(seed)],
+                       check=True, stdout=subprocess.DEVNULL)
+        items = read_jsonl(synth)
+        files = [tmp / "part_a.jsonl", tmp / "part_b.jsonl"]
+        for i, f in enumerate(files):
+            write_jsonl(f, items[i * SHARDED_ITEMS:(i + 1) * SHARDED_ITEMS])
+        # density clustering: k-means' centroid update sums by atomics on
+        # the card (index_add_), so two builds of one file can pick other
+        # labels, and byte equality would not test the fan-out
+        def cfg(root):
+            return Config({"storage": {"result_root": str(tmp / root)},
+                           "clustering": {"method": "density"}})
+
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        rc = tmain.main(["process", *map(str, files), "--parallel", "--no-llm",
+                         "--workers", "2"], cfg("parallel"))
+        torch.cuda.synchronize(dev)
+        par_s = time.perf_counter() - t0
+        peak_gb = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+        if rc != 0:
+            raise AssertionError(f"main process --parallel exited {rc}")
+        ser_s = 0.0
+        for f in files:
+            t0 = time.perf_counter()
+            if tmain.main(["process", str(f), "--no-llm"], cfg(f.stem)) != 0:
+                raise AssertionError(f"main process {f.name} failed")
+            torch.cuda.synchronize(dev)
+            ser_s += time.perf_counter() - t0
+            got_dir, want_dir = tmp / "parallel" / "1" / f.stem, tmp / f.stem / "1"
+            for name in ("chunks.jsonl", "atomic_notes.json", "embeddings.npy",
+                         "clustering.json", "graph.json"):
+                if (got_dir / name).read_bytes() != (want_dir / name).read_bytes():
+                    raise AssertionError(f"main process --parallel: {f.stem}/{name} "
+                                         f"differs from the serial build's")
+        enc_gb = sum(p.numel() * p.element_size() for p in em._encoder.parameters()) / 1e9
+        n_notes = [len(read_jsonl(tmp / f.stem / "1" / "chunks.jsonl")) for f in files]
+        print(f"main process --parallel over 2 files of {SHARDED_ITEMS} items "
+              f"({n_notes} chunks, density clustering), 2 worker threads: {par_s:.2f} s against "
+              f"{ser_s:.2f} s serially; each file's KB equal to its serial build "
+              f"(chunks, notes, embeddings, clusters, graph); each task builds its "
+              f"own encoder ({enc_gb:.2f} GB of weights); peak device memory "
+              f"{peak_gb:.2f} GB above the resident {base / 1e9:.2f} GB | {smi_line}",
+              flush=True)
+    finally:
+        _drop_log_handlers(log_state)
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return {"dense_topk": dense_launches, "segment_totals": totals_launches}
+
+
 def run(dev, seed: int = 0):
     """All phases on device `dev`; returns (kernel numbers, nvidia-smi
     line, device name)."""
@@ -4196,6 +4525,12 @@ def run(dev, seed: int = 0):
     _train_phase(dev, train_notes, seed, smi_line)
     t = _phase("train", t)
 
+    # 20. sharded: setup's corpus on a mesh over the card, the sharded
+    # searches, QueryProcessor, the sharded encode and main process --parallel
+    sharded = _sharded_phase(dev, qp, em, notes, requests, top_k, seed, smi_line)
+    segment_kernels[0]["launches"] += sharded["segment_totals"]
+    t = _phase("sharded", t)
+
     return {"kernels": [{
         "name": "bm25_window_winners", "route": "cuda",
         "source": "anorag_tpu_torch/csrc/window_winners.cu",
@@ -4225,7 +4560,8 @@ def run(dev, seed: int = 0):
                   "merge path; units of one wave, the query tiles of a corpus "
                   "range side by side",
         "replaces": "anorag_tpu/ops/topk.py:40",
-        "launches": dense_launches + build_launches + offline_join["launches"],
+        "launches": (dense_launches + build_launches + offline_join["launches"]
+                     + sharded["dense_topk"]),
         "max_abs_err": max(dense_errs),
         **dense_main,
     }, {

@@ -206,6 +206,7 @@ def test_every_port_module_with_an_original_is_a_copy_or_a_rewrite():
     from test_torch_llm import LLM_COPIED
     from test_torch_musique import MUSIQUE_COPIED
     from test_torch_offline import OFFLINE_COPIED
+    from test_torch_parallel_engine import PARALLEL_COPIED
     from test_torch_training_cli import TRAINING_COPIED
 
     rewritten = {"device.py", "serving.py", "models/decoder_lm.py",
@@ -215,14 +216,15 @@ def test_every_port_module_with_an_original_is_a_copy_or_a_rewrite():
                  "models/embedding_manager.py", "models/encoder.py",
                  "models/hash_embedder.py", "models/tokenizer.py",
                  "ops/pq.py", "ops/sq.py", "ops/lsh.py", "ops/fusion.py",
-                 "models/cross_encoder.py", "models/hf_loader.py", "models/train.py"}
+                 "models/cross_encoder.py", "models/hf_loader.py", "models/train.py",
+                 "parallel/mesh.py", "parallel/runtime.py", "parallel/sharded_search.py"}
     both = {str(p.relative_to(ROOT / "anorag_tpu_torch"))
             for p in (ROOT / "anorag_tpu_torch").rglob("*.py")
             if p.name != "__init__.py"}
     both = {p for p in both if (ROOT / "anorag_tpu" / p).exists()}
     assert both == (set(COPIED) | set(LLM_COPIED) | set(OFFLINE_COPIED)
                     | set(CONFIG_COPIED) | set(MUSIQUE_COPIED) | set(FUSION_COPIED)
-                    | set(TRAINING_COPIED) | rewritten)
+                    | set(TRAINING_COPIED) | set(PARALLEL_COPIED) | rewritten)
 
 
 def test_copied_package_inits_are_empty():

@@ -857,3 +857,65 @@ def test_decoder_train_step_on_the_card_matches_the_cpu(cuda_device):
     cfg = dlm.DecoderConfig(**{**NOTE_LM_TPU_LARGE, "num_layers": 2})
     out = decoder_step_parity(cfg, cuda_device)
     assert out["loss_rel_err"] <= 1e-4, out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [1, 4])
+def test_sharded_index_on_the_card_equals_the_unsharded(cuda_device, shards):
+    """Flat rows sharded over a mesh that repeats the card: one streaming
+    top-k launch a shard, the results those of the unsharded index."""
+    from anorag_tpu_torch.index.vector_index import VectorIndex
+    from anorag_tpu_torch.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(shards)
+    x, q = unit_rows(rng, 30_001, 256), unit_rows(rng, 96, 256)
+    plain = VectorIndex(dimension=256, index_type="Flat", use_kernel=True,
+                        device=cuda_device)
+    sharded = VectorIndex(dimension=256, index_type="Flat", use_kernel=True,
+                          device=cuda_device, mesh=make_mesh(devices=[cuda_device] * shards))
+    for idx in (plain, sharded):
+        idx.add(x)
+    want = plain.search_arrays(q, 20)
+    before = topk.dense_topk_kernel.launches
+    got = sharded.search_arrays(q, 20)
+    assert topk.dense_topk_kernel.launches == before + shards
+    check_topk(tuple(torch.from_numpy(a).to(cuda_device) for a in got),
+               tuple(torch.from_numpy(a).to(cuda_device) for a in want),
+               flat_scores(plain.flat_device_emb(), plain._preprocess(q)))
+
+
+@pytest.mark.cuda
+def test_sharded_union_on_the_card_equals_the_cpu(cuda_device):
+    """The sharded candidate union over 4 shards on the card, its sparse
+    stage through the segment-totals kernel (L 4096, B 16): equal to the
+    same union over the unsharded rows on the card (values to 1e-5, ids
+    equal), and to the sharded union on the CPU within the BM25 routes'
+    bound (segment totals within 8 u S of the chain, S the row's weight sum,
+    scaled by the fusion's sparse_weight / row max)."""
+    from anorag_tpu_torch.ops.topk import hybrid_fuse
+    from anorag_tpu_torch.parallel.mesh import make_mesh, shard_rows
+    from anorag_tpu_torch.parallel.sharded_search import make_sharded_hybrid_union_topk
+
+    rng = np.random.default_rng(7)
+    n, b = 20_000, 16
+    emb, q = unit_rows(rng, n, 128), unit_rows(rng, b, 128)
+    doc_rows, weight_rows = sorted_plan(rng, n, b, 4096, 8)
+    out = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        mesh = make_mesh(devices=[dev] * 4)
+        shards, _ = shard_rows(mesh, emb, dtype=torch.bfloat16)
+        fn = make_sharded_hybrid_union_topk(mesh, 20, n, dense_k=80, sparse_m=80)
+        dr, wr = torch.from_numpy(doc_rows).to(dev), torch.from_numpy(weight_rows).to(dev)
+        before = bm25.segment_totals.launches
+        vals, ids = fn(shards, torch.from_numpy(q), dr, wr)
+        launches = bm25.segment_totals.launches - before
+        sp = bm25.sparse_topm_from_sorted(dr, wr, 80, n)
+        want = hybrid_fuse(torch.cat(shards)[:n], torch.from_numpy(q).to(dev), *sp[1:], 20,
+                           n_docs=n, dense_k=80)
+        torch.testing.assert_close(vals, want[0], rtol=0, atol=1e-5)
+        assert torch.equal(ids, want[1])
+        out[dev.type] = (vals.cpu(), ids.cpu(), launches, sp[3].cpu())
+    assert out["cpu"][2] == 0 and out["cuda"][2] == 1
+    mx = out["cpu"][3]
+    tol = 8 * 2.0**-24 * float(weight_rows.sum(1).max()) * 0.6 / float(mx[mx > 0].min())
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=0, atol=tol + 1e-5)

@@ -25,6 +25,7 @@ import torch
 
 from anorag_tpu.index.vector_index import VectorIndex as JVectorIndex
 from anorag_tpu.ops import pq as jpq
+from anorag_tpu.parallel.mesh import make_mesh as j_make_mesh
 from anorag_tpu_torch.ops import pq
 from anorag_tpu_torch.index import vector_index as tvi
 from anorag_tpu_torch.index.vector_index import VectorIndex
@@ -198,9 +199,25 @@ def test_hnsw_degrades_to_flat_without_the_native_runtime(monkeypatch):
 
 @pytest.mark.parametrize("kind", ["Flat", "IVFFlat", "IVFPQ", "PQ", "LSH", "HNSW"])
 def test_only_a_mesh_raises(kind):
-    VectorIndex(dimension=8, index_type=kind, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        VectorIndex(dimension=8, index_type=kind, mesh=object(), device="cpu")
+    """A mesh no longer raises: it shards Flat (and IVFFlat below
+    ivf_min_corpus, which searches Flat) over its 'data' axis and leaves the
+    other types on the index's device, as the reference's is_sharded does;
+    every type gives the results it gives without the mesh."""
+    from anorag_tpu_torch.parallel.mesh import make_mesh
+
+    x, q = _data(n=600)
+    flat = kind in ("Flat", "IVFFlat")
+    jm = JVectorIndex(dimension=D, index_type=kind, mesh=j_make_mesh(n_devices=3))
+    plain = VectorIndex(dimension=D, index_type=kind, device="cpu")
+    meshed = VectorIndex(dimension=D, index_type=kind, device="cpu",
+                         mesh=make_mesh(devices=["cpu"] * 3))
+    for idx in (jm, plain, meshed):
+        idx.add(x)
+    assert meshed.is_sharded == jm.is_sharded == flat
+    assert (meshed.sharded_rows() is not None) == flat
+    want = plain.search_arrays(q, 10)
+    np.testing.assert_array_equal(meshed.search_arrays(q, 10)[1], want[1])
+    np.testing.assert_allclose(meshed.search_arrays(q, 10)[0], want[0], rtol=1e-5, atol=1e-5)
 
 
 def test_empty_index_of_every_type_searches_to_padding():

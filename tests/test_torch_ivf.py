@@ -221,13 +221,21 @@ def test_vector_index_flat_matches_reference(use_kernel):
 @pytest.mark.parametrize("index_type", ["IVFPQ", "LSH", "HNSW"])
 def test_unported_index_types_raise(index_type):
     """The index types ported since (tests/test_torch_index_types.py) no
-    longer raise; with a mesh (the sharded branch, not ported) they do."""
+    longer raise, nor with a mesh, which leaves them unsharded (only Flat
+    rows are sharded) with the results they give without it."""
+    from anorag_tpu_torch.parallel.mesh import make_mesh
+
     rng = np.random.default_rng(0)
+    x = rng.standard_normal((40, 8)).astype(np.float32)
+    q = rng.standard_normal((2, 8)).astype(np.float32)
     idx = VectorIndex(dimension=8, index_type=index_type, device="cpu")
-    idx.add(rng.standard_normal((40, 8)).astype(np.float32))
-    assert idx.search_arrays(rng.standard_normal((2, 8)).astype(np.float32), 3)[1].shape == (2, 3)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        VectorIndex(dimension=8, index_type=index_type, mesh=object(), device="cpu")
+    meshed = VectorIndex(dimension=8, index_type=index_type, device="cpu",
+                         mesh=make_mesh(devices=["cpu"] * 2))
+    for i in (idx, meshed):
+        i.add(x)
+    assert idx.search_arrays(q, 3)[1].shape == (2, 3)
+    assert not meshed.is_sharded and meshed.sharded_rows() is None
+    np.testing.assert_array_equal(meshed.search_arrays(q, 3)[1], idx.search_arrays(q, 3)[1])
 
 
 # --------------------------------------------------------- VectorRetriever

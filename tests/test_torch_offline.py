@@ -667,15 +667,36 @@ def test_main_process_then_query_equal_the_reference_cli(synth, tmp_path):
             (tmp_path / "res_jax/1" / name).read_bytes(), name
 
 
-def test_main_process_parallel_raises(synth, tmp_path):
+def test_main_process_parallel_raises(synth, tmp_path, capsys):
+    """--parallel no longer raises: with one file it runs the serial build
+    into the work dir, as without --parallel; with two it fans them out
+    over the task engine, one KB a file in <work dir>/<file stem>, each
+    equal to the serial build of that file
+    (tests/test_torch_parallel_engine.py holds both to the root CLI)."""
+    import shutil
+
     from anorag_tpu_torch.main import main
 
-    cfg = Config({"system": {"device": "cpu"}, "storage": {"result_root": str(tmp_path)}})
-    with pytest.raises(NotImplementedError, match="sharded branch"):
-        main(["process", str(synth), str(synth), "--parallel", "--no-llm"], cfg)
-    with pytest.raises(NotImplementedError):
-        main(["process", str(synth), "--parallel", "--no-llm"], cfg)
-    assert not (tmp_path / "1" / "atomic_notes.json").exists()
+    def cfg(root):
+        return Config({"system": {"device": "cpu"},
+                       "embedding": {"backend": "hash", "dim": 64},
+                       "vector_store": {"index_type": "Flat"},
+                       "storage": {"result_root": str(tmp_path / root)}})
+
+    other = tmp_path / "other.jsonl"
+    shutil.copy(synth, other)
+    assert main(["process", str(synth), "--parallel", "--no-llm"], cfg("one")) == 0
+    assert main(["process", str(synth), "--no-llm"], cfg("serial")) == 0
+    assert main(["process", str(synth), str(other), "--parallel", "--no-llm",
+                 "--workers", "2", "--strategy", "split"], cfg("two")) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith(f"processed -> {tmp_path / 'one'}/1: {{'n_chunks': ")
+    assert out[2] == f"processed 2 files -> {tmp_path / 'two'}/1 (2 runs, 0 errors)"
+    for work in (tmp_path / "one/1", tmp_path / "two/1/synth", tmp_path / "two/1/other"):
+        for name in ("chunks.jsonl", "atomic_notes.json", "embeddings.npy",
+                     "clustering.json", "graph.json"):
+            assert (work / name).read_bytes() == (tmp_path / "serial/1" / name).read_bytes(), \
+                (work, name)
 
 
 def test_main_config_device():

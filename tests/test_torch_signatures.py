@@ -108,6 +108,16 @@ from anorag_tpu_torch.models import encoder as tenc
 from anorag_tpu_torch.models import train as ttrain
 from anorag_tpu_torch.training import answer_models as tanswer_models
 from anorag_tpu_torch.training import calibrate as tcalibrate
+from anorag_tpu.parallel import engine as jpengine
+from anorag_tpu.parallel import interface as jpinterface
+from anorag_tpu.parallel import mesh as jpmesh
+from anorag_tpu.parallel import runtime as jpruntime
+from anorag_tpu.parallel import sharded_search as jpss
+from anorag_tpu_torch.parallel import engine as tpengine
+from anorag_tpu_torch.parallel import interface as tpinterface
+from anorag_tpu_torch.parallel import mesh as tpmesh
+from anorag_tpu_torch.parallel import runtime as tpruntime
+from anorag_tpu_torch.parallel import sharded_search as tpss
 
 # The port's names for the reference's.
 RENAMES = {"use_pallas": "use_kernel"}   # the kernels are CUDA, not Pallas
@@ -281,6 +291,19 @@ PAIRS += [(f"{jmod.__name__}.{name}", getattr(jmod, name), getattr(tmod, name))
           for name in names]
 
 
+# the parallel package: the task engine and its interfaces, the mesh, the
+# product mesh and the sharded searches, and the sharded branch's hooks in
+# VectorIndex and the models
+PAIRS += [pair for jmod, tmod in ((jpengine, tpengine), (jpinterface, tpinterface),
+                                  (jpmesh, tpmesh), (jpruntime, tpruntime), (jpss, tpss))
+          for pair in _public(jmod, tmod)]
+PAIRS += [(f"VectorIndex.{name}", getattr(jvi.VectorIndex, name),
+           getattr(tvi.VectorIndex, name)) for name in ("_sharded_dense_fn",
+                                                        "sharded_hybrid_fn")]
+PAIRS += [(f"{jmod.__name__}.param_pspecs", jmod.param_pspecs, tmod.param_pspecs)
+          for jmod, tmod in ((jenc, tenc), (jdlm, tdlm))]
+
+
 def _params(fn):
     return [p for p in inspect.signature(fn).parameters if p != "self"]
 
@@ -336,8 +359,16 @@ def test_vector_index_keeps_the_reference_options():
     idx.add(rng.standard_normal((20, 8)).astype(np.float32))
     vals, ids = idx.search_arrays(rng.standard_normal((2, 8)).astype(np.float32), 3)
     assert ids.shape == (2, 3)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tvi.VectorIndex(dimension=8, index_type="Flat", mesh=object(), device="cpu")
+    from anorag_tpu_torch.parallel.mesh import make_mesh
+
+    sharded = tvi.VectorIndex(dimension=8, index_type="Flat", pq_m=4, hnsw_m=32,
+                              mesh=make_mesh(devices=["cpu"] * 2), device="cpu")
+    assert sharded.is_sharded and (sharded.pq_m, sharded.hnsw_m) == (4, 32)
+    single = tvi.VectorIndex(dimension=8, index_type="Flat", device="cpu")
+    x, q = rng.standard_normal((20, 8)).astype(np.float32), rng.standard_normal((2, 8))
+    for i in (sharded, single):
+        i.add(x)
+    np.testing.assert_array_equal(sharded.search_arrays(q, 3)[1], single.search_arrays(q, 3)[1])
     for kind in ("IVFPQ", "PQ", "LSH", "HNSW"):
         other = tvi.VectorIndex(dimension=8, index_type=kind, pq_m=4, lsh_bits=16,
                                 device="cpu")

@@ -254,6 +254,11 @@ def test_port_runs_with_jax_blocked():
         assert [len(r["notes"]) for r in out] == [5, 5], out
         assert out[0]["notes"][0]["note_id"] == "n7", out[0]["notes"][0]
         assert all(r["answer_method"] and "answer" in r for r in out), out
+        import anorag_tpu_torch.parallel
+        sharded = QueryProcessor(notes, cfg={**cfg, "tpu": {"sharded_search": "on"}},
+                                 device="cpu")
+        assert sharded.retriever.index.is_sharded
+        assert sharded.process_batch(["alpha item7"], top_k=5)[0]["notes"][0]["note_id"] == "n7"
         from anorag_tpu_torch.serve import make_handler
         from anorag_tpu_torch.serve_llm import MicroBatcher
         from anorag_tpu_torch.llm import LocalLLM

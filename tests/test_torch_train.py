@@ -342,8 +342,16 @@ def test_encoder_trainer_defaults_and_log_line(caplog):
 
 
 def test_model_parallel_above_one_raises():
-    with pytest.raises(NotImplementedError, match="sharded branch"):
-        ttrain.EncoderTrainer(model_parallel=2, device="cpu")
+    """model_parallel 2 no longer raises: the trainer's mesh over its one
+    device clamps to (1, 1), as the reference's on one chip, and the first
+    steps equal model_parallel 1's."""
+    one = ttrain.EncoderTrainer(device="cpu")
+    two = ttrain.EncoderTrainer(model_parallel=2, device="cpu")
+    assert two.mesh.shape == one.mesh.shape == {"data": 1, "model": 1}
+    assert two.mesh.distinct_devices() == [CPU]
+    pairs = _pairs(16)
+    assert two.train(pairs, batch_size=8, max_length=16) == one.train(
+        pairs, batch_size=8, max_length=16)
 
 
 def test_trainer_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
