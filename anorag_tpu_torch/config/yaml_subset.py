@@ -17,6 +17,10 @@ Anything else raises ValueError naming the line: anchors and aliases,
 tags, block scalars (`|`, `>`), complex keys, merge keys, timestamps,
 directives, a second document, tabs outside quotes. It never returns a
 tree that differs from PyYAML's.
+
+`safe_dump(tree)` writes such a tree back (block style, keys in their
+order, strings double-quoted where a plain scalar would read otherwise):
+both safe_load and yaml.safe_load read its text as the tree.
 """
 from __future__ import annotations
 
@@ -537,3 +541,92 @@ def safe_load(stream) -> Any:
     if isinstance(text, bytes):
         text = text.decode("utf-8")
     return _Reader(text).document()
+
+
+# ------------------------------------------------------------------ writer
+# a plain scalar the writer may leave unquoted: no indicator, quote,
+# comment or flow character, no leading '-' and no edge spaces
+_PLAIN_OUT = re.compile(r"^[A-Za-z0-9_/()+~$^][A-Za-z0-9_./()+=~$^ -]*$")
+
+
+def _resolves_to_str(text: str) -> bool:
+    return not (_BOOL.match(text) or _NULL.match(text) or _INT.match(text)
+                or _FLOAT.match(text) or _TIMESTAMP.match(text))
+
+
+def _quoted(text: str) -> str:
+    """A double-quoted scalar: backslash, quote and every character YAML
+    does not print or reads as a line break escaped."""
+    out = []
+    for c in text:
+        o = ord(c)
+        if c in '"\\':
+            out.append("\\" + c)
+        elif c in "\n\t\r":
+            out.append({"\n": "\\n", "\t": "\\t", "\r": "\\r"}[c])
+        elif o < 0x20 or o == 0x7f or 0x80 <= o < 0xa0 or o in (0x2028, 0x2029, 0xfeff) \
+                or 0xd800 <= o < 0xe000:
+            out.append(f"\\x{o:02x}" if o < 0x100 else f"\\u{o:04x}")
+        else:
+            out.append(c)
+    return '"' + "".join(out) + '"'
+
+
+def _scalar_out(value: Any) -> str:
+    if value is None:
+        return "null"
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):
+        if math.isnan(value):
+            return ".nan"
+        if math.isinf(value):
+            return ".inf" if value > 0 else "-.inf"
+        text = repr(value).lower()
+        # YAML 1.1 reads a float only with a '.' (PyYAML writes 1.0e-05 too)
+        return text.replace("e", ".0e", 1) if "." not in text and "e" in text else text
+    if isinstance(value, str):
+        plain = (value and value == value.strip() and _PLAIN_OUT.match(value)
+                 and "  " not in value and _resolves_to_str(value))
+        return value if plain else _quoted(value)
+    if isinstance(value, dict) and not value:
+        return "{}"
+    if isinstance(value, list) and not value:
+        return "[]"
+    raise TypeError(f"safe_dump cannot write a {type(value).__name__}")
+
+
+def _block(value: Any, indent: int) -> List[str]:
+    """The lines of a non-empty mapping or sequence at column `indent`;
+    a sequence under a key sits at the key's column, as PyYAML writes it."""
+    pad = " " * indent
+    lines: List[str] = []
+    if isinstance(value, dict):
+        for key, val in value.items():
+            head = f"{pad}{_scalar_out(key)}:"
+            if isinstance(val, dict) and val:
+                lines += [head, *_block(val, indent + 2)]
+            elif isinstance(val, list) and val:
+                lines += [head, *_block(val, indent)]
+            else:
+                lines.append(f"{head} {_scalar_out(val)}")
+        return lines
+    for item in value:
+        if isinstance(item, (dict, list)) and item:
+            sub = _block(item, indent + 2)
+            lines += [f"{pad}- {sub[0][indent + 2:]}", *sub[1:]]
+        else:
+            lines.append(f"{pad}- {_scalar_out(item)}")
+    return lines
+
+
+def safe_dump(data: Any) -> str:
+    """YAML text that yaml.safe_load and safe_load read back as `data`:
+    dicts (keys in their order) and lists in block style, scalars plain
+    where that reads back the same, else double-quoted. Takes what
+    safe_load returns: dict, list, str, int, float, bool, None."""
+    if isinstance(data, (dict, list)) and data:
+        return "\n".join(_block(data, 0)) + "\n"
+    return _scalar_out(data) + "\n"

@@ -8,8 +8,9 @@ plain torch on the graph's device:
     padded (N, max_deg) neighbour table), with the device their tensors
     go to (`device`, the card unless the caller asks for the CPU) and
     those tensors uploaded once (CSRGraph.tensors);
-  * pagerank (:95-122) is power iteration by index_add_, which sums by
-    atomics on the card: its result is not bit-stable across runs there;
+  * pagerank (:95-122) is power iteration whose scatter of each node's
+    mass sums every target's edges in a fixed order (segment_reduce over
+    the edges sorted by target once), so two runs give the same bits;
   * k_hop_distances (:124-155) is a Bellman-Ford relaxation by
     scatter_reduce "amin"; k_hop_scores (:157-177) returns numpy, as the
     reference does;
@@ -135,12 +136,16 @@ def pagerank(nbr: torch.Tensor, nbr_w: torch.Tensor, alpha: float = 0.85,
         out_sum += w[:, j:j + 1]
     p_trans = torch.where(out_sum > 0, w / out_sum.clamp_min(1e-30), 0.0)
     dangling = out_sum[:, 0] <= 0
-    flat_target = nbr.clamp_min(0).reshape(-1).long()
+    # the edges by target (stable), once: each target's in-edges are then
+    # summed in row order, whatever the threads' timing
+    edge = torch.nonzero(valid.reshape(-1)).squeeze(1)
+    target = nbr.reshape(-1)[edge].long()
+    order = torch.argsort(target, stable=True)
+    edge, in_deg = edge[order], torch.bincount(target, minlength=n)
     r = torch.full((n,), 1.0 / n, dtype=torch.float32, device=nbr.device)
     for _ in range(iters):
-        contrib = torch.where(valid, r[:, None] * p_trans, 0.0).reshape(-1)
-        flat = torch.zeros((n,), dtype=torch.float32, device=nbr.device)
-        flat.index_add_(0, flat_target, contrib)
+        contrib = (r[:, None] * p_trans).reshape(-1)[edge]
+        flat = torch.segment_reduce(contrib, "sum", lengths=in_deg, unsafe=True)
         dangling_mass = torch.where(dangling, r, 0.0).sum()
         r = (1 - alpha) / n + alpha * (flat + dangling_mass / n)
     return r

@@ -5,8 +5,10 @@ Counterpart of anorag_tpu/ops/kmeans.py: _kmeans_fit_np (:19), kmeans_fit
 auto_k (:132). A corpus of
 at most 4096 rows on the CPU takes the numpy path, which is the reference's
 own and gives the same centroids from the same seed. Otherwise Lloyd runs on
-the tensor's device: assignment is one matmul per row chunk, the update an
-index_add_.
+the tensor's device: assignment is one matmul per row chunk, the update a
+sum per cluster in a fixed order (cluster_sums), so two fits of the same
+rows give the same bits on the card as on the CPU, as the reference's
+segment_sum does on a TPU.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 
 _NP_SMALL_N = 4096
 _ROW_CHUNK = 1 << 18        # rows per step where an (N, D) temporary would form
+_ONEHOT_ELEMS = 1 << 26     # elements of cluster_sums' one-hot (K, rows) block
 
 
 def _kmeans_fit_np(x: np.ndarray, n_clusters: int, iters: int,
@@ -62,6 +65,28 @@ def _assign(x: torch.Tensor, x_sq: torch.Tensor, c: torch.Tensor) -> torch.Tenso
     return out
 
 
+def cluster_sums(x: torch.Tensor, labels: torch.Tensor,
+                 n_clusters: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sums (K, D) f32 of x's rows by label, counts (K,) int64), on x's
+    device, in an order that does not depend on thread timing: per row
+    chunk the product of a one-hot (K, rows) f32 matrix with the chunk's
+    rows (an f32 matmul, TF32 off as torch leaves it, as the assignment's;
+    one shape is summed in one fixed order), the chunks' sums added in
+    chunk order. index_add_ on the card adds by atomics, whose order
+    follows the threads' timing. Its cost is one more read of the rows
+    and 2 N K D operations a round, what the assignment's matmul costs."""
+    n, d = x.shape
+    labels = labels.long()
+    sums = torch.zeros((n_clusters, d), dtype=torch.float32, device=x.device)
+    step = max(1, min(_ROW_CHUNK, _ONEHOT_ELEMS // n_clusters))
+    for lo in range(0, n, step):
+        lab = labels[lo:lo + step]
+        onehot = torch.zeros((n_clusters, lab.shape[0]), dtype=torch.float32,
+                             device=x.device).scatter_(0, lab[None, :], 1.0)
+        sums += torch.mm(onehot, x[lo:lo + step].float())
+    return sums, torch.bincount(labels, minlength=n_clusters)
+
+
 def _kmeans_fit_lloyd(x: torch.Tensor, n_clusters: int, iters: int,
                       seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Lloyd on x's device: farthest-point init over a subsample drawn with
@@ -89,11 +114,8 @@ def _kmeans_fit_lloyd(x: torch.Tensor, n_clusters: int, iters: int,
         centroids[j] = xs[nxt]
         min_d = torch.minimum(min_d, ((xs - xs[nxt][None, :]) ** 2).sum(dim=1))
     for _ in range(iters):
-        a = _assign(x, x_sq, centroids).long()
-        sums = torch.zeros_like(centroids)
-        for lo in range(0, n, _ROW_CHUNK):
-            sums.index_add_(0, a[lo:lo + _ROW_CHUNK], x[lo:lo + _ROW_CHUNK].float())
-        counts = torch.bincount(a, minlength=n_clusters).float()
+        sums, counts = cluster_sums(x, _assign(x, x_sq, centroids), n_clusters)
+        counts = counts.float()
         new_c = sums / counts.clamp_min(1.0)[:, None]
         centroids = torch.where((counts > 0)[:, None], new_c, centroids)
     return centroids, _assign(x, x_sq, centroids)

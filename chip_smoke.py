@@ -38,8 +38,10 @@ Phases, each printing its seconds:
                 k 1024, B 1, two merge levels), with the layout's
                 cluster offsets and without; the kernels' and plain
                 versions' device times (CUDA events around launches back
-                to back), the wrappers' host time, the bound, and
-                torch.matmul + torch.topk as the library yardstick;
+                to back), the wrappers' host time, the bound, and as the
+                library yardstick torch.mm with f32 scores + torch.topk
+                (the kernel's function), beside torch.matmul's bf16 scores
+                + torch.topk;
   5. bucket  -- the bucket-winners kernel's two routes (wgmma for bf16
                 with 16-byte rows and W a multiple of 128, the first
                 mma.sync / FMA kernel for the rest) against their plain
@@ -110,7 +112,7 @@ Phases, each printing its seconds:
                 beside its plain version, torch.matmul + torch.topk and
                 its bound (f32 peak outside the tensor cores); the KB
                 questions through process() with the reference's answers,
-                the first again on the sub-question path; 32 Zipf queries'
+                the first again on the sub-question path; 16 Zipf queries'
                 latency (median, p90) and each stage's host time; one
                 process() under torch.profiler (device busy time, idle
                 share);
@@ -132,7 +134,7 @@ Phases, each printing its seconds:
                 torch.matmul + torch.topk (f32, no TF32) and the bound; a
                 second `process` of the same file all cache hits with every
                 artifact's SHA1 unchanged; `main query`'s QueryProcessor over
-                the work dir answering the first 16 items' questions through
+                the work dir answering the first 8 items' questions through
                 process() with the reference's keys (latency median and p90,
                 answer methods, exact match against the gold answers and
                 aliases, printed, not gated: the encoder's weights are
@@ -146,7 +148,7 @@ Phases, each printing its seconds:
                 8 items through pipeline_musique.process_musique_item on the
                 card and on the CPU (hash backend, Flat), every row field
                 equal; `python -m anorag_tpu_torch.main_musique` in-process
-                (main_musique.main(argv, Config)) over the first 16 items at full
+                (main_musique.main(argv, Config)) over the first 8 items at full
                 width (--no-llm, --workers 2): one row per item, no error
                 row, a second run adding no row, items/s and each item's
                 seconds (median, p90) split into the KB build, the
@@ -155,7 +157,7 @@ Phases, each printing its seconds:
                 at this size), one item under torch.profiler (idle share);
                 run_evaluation plain and --enhanced over the predictions
                 (EM, F1, support EM and F1 printed, not gated: random
-                encoder weights); --enable-cor over 4 items, no error row;
+                encoder weights); --enable-cor over 2 items, no error row;
                 2 items with llm.provider jax (seeded decoder weights at
                 note_lm_tpu_large's shape, notes_llm max_tokens 16,
                 llm.max_output_tokens 64) on 2 worker threads: no error row,
@@ -174,7 +176,7 @@ Phases, each printing its seconds:
                 False) with llm.provider jax and answer_selector.
                 apply_before_llm off (LocalLLM -> LLMFactory -> the decoder
                 provider), llm.max_output_tokens 64 (256 decode steps a
-                call); the KB questions and 2 Zipf queries through
+                call); the KB questions and 1 Zipf query through
                 process() (host s a query by stage, the LLM's share; the KB
                 answers equal to the same processor's without the LLM where
                 EFSA rescues them), one request of 4 through a
@@ -199,7 +201,7 @@ Phases, each printing its seconds:
                 differ only where the 64-query batches' note lists do);
   15. search -- a VectorRetriever with use_kernel=True over the same notes
                 and embeddings: search for one 512-query request at top_k
-                20 and retrieve for 32 single queries at top_k 10 (fetch 30,
+                20 and retrieve for 16 single queries at top_k 10 (fetch 30,
                 the /search endpoint's traffic); the top-k kernel's
                 launches, reset just before, equal the calls; latency, QPS;
                 then the same traffic through the default route
@@ -213,7 +215,12 @@ Phases, each printing its seconds:
                 line; every kernel they reach, counted from 0, launched;
   17. ivf    -- a default VectorIndex(index_type="IVFFlat") (nlist 20,
                 nprobe 4, 15 k-means rounds) over 5,000,000 x 1024 rows
-                drawn on the card around 1,000 centres: build time, 4
+                drawn on the card around 1,000 centres: build time; the
+                same rows built again, centroids, assignments and sorted
+                rows bit-equal to the first build (k-means sums each
+                cluster in a fixed order), and k-means with the centroid
+                update as it was (index_add_, atomics) timed on them as a
+                yardstick; 4
                 batches of 512 queries at top_k 20 and 64 single queries at
                 top_k 30 through search_arrays (the IVF kernel's launches
                 and the work plan kernel's equal the searches), one batch
@@ -282,9 +289,9 @@ Phases, each printing its seconds:
                 the CPU's (testing.decoder_step_parity: loss 1e-4,
                 parameters 1e-5); train_answer_models.main (its
                 calibration.json equal to train_answer_models' own) and
-                run_calibration.main --dev-n 2 on the card, timed;
+                run_calibration.main --dev-n 1 on the card, timed;
                 train_encoder.main at the config's encoder (bf16, vocab
-                250,002) on the first 2,048 notes of phase offline's
+                250,002) on the first 1,024 notes of phase offline's
                 build, its checkpoint read by
                 EmbeddingManager.load_checkpoint;
   20. sharded -- the sharded branch (anorag_tpu_torch/parallel/) on the
@@ -305,13 +312,39 @@ Phases, each printing its seconds:
                 make_sharded_encode over the 4 shards against the encoder's
                 own 512-query batch (bf16, 2e-2); `main process --parallel`
                 over two files of 3 synthetic items on 2 worker threads,
-                each file's KB equal to a serial build of it (density
-                clustering: k-means sums by atomics on the card), with times and
+                each file's KB equal to a serial build of it (k-means
+                clustering, clustering.json included), with times and
                 peak device memory; the two kernels' launches on the
-                sharded path counted from 0 and added to the kernel line.
+                sharded path counted from 0 and added to the kernel line;
+  21. scripts -- the repo's index and evaluation scripts as the port's
+                CLIs, in-process: rebuild_vector_index over phase offline's
+                atomic_notes.json (27,557 notes) at the config's encoder
+                (24 layers, hidden 1024, bf16, vocab 250,002, seeded) and
+                vector_store.index_type IVFFlat, `rebuilt` then `fresh`
+                without --force; VectorRetriever.load of the directory
+                twice on the IVF route (ivf_min_corpus 0: below it IVFFlat
+                searches Flat), the two IVF layouts bit-equal; 512 queries at k 20
+                through the IVF scan kernel on each load, the two loads'
+                results equal, held against the plain version (testing.
+                check_topk), recall@10 against exact search printed; the
+                seconds of the rebuild, of a load and its first search,
+                the ms of a batch, the scan and plan kernels' launches
+                counted from 0 and added to the kernel line; run_heldout
+                --embedder trained reading phase train's
+                encoder_synth_full-shaped checkpoint at the CLI's path (a
+                working directory of its own; --n 12), and --embedder hash
+                at --n 4 on the card and on the CPU, metrics equal;
+                eval_encoder_discrimination at its 60 worlds, the random
+                arm at full width and the trained arm on the same
+                checkpoint; eval_recall_optimizer --n 8;
+                check_musique_results and check_support_stats on phase
+                musique's predictions; migrate_config (the tree read back
+                equal) and check_deprecated_config on the repo's
+                config.yaml.
 Then one JSON line of kernel numbers (dense_topk's launches count both
 graph builds' self-joins and the sharded phase's; segment totals' the
-sharded phase's; dense_topk_f32_self_join and
+sharded phase's; ivf_scan's and ivf_work_plan's the scripts phase's;
+dense_topk_f32_self_join and
 dense_topk_f32_offline_self_join hold their shapes), the
 nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure prints its traceback and exits
@@ -320,12 +353,17 @@ non-zero without that last line; so does a machine without CUDA.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import resource
+import shutil
+import statistics
 import sys
+import tempfile
 import time
 import traceback
 from collections import Counter
+from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
@@ -334,7 +372,8 @@ INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 on the tensor cores
 L2_FLUSH_BYTES = 256 << 20     # written between timed calls to empty the 50 MB L2
 VOCAB, DOC_LEN, Q_LEN, MIN_RANK = 30_000, 40, 8, 100
 N_NOTES, N_REQUESTS, BATCH = 200_000, 4, 512
-N_PROCESS = 32                 # Zipf queries through QueryProcessor.process
+N_PROCESS = 16                 # Zipf queries through QueryProcessor.process (32 until
+                               # phase scripts joined)
 N_IVF, IVF_CENTRES, IVF_BATCHES, IVF_SINGLES = 5_000_000, 1000, 4, 64
 # batch sizes at which the IVF kernel's 16- and 64-query tiles are timed
 IVF_TILE_BATCHES = (1, 4, 16, 32, 64, 96, 128, 192, 256, 512)
@@ -345,7 +384,7 @@ BUCKET_ROUTE_BATCHES = (1, 16, 32, 48, 64, 128, 512)
 # batch sizes at which segment winners' row tiles and first kernel are timed
 # (64: the served stream_batch)
 SEGMENT_ROUTE_BATCHES = (1, 16, 64, 128, 512)
-N_RETRIEVE = 32
+N_RETRIEVE = 16                # single queries of phase search (32 until phase scripts)
 # (base, row, cosine): near duplicates planted in setup's random unit rows,
 # whose cosines lie about 22 standard deviations below the relation
 # extractor's 0.7 threshold: a group of 9 (more neighbours above it than a
@@ -624,9 +663,10 @@ def _check_topk_odd_shapes(dev):
 
 def _dense_real_shapes(dev, emb, queries, seed: int, smi_line: str):
     """The streaming top-k kernel at the main path's shapes: checked against
-    its plain version and timed beside it and beside torch.matmul +
-    torch.topk. Returns (max abs errors, numbers of the 512-query k 20
-    case)."""
+    its plain version and timed beside it and beside torch.mm with f32
+    scores + torch.topk (the kernel's function; the JSON's library_ms) and
+    torch.matmul's bf16 scores + torch.topk. Returns (max abs errors,
+    numbers of the 512-query k 20 case)."""
     import torch
 
     from anorag_tpu_torch.ops.topk import (SCAN_CHUNK, _dense_candidates,
@@ -655,20 +695,26 @@ def _dense_real_shapes(dev, emb, queries, seed: int, smi_line: str):
         if bs is None:
             lib_ms, _ = _time_ms(lambda: torch.topk(torch.matmul(q, emb.T), k),
                                  n=3, reps=5)
+            # the kernel's function: f32 scores of the bf16 rows, then top-k
+            lib32_ms, _ = _time_ms(lambda: torch.topk(
+                torch.mm(q, emb.T, out_dtype=torch.float32), k), n=3, reps=5)
         else:
             lib_ms, _ = _time_ms(lambda: torch.topk(
                 torch.matmul(q, emb.T) + 0.6 * bs, k), n=3, reps=5)
+            lib32_ms, _ = _time_ms(lambda: torch.topk(
+                torch.mm(q, emb.T, out_dtype=torch.float32) + 0.6 * bs, k), n=3, reps=5)
         bound_ms, bound_by = _topk_bound(
             q.shape[0], n, d, k, emb.element_size(),
             extra_bytes=4 * q.shape[0] * n if bs is not None else 0,
             extra_ops=2 * q.shape[0] * n if bs is not None else 0)
         print(f"dense_topk {name}: kernel {ms:.4f} ms a launch, wrapper's host path "
-              f"{host_ms:.4f} ms a call, plain {plain_ms:.4f} ms, torch.matmul + "
-              f"torch.topk (two library calls) {lib_ms:.4f} ms, bound {bound_ms:.4f} "
-              f"ms ({bound_by}) | {smi_line}", flush=True)
+              f"{host_ms:.4f} ms a call, plain {plain_ms:.4f} ms, torch.mm (f32 out) + "
+              f"torch.topk {lib32_ms:.4f} ms, torch.matmul (bf16 out) + torch.topk "
+              f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) | {smi_line}",
+              flush=True)
         if main is None:
             main = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                        bound_by=bound_by, library_ms=lib_ms)
+                        bound_by=bound_by, library_ms=lib32_ms)
     del bias
 
     # Both routes side by side, so the crossing topk_query_tile uses is
@@ -1269,17 +1315,60 @@ def _segment_phase(dev, retriever, requests, top_k: int, smi_line: str):
                 ("bm25_segment_winners", "anorag_tpu/ops/bm25.py:287", winners_launches))]
 
 
+def _ivf_scan_args(index, q, k: int):
+    """ivf_scan's arguments for queries `q` at k over an IVFFlat index's
+    layout, as search_arrays passes them: (queries in the corpus dtype,
+    sorted rows, cluster ids, probes, block ids, blocks scanned, k,
+    block_rows)."""
+    import torch
+
+    from anorag_tpu_torch.ops.ivf import ivf_probe, select_blocks
+
+    layout, rows = index._layout, index._device_emb
+    qn = index._preprocess(q)
+    sel = ivf_probe(layout, qn, index.nprobe).contiguous()
+    blk = select_blocks(layout, sel.cpu().numpy())
+    return (qn.to(rows.dtype).contiguous(), rows,
+            layout.device_array("cluster_ids", rows.device), sel,
+            torch.from_numpy(blk).to(rows.device), int((blk >= 0).sum()), k,
+            layout.block_rows)
+
+
+@contextlib.contextmanager
+def _index_add_update():
+    """ops/kmeans.py's centroid update as it was before its sums took a fixed
+    order: index_add_ per row chunk (atomics on the card), for timing."""
+    import torch
+
+    from anorag_tpu_torch.ops import kmeans
+
+    def index_add_sums(x, labels, n_clusters):
+        sums = torch.zeros((n_clusters, x.shape[1]), dtype=torch.float32, device=x.device)
+        for lo in range(0, x.shape[0], kmeans._ROW_CHUNK):
+            sums.index_add_(0, labels[lo:lo + kmeans._ROW_CHUNK].long(),
+                            x[lo:lo + kmeans._ROW_CHUNK].float())
+        return sums, torch.bincount(labels.long(), minlength=n_clusters)
+
+    fixed, kmeans.cluster_sums = kmeans.cluster_sums, index_add_sums
+    try:
+        yield
+    finally:
+        kmeans.cluster_sums = fixed
+
+
 def _ivf_phase(dev, seed: int, smi_line: str):
     """The default IVFFlat index at 5,000,000 rows: build, traffic, checks
     and timings. Returns (ivf_scan launches, max abs error, timing numbers,
     ivf_work_plan launches, its timing numbers, the index, its queries)."""
     import torch
 
+    import numpy as np
+
     from anorag_tpu_torch.index.vector_index import VectorIndex
-    from anorag_tpu_torch.ops.ivf import (_launch_scan, ivf_launch_shape, ivf_probe,
-                                          ivf_query_tile, ivf_scan, ivf_scan_ref,
-                                          ivf_slots, ivf_work_plan, ivf_work_plan_ref,
-                                          select_blocks)
+    from anorag_tpu_torch.ops.ivf import (_launch_scan, ivf_launch_shape, ivf_query_tile,
+                                          ivf_scan, ivf_scan_ref, ivf_slots, ivf_work_plan,
+                                          ivf_work_plan_ref)
+    from anorag_tpu_torch.ops.kmeans import kmeans_fit
     from anorag_tpu_torch.ops.topk import dense_topk_kernel, kernel_dtype_code
     from anorag_tpu_torch.testing import check_topk, ivf_scores
 
@@ -1317,6 +1406,44 @@ def _ivf_phase(dev, seed: int, smi_line: str):
           f"block_rows {layout.block_rows}, {layout.num_blocks} blocks, cluster "
           f"sizes {sizes.min().item()}-{sizes.max().item()}; peak device memory "
           f"{peak_build:.2f} GB", flush=True)
+
+    # the same rows built again: k-means sums each cluster in a fixed
+    # order (ops/kmeans.py::cluster_sums), so the second build is the first
+    first = (layout.centroids, layout.perm, layout.cluster_ids)
+    index._dirty = True
+    t = time.perf_counter()
+    index._materialize()
+    torch.cuda.synchronize(dev)
+    t_again = time.perf_counter() - t
+    again = index._layout
+    same = [np.array_equal(a, b) for a, b in zip(
+        first, (again.centroids, again.perm, again.cluster_ids))]
+    if not (all(same) and torch.equal(sorted_emb, index._device_emb)):
+        raise AssertionError(f"a second IVF build of the same rows differs from the "
+                             f"first (centroids, perm, cluster ids equal: {same})")
+    del sorted_emb, first
+    layout, sorted_emb = again, index._device_emb
+    # k-means alone, the fixed-order update against the update as it was
+    # (index_add_, atomics), on the same rows and seed, in one call
+    emb32 = index._to_device(torch.float32)
+    fits = {}
+    for name in ("fixed-order sums", "index_add_"):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        if name == "index_add_":
+            with _index_add_update():
+                kmeans_fit(emb32, layout.nlist)
+        else:
+            kmeans_fit(emb32, layout.nlist)
+        torch.cuda.synchronize(dev)
+        fits[name] = time.perf_counter() - t
+    del emb32
+    torch.cuda.empty_cache()
+    print(f"ivf build again on the same rows: k-means + cluster sort {t_again:.2f} s "
+          f"(first build {t_build:.2f} s); centroids, assignments and sorted rows "
+          f"bit-equal to the first build; k-means alone ({N_IVF} x {d} f32, nlist "
+          f"{layout.nlist}, 15 rounds): " + ", ".join(f"{k} {v:.2f} s" for k, v in fits.items())
+          + f" | {smi_line}", flush=True)
 
     # traffic: noisy copies of random corpus rows
     cpu_gen = torch.Generator().manual_seed(seed + 3)
@@ -1361,12 +1488,7 @@ def _ivf_phase(dev, seed: int, smi_line: str):
     off = layout.device_array("cluster_offsets", dev)
 
     def scan_args(q, k):
-        qn = index._preprocess(q)
-        sel = ivf_probe(layout, qn, index.nprobe).contiguous()
-        blk = select_blocks(layout, sel.cpu().numpy())
-        return (qn.to(sorted_emb.dtype).contiguous(), sorted_emb, cid, sel,
-                torch.from_numpy(blk).to(dev), int((blk >= 0).sum()), k,
-                layout.block_rows)
+        return _ivf_scan_args(index, q, k)
 
     scanned = [scan_args(queries[i * BATCH:(i + 1) * BATCH], 20)[5]
                for i in range(IVF_BATCHES)]
@@ -1508,7 +1630,7 @@ INDEX_CHECK_QUERIES = 8        # queries of the exact checks on each index
 INDEX_SERVED_SINGLES = 16      # single queries timed at the served size
 INDEX_BATCHES = 2              # of phase ivf's IVF_BATCHES batches, timed at 5,000,000 rows
 CODEBOOK_SAMPLE = 4096         # rows whose codes are held to the plain codes
-INDEX_KB_QUESTIONS = 4         # offline KB questions a configuration
+INDEX_KB_QUESTIONS = 2         # offline KB questions a configuration (4 until phase scripts)
 KB_INDEX_TYPES = (("IVFPQ sketch", {"index_type": "IVFPQ", "pq_impl": "sketch"}),
                   ("IVFPQ codebook", {"index_type": "IVFPQ", "pq_impl": "codebook"}),
                   ("LSH", {"index_type": "LSH"}),
@@ -2460,7 +2582,7 @@ def _process_phase(dev, qp, graph_times: dict, build_launches: int, rng, words,
           f"built in the first process(), {graph_times.get('graph token index', 0.0):.3f} "
           f"s of it | {smi_line}", flush=True)
 
-    # 4. 32 Zipf queries: latency and each stage's host time
+    # 4. N_PROCESS Zipf queries: latency and each stage's host time
     queries = [" ".join(words[t]) for t in _query_terms(rng, N_PROCESS)]
     stage_s: dict = {}
     restore = _time_process_stages(qp, stage_s)
@@ -2508,7 +2630,7 @@ OFFLINE_ITEMS = 200            # synthetic MuSiQue-style items, 40 paragraphs ea
 OFFLINE_MIN_NOTES = 20_000     # above this the self-join runs on the card (SEMANTIC_HOST_ROWS)
 # items whose questions go through process() (cut from 64 when the musique
 # phase joined, to keep the script near its time)
-OFFLINE_QUERIES = 16           # 32 before phase sharded
+OFFLINE_QUERIES = 8            # 32 before phase sharded, 16 before phase scripts
 OFFLINE_RETRIEVE = 32          # questions of the retriever's round trips
 OFFLINE_REMOVED = 100          # notes removed and added back
 _DOC = "doc.processor"
@@ -2805,12 +2927,13 @@ def _drop_log_handlers(log_state) -> None:
 
 
 # the musique phase: main_musique over phase offline's items
-# items of the full-width run: the first 16 of phase offline's 200 (all 200
-# took 218 s of a 271 s phase on an H100; 64 until phase train joined and
-# 48 until phase sharded did, to keep the script near its length)
-MUSIQUE_ITEMS = 16
+# items of the full-width run: the first 8 of phase offline's 200 (all 200
+# took 218 s of a 271 s phase on an H100; 64 until phase train joined, 48
+# until phase sharded did and 16 until phase scripts did, to keep the
+# script near its length)
+MUSIQUE_ITEMS = 8
 MUSIQUE_PARITY = 8             # items through process_musique_item on the card and the CPU
-MUSIQUE_COR = 4                # items of the --enable-cor run
+MUSIQUE_COR = 2                # items of the --enable-cor run (4 until phase scripts)
 MUSIQUE_LLM = 2                # items of the run with the decoder LM
 MUSIQUE_PARTS = ("kb", "qp", "process")   # DocumentProcessor, QueryProcessor(), process()
 
@@ -2857,7 +2980,7 @@ def _item_part_timers(times: dict):
     return lambda: [u() for u in undo]
 
 
-def _musique_phase(dev, synth, seed: int, smi_line: str) -> None:
+def _musique_phase(dev, synth, seed: int, smi_line: str, keep) -> None:
     """The MuSiQue batch pipeline and its evaluation on the card over phase
     offline's items: (i) MUSIQUE_PARITY items through process_musique_item
     on the card and on the CPU (hash backend, Flat), every row field equal;
@@ -2890,7 +3013,8 @@ def _musique_phase(dev, synth, seed: int, smi_line: str) -> None:
     from anorag_tpu_torch.ops import bm25, ivf, topk
     from anorag_tpu_torch.testing import NOTE_LM_TPU_LARGE
     from anorag_tpu_torch.utils.batch_processor import device_memory_stats
-    from anorag_tpu_torch.utils.file_io import latest_work_dir, read_json, read_jsonl
+    from anorag_tpu_torch.utils.file_io import (latest_work_dir, read_json, read_jsonl,
+                                                write_jsonl)
 
     counted = {"window_winners": bm25.window_winners, "segment_totals": bm25.segment_totals,
                "segment_winners": bm25.segment_winners,
@@ -3073,15 +3197,19 @@ def _musique_phase(dev, synth, seed: int, smi_line: str) -> None:
           f"{MUSIQUE_LLM} items in {llm_s:.3f} s, no error row, the decoder loaded "
           f"once; answer methods {[r.get('answer_method') for r in llm_rows]} "
           f"| {smi_line}", flush=True)
+    # the full-width run's predictions and their items, for phase scripts
+    shutil.copy(preds, keep / "musique_preds.jsonl")
+    write_jsonl(keep / "musique_items.jsonl", items)
     shutil.rmtree(tmp)
     shutil.rmtree(synth.parent)
 
 
 # the llm phase: the decoder LM at checkpoints/note_lm_tpu_large's shape
-# (cut from 5 and 8 when the offline phase joined, and LLM_ZIPF to 2 when
-# the musique phase did, to keep the script
-# near half its time limit)
-LLM_ZIPF = 2                   # Zipf queries through process() with the LLM
+# (cut from 5 and 8 when the offline phase joined, LLM_ZIPF to 2 when the
+# musique phase did and to 1 when the scripts phase did, to keep the
+# script near its length; the served request keeps its 2 Zipf queries,
+# whose plans launch the window-winners kernel)
+LLM_ZIPF = 1                   # Zipf queries through process() with the LLM
 LLM_SERVED = 4                 # queries of the request served with the LLM
 LLM_CONCURRENT = 8             # concurrent requests to serve_llm
 LLM_SERVE_MAX_NEW = 512        # serve_llm's byte budget (its --max-new default)
@@ -3540,7 +3668,8 @@ def _check_llm_kb_answers(with_llm, alone) -> dict:
 
 # the train phase: the encoder's InfoNCE trainer, the decoder LM's train
 # step, the answer heads, calibration and the training CLIs on the card
-TRAIN_NOTES = 2048             # phase offline's notes that train_encoder trains on
+TRAIN_NOTES = 1024             # phase offline's notes that train_encoder trains on (2,048
+                               # until phase scripts joined)
 TRAIN_TIMED_STEPS = 3          # steps a timing takes (after one warm step)
 # checkpoints/encoder_synth_full_report.json's shape, and the run's cut:
 # 20 steps of 128 pairs (40 worlds make 280 pairs, 2 steps an epoch) at lr
@@ -3808,11 +3937,13 @@ def _train_decoder_checks(dev, tmp, seed: int, smi_line: str) -> None:
           f"{b} x {s}, f32): {par} ({time.perf_counter() - t0:.2f} s)", flush=True)
 
 
-def _train_phase(dev, train_notes, seed: int, smi_line: str) -> None:
+def _train_phase(dev, train_notes, seed: int, smi_line: str, keep) -> None:
     """Training on the card: (a) the encoder, (b) the decoder LM, (c) the
     answer heads and run_calibration, (d) train_encoder at the config's
     encoder on `train_notes` (phase offline's first TRAIN_NOTES notes).
-    The hand kernels' launches are counted from 0 and printed."""
+    The hand kernels' launches are counted from 0 and printed. (a)'s
+    checkpoint and report are moved to `keep`/checkpoints for phase
+    scripts."""
     import contextlib
     import io
     import logging
@@ -3843,6 +3974,9 @@ def _train_phase(dev, train_notes, seed: int, smi_line: str) -> None:
     try:
         t = time.perf_counter()
         _train_encoder_checks(dev, tmp, seed, smi_line)
+        (keep / "checkpoints").mkdir(exist_ok=True)
+        for name in ("encoder_synth_full", "encoder_synth_full_report.json"):
+            shutil.move(str(tmp / name), str(keep / "checkpoints" / name))
         t = _phase("train (a) encoder", t)
         _train_decoder_checks(dev, tmp, seed, smi_line)
         t = _phase("train (b) decoder", t)
@@ -3859,7 +3993,7 @@ def _train_phase(dev, train_notes, seed: int, smi_line: str) -> None:
         out = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
-            code = run_calibration.main([str(tmp / "calib"), "--dev-n", "2",
+            code = run_calibration.main([str(tmp / "calib"), "--dev-n", "1",
                                          "--device", dev.type])
         cal_s = time.perf_counter() - t0
         report = read_json(tmp / "calib" / "calibration_report.json")
@@ -3867,7 +4001,7 @@ def _train_phase(dev, train_notes, seed: int, smi_line: str) -> None:
             raise AssertionError(f"run_calibration: exit {code}, {report}")
         lines = [ln for ln in out.getvalue().splitlines()
                  if ln.startswith(("uncalibrated:", "calibrated:"))]
-        print(f"run_calibration --dev-n 2 on the card: {cal_s:.2f} s, "
+        print(f"run_calibration --dev-n 1 on the card: {cal_s:.2f} s, "
               f"{report['n_pipeline_evals']} pipeline evals ({cal_s / (report['n_pipeline_evals'] + 2):.3f} "
               f"s each), {'; '.join(lines)}, delta {report['delta_score']} | {smi_line}",
               flush=True)
@@ -4159,12 +4293,8 @@ def _sharded_phase(dev, qp, em, notes, requests, top_k: int, seed: int,
         files = [tmp / "part_a.jsonl", tmp / "part_b.jsonl"]
         for i, f in enumerate(files):
             write_jsonl(f, items[i * SHARDED_ITEMS:(i + 1) * SHARDED_ITEMS])
-        # density clustering: k-means' centroid update sums by atomics on
-        # the card (index_add_), so two builds of one file can pick other
-        # labels, and byte equality would not test the fan-out
         def cfg(root):
-            return Config({"storage": {"result_root": str(tmp / root)},
-                           "clustering": {"method": "density"}})
+            return Config({"storage": {"result_root": str(tmp / root)}})
 
         torch.cuda.synchronize(dev)
         base = torch.cuda.memory_allocated(dev)
@@ -4193,7 +4323,7 @@ def _sharded_phase(dev, qp, em, notes, requests, top_k: int, seed: int,
         enc_gb = sum(p.numel() * p.element_size() for p in em._encoder.parameters()) / 1e9
         n_notes = [len(read_jsonl(tmp / f.stem / "1" / "chunks.jsonl")) for f in files]
         print(f"main process --parallel over 2 files of {SHARDED_ITEMS} items "
-              f"({n_notes} chunks, density clustering), 2 worker threads: {par_s:.2f} s against "
+              f"({n_notes} chunks, k-means clustering), 2 worker threads: {par_s:.2f} s against "
               f"{ser_s:.2f} s serially; each file's KB equal to its serial build "
               f"(chunks, notes, embeddings, clusters, graph); each task builds its "
               f"own encoder ({enc_gb:.2f} GB of weights); peak device memory "
@@ -4206,9 +4336,232 @@ def _sharded_phase(dev, qp, em, notes, requests, top_k: int, seed: int,
     return {"dense_topk": dense_launches, "segment_totals": totals_launches}
 
 
-def run(dev, seed: int = 0):
-    """All phases on device `dev`; returns (kernel numbers, nvidia-smi
-    line, device name)."""
+# the scripts phase: the repo's index and evaluation scripts as port CLIs
+SCRIPTS_QUERIES = 512          # queries of each search of the rebuilt index
+SCRIPTS_HELDOUT = 12           # run_heldout --embedder trained items (the CLI's 188; 24 took 17 s)
+SCRIPTS_HELDOUT_HASH = 4       # run_heldout --embedder hash items, card and CPU (8 took 3.6 s)
+SCRIPTS_RECALL = 8             # eval_recall_optimizer items (the CLI's 47; 12 took 5 s)
+SCRIPTS_BATCHES = 3            # timed batches of the loaded index
+
+
+def _cli(fn, argv) -> tuple:
+    """(exit code, stdout, seconds) of a CLI's main(argv) run in-process."""
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        try:
+            code = fn(argv)
+        except SystemExit as e:
+            code = e.code
+    return code or 0, buf.getvalue(), time.perf_counter() - t0
+
+
+def _last_json(text: str) -> dict:
+    return json.loads([ln for ln in text.splitlines() if ln.startswith("{")][-1])
+
+
+def _scripts_phase(dev, keep, smi_line: str) -> dict:
+    """The repo's index and evaluation scripts as the port's CLIs, each
+    main() called in-process on `dev`, over what earlier phases kept in
+    `keep`: phase offline's atomic_notes.json, phase musique's predictions
+    and items, phase train's encoder_synth_full-shaped checkpoint. Returns
+    the IVF scan kernel's and its plan kernel's launches on the rebuilt
+    index's searches, counted from 0, and the scan's largest error against
+    its plain version."""
+    import logging
+    import os
+
+    root_log = logging.getLogger()
+    log_state = (root_log.level, list(root_log.handlers))
+    cwd = os.getcwd()
+    try:
+        out = _scripts_rebuild(dev, keep, smi_line)
+        _drop_log_handlers(log_state)
+        _scripts_evals(dev, keep, smi_line)
+    finally:
+        os.chdir(cwd)
+        _drop_log_handlers(log_state)
+    return out
+
+
+def _scripts_rebuild(dev, keep, smi_line: str) -> dict:
+    """rebuild_vector_index over phase offline's notes at the config's
+    encoder, `rebuilt` then `fresh`; the directory loaded twice and searched
+    on the IVF route (below 5,000,000 rows IVFFlat searches Flat, as in the
+    reference: the loads take ivf_min_corpus 0), the layouts and results of
+    the two loads equal, the scan held to its plain version, recall@10
+    against exact search printed; the scan and plan launches counted."""
+    import numpy as np
+    import torch
+
+    from anorag_tpu_torch import rebuild_vector_index
+    from anorag_tpu_torch.config import Config
+    from anorag_tpu_torch.models.embedding_manager import EmbeddingManager
+    from anorag_tpu_torch.ops.ivf import ivf_scan, ivf_scan_ref, ivf_work_plan
+    from anorag_tpu_torch.retrieval.retriever import VectorRetriever
+    from anorag_tpu_torch.testing import check_topk, ivf_scores
+    from anorag_tpu_torch.utils.file_io import read_json
+
+    notes = keep / "atomic_notes.json"
+    out = keep / "index"
+    (keep / "rebuild.yaml").write_text(
+        f"system:\n  device: {dev.type}\nvector_store:\n  index_type: IVFFlat\n")
+    argv = [str(notes), str(out), "--config", str(keep / "rebuild.yaml")]
+    ivf_scan.launches = ivf_work_plan.launches = 0
+    torch.cuda.synchronize(dev)
+    code, text, rebuild_s = _cli(rebuild_vector_index.main, argv)
+    first = _last_json(text)
+    code2, text2, fresh_s = _cli(rebuild_vector_index.main, argv)
+    again = _last_json(text2)
+    texts = [n["content"] for n in read_json(notes)]
+    if (code, code2, first["status"], first["n_notes"], again["status"]) != \
+            (0, 0, "rebuilt", len(texts), "fresh") or again["signature"] != first["signature"]:
+        raise AssertionError(f"rebuild_vector_index printed {first} then {again}")
+    em = EmbeddingManager(Config({"vector_store": {"index_type": "IVFFlat"}}), device=dev)
+    rng = np.random.default_rng(7)
+    q = em.encode_queries([texts[i] for i in rng.choice(
+        len(texts), min(SCRIPTS_QUERIES, len(texts)), replace=False)])
+    loads, results, load_s = [], [], []
+    for _ in range(2):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        vr = VectorRetriever(em, index_type="IVFFlat", index_params={"ivf_min_corpus": 0})
+        if not vr.load(out):
+            raise AssertionError(f"VectorRetriever.load({out}) refused the rebuilt index")
+        results.append(vr.index.search_arrays(q, 20))
+        torch.cuda.synchronize(dev)
+        load_s.append(time.perf_counter() - t0)
+        if vr.index._layout is None or vr.index._effective_type != "IVFFlat":
+            raise AssertionError("the loaded index did not search on the IVF route")
+        loads.append(vr.index)
+    batch_s = []
+    for _ in range(SCRIPTS_BATCHES):
+        t0 = time.perf_counter()
+        loads[1].search_arrays(q, 20)
+        batch_s.append(time.perf_counter() - t0)
+    launches = {"ivf_scan": ivf_scan.launches, "ivf_work_plan": ivf_work_plan.launches}
+    searches = 2 + SCRIPTS_BATCHES
+    if launches["ivf_scan"] != searches or launches["ivf_work_plan"] != searches:
+        raise AssertionError(f"{searches} IVF searches launched {launches}")
+    a, b = (ix._layout for ix in loads)
+    same = [np.array_equal(x, y) for x, y in (
+        (a.centroids, b.centroids), (a.perm, b.perm), (a.cluster_ids, b.cluster_ids))]
+    if not (all(same) and torch.equal(loads[0]._device_emb, loads[1]._device_emb)):
+        raise AssertionError(f"two loads of the rebuilt index cluster it apart "
+                             f"(centroids, perm, cluster ids equal: {same})")
+    if not all(np.array_equal(x, y) for x, y in zip(*results)):
+        raise AssertionError("two loads of the rebuilt index answer apart")
+    args = _ivf_scan_args(loads[0], q, 20)
+    err = check_topk(ivf_scan(*args, cluster_offsets=a.device_array("cluster_offsets", dev)),
+                     ivf_scan_ref(*args), ivf_scores(args[1], args[0], args[2], args[3]))
+    exact = torch.topk(args[0].float() @ args[1][:a.n].float().T, 10).indices
+    exact = a.device_array("perm", dev)[exact].cpu().numpy()
+    recall = float(np.mean([len(set(g.tolist()) & set(e.tolist())) / 10
+                            for g, e in zip(results[0][1][:, :10], exact)]))
+    print(f"scripts: rebuild_vector_index over phase offline's {len(texts)} notes at the "
+          f"config's encoder (IVFFlat): rebuilt in {rebuild_s:.2f} s, then fresh in "
+          f"{fresh_s:.2f} s (signature {first['signature']}); VectorRetriever.load + the "
+          f"first {q.shape[0]}-query search at k 20 on the IVF route (nlist {a.nlist}, "
+          f"nprobe {loads[0].nprobe}) {load_s[0]:.2f} s and {load_s[1]:.2f} s; the two "
+          f"loads' layouts bit-equal and their results equal; a batch "
+          f"{1e3 * statistics.median(batch_s):.3f} ms (median of {SCRIPTS_BATCHES}); the "
+          f"scan against its plain version max abs err {err:.3g}; recall@10 against exact "
+          f"search {recall:.4f} (not gated); launches {launches} | {smi_line}", flush=True)
+    del loads, results, vr, em, q, args
+    torch.cuda.empty_cache()
+    return {**launches, "max_abs_err": err}
+
+
+def _scripts_evals(dev, keep, smi_line: str) -> None:
+    """run_heldout (the trained embedder at full width from `keep`'s
+    checkpoint, in `keep` as its working directory; the hash one on `dev`
+    and the CPU, metrics equal), eval_encoder_discrimination,
+    eval_recall_optimizer, and the host checks over phase musique's
+    predictions and the repo's config.yaml."""
+    import os
+
+    from anorag_tpu_torch import (check_deprecated_config, check_musique_results,
+                                  check_support_stats, eval_encoder_discrimination,
+                                  eval_recall_optimizer, migrate_config, run_heldout)
+    from anorag_tpu_torch.config.yaml_subset import safe_load
+    from anorag_tpu_torch.utils.file_io import read_json
+
+    os.chdir(keep)
+    code, text, held_s = _cli(run_heldout.main, [
+        "--device", dev.type, "--embedder", "trained", "--n", str(SCRIPTS_HELDOUT),
+        "--report", str(keep / "heldout_trained.json")])
+    line = _last_json(text)
+    report = read_json(keep / "heldout_trained.json")
+    if code != 0 or line["n"] != SCRIPTS_HELDOUT or report["n_items"] != SCRIPTS_HELDOUT \
+            or not 0.0 <= report["metrics"]["answer_em"] <= 1.0:
+        raise AssertionError(f"run_heldout --embedder trained: exit {code}, {line}")
+    hashed = {}
+    for device in (dev.type, "cpu"):
+        code, text, hashed[device + "_s"] = _cli(run_heldout.main, [
+            "--device", device, "--n", str(SCRIPTS_HELDOUT_HASH),
+            "--report", str(keep / f"heldout_{device}.json")])
+        if code != 0:
+            raise AssertionError(f"run_heldout --device {device} exited {code}")
+        hashed[device] = read_json(keep / f"heldout_{device}.json")["metrics"]
+    if hashed[dev.type] != hashed["cpu"]:
+        raise AssertionError(f"run_heldout's hash metrics on {dev.type} {hashed[dev.type]} "
+                             f"and the CPU {hashed['cpu']}")
+    print(f"scripts: run_heldout --embedder trained (phase train's encoder_synth_full-"
+          f"shaped checkpoint) --n {SCRIPTS_HELDOUT}: {held_s:.2f} s, {line}; --embedder "
+          f"hash --n {SCRIPTS_HELDOUT_HASH}: {hashed[dev.type + '_s']:.2f} s on "
+          f"{dev.type}, {hashed['cpu_s']:.2f} s on the CPU, metrics equal "
+          f"{hashed['cpu']} | {smi_line}", flush=True)
+
+    code, text, disc_s = _cli(eval_encoder_discrimination.main, [
+        "--device", dev.type, "--ckpt", str(keep / "checkpoints" / "encoder_synth_full"),
+        "--report", str(keep / "disc.json")])
+    disc = read_json(keep / "disc.json")
+    if code != 0 or not {"recall10_hash", "recall10_random_init",
+                         "recall10_trained"} <= disc.keys():
+        raise AssertionError(f"eval_encoder_discrimination: exit {code}, {disc}")
+    code, text, rec_s = _cli(eval_recall_optimizer.main, [
+        "--device", dev.type, "--n", str(SCRIPTS_RECALL), "--report", str(keep / "recall.json")])
+    rec = read_json(keep / "recall.json")
+    if code != 0 or _last_json(text) != rec:
+        raise AssertionError(f"eval_recall_optimizer: exit {code}, {text[-500:]!r}")
+    print(f"scripts: eval_encoder_discrimination ({disc['n_queries']} queries over "
+          f"{disc['n_corpus']} paragraphs): {disc_s:.2f} s, recall@10 hash "
+          f"{disc['recall10_hash']}, random init (full width, the port's seeded init) "
+          f"{disc['recall10_random_init']}, trained {disc['recall10_trained']}; "
+          f"eval_recall_optimizer --n {SCRIPTS_RECALL}: {rec_s:.2f} s, {rec['n_items']} "
+          f"items, pool coverage off {rec['pool_gold_coverage_off']}, on "
+          f"{rec['pool_gold_coverage_on']} | {smi_line}", flush=True)
+
+    preds, items = keep / "musique_preds.jsonl", keep / "musique_items.jsonl"
+    n_rows = len(preds.read_text().splitlines())
+    code, text, _ = _cli(check_musique_results.main, [str(preds)])
+    checked = json.loads(text)
+    if code != 0 or checked["n"] != n_rows:
+        raise AssertionError(f"check_musique_results: exit {code}, {checked}")
+    code, text, _ = _cli(check_support_stats.main, [str(preds), "--gold", str(items)])
+    stats = json.loads(text)
+    if code != 0 or sum(stats["support_len_distribution"].values()) != n_rows:
+        raise AssertionError(f"check_support_stats: exit {code}, {stats}")
+    config_yaml = Path(__file__).resolve().parent / "config.yaml"
+    code, text, _ = _cli(migrate_config.main, [str(config_yaml), str(keep / "migrated.yaml")])
+    code2, text2, _ = _cli(check_deprecated_config.main, [str(config_yaml)])
+    scan = json.loads(text2)
+    tree, migrated = (safe_load(p.read_text()) for p in (config_yaml, keep / "migrated.yaml"))
+    if code != 0 or code2 != 0 or scan["deprecated"] or migrated != tree:
+        raise AssertionError(f"migrate_config: exit {code}, tree equal {migrated == tree}; "
+                             f"check_deprecated_config: exit {code2}, {scan}")
+    print(f"scripts: check_musique_results over phase musique's {n_rows} predictions "
+          f"{checked}; check_support_stats {stats}; migrate_config of config.yaml read "
+          f"back equal ({text.strip().splitlines()[-1]}); check_deprecated_config: exit "
+          f"0, unknown keys {scan['unknown_keys']}", flush=True)
+
+
+def run(dev, keep, seed: int = 0):
+    """All phases on device `dev`, files that a later phase reads kept in
+    the directory `keep`; returns (kernel numbers, nvidia-smi line, device
+    name)."""
     import numpy as np
     import torch
 
@@ -4475,7 +4828,7 @@ def run(dev, seed: int = 0):
     t = _phase("offline", t)
 
     # 12. musique: main_musique over the offline phase's items, and its evaluation
-    _musique_phase(dev, synth, seed, smi_line)
+    _musique_phase(dev, synth, seed, smi_line, keep)
     t = _phase("musique", t)
 
     # 13. llm: the LLM layer and the decoder LM through process(), the
@@ -4511,18 +4864,17 @@ def run(dev, seed: int = 0):
     from anorag_tpu_torch.utils.file_io import read_json
 
     train_notes = read_json(kb["work"] / "atomic_notes.json")[:TRAIN_NOTES]
+    shutil.copy(kb["work"] / "atomic_notes.json", keep / "atomic_notes.json")
     try:
         _indexes_phase(dev, ivf_index, ivf_q, qp, kb, requests[1][:INDEX_CHECK_QUERIES],
                        smi_line)
     finally:
-        import shutil
-
         shutil.rmtree(kb["work"].parent, ignore_errors=True)
     del ivf_index, ivf_q
     t = _phase("indexes", t)
 
     # 19. train: the encoder and decoder trainers, the heads, the training CLIs
-    _train_phase(dev, train_notes, seed, smi_line)
+    _train_phase(dev, train_notes, seed, smi_line, keep)
     t = _phase("train", t)
 
     # 20. sharded: setup's corpus on a mesh over the card, the sharded
@@ -4530,6 +4882,13 @@ def run(dev, seed: int = 0):
     sharded = _sharded_phase(dev, qp, em, notes, requests, top_k, seed, smi_line)
     segment_kernels[0]["launches"] += sharded["segment_totals"]
     t = _phase("sharded", t)
+
+    # 21. scripts: the index and evaluation scripts as the port's CLIs
+    scripts = _scripts_phase(dev, keep, smi_line)
+    ivf_launches += scripts["ivf_scan"]
+    plan_launches += scripts["ivf_work_plan"]
+    scan_errs.append(scripts["max_abs_err"])
+    t = _phase("scripts", t)
 
     return {"kernels": [{
         "name": "bm25_window_winners", "route": "cuda",
@@ -4646,7 +5005,9 @@ def main(argv=None) -> int:
             print("chip_smoke: no CUDA device; this check runs only on the GPU",
                   file=sys.stderr)
             return 2
-        kernels, smi_line, kind = run(torch.device("cuda", 0), seed=args.seed)
+        with tempfile.TemporaryDirectory(prefix="anorag_smoke_") as keep:
+            kernels, smi_line, kind = run(torch.device("cuda", 0), Path(keep),
+                                          seed=args.seed)
     except Exception:
         traceback.print_exc()
         return 1

@@ -585,8 +585,9 @@ def test_self_join_route_matches_ref_on_the_card(cuda_device, monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("seed", range(4))
 def test_pagerank_on_the_card_matches_the_plain_version(cuda_device, seed):
-    """PageRank sums by atomics on the card: held to the CPU's plain torch
-    run within rtol 1e-6; the other graph ops exactly."""
+    """PageRank on the card against the CPU's plain torch run within rtol
+    1e-6 (the card's and the CPU's sums may round apart); the other graph
+    ops exactly."""
     from anorag_tpu_torch.ops import graph
 
     rng = np.random.default_rng(seed)
@@ -605,6 +606,71 @@ def test_pagerank_on_the_card_matches_the_plain_version(cuda_device, seed):
                                graph.k_hop_scores(g_cpu, [1, 7, 99], cent), rtol=1e-6)
     np.testing.assert_array_equal(graph.connected_components(g_card),
                                   graph.connected_components(g_cpu))
+
+
+@pytest.mark.cuda
+def test_pagerank_on_the_card_is_bit_stable(cuda_device):
+    """Each target's in-edges are summed in a fixed order: two runs give
+    the same bits."""
+    from anorag_tpu_torch.ops import graph
+
+    rng = np.random.default_rng(11)
+    n = 20000
+    edges = [(int(rng.integers(n)), int(rng.integers(n)), float(rng.random() * 2),
+              int(rng.integers(18))) for _ in range(8 * n)]
+    t = graph.build_csr(n, edges, device=cuda_device).tensors()
+    first = graph.pagerank(t["nbr"], t["nbr_w"])
+    for _ in range(3):
+        assert torch.equal(graph.pagerank(t["nbr"], t["nbr_w"]), first)
+
+
+@pytest.mark.cuda
+def test_kmeans_fit_on_the_card_is_bit_stable(cuda_device):
+    """Two fits of 100,000 x 1024 rows at nlist 64 give the same centroids
+    and labels, bit for bit, and the fixed-order sums are within the f32
+    bound of a sum of the exact ones."""
+    from anorag_tpu_torch.ops.kmeans import cluster_sums, kmeans_fit
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    centres = torch.randn((64, 1024), generator=gen, device=cuda_device)
+    label = torch.randint(0, 64, (100_000,), generator=gen, device=cuda_device)
+    x = centres[label] + 0.5 * torch.randn((100_000, 1024), generator=gen,
+                                           device=cuda_device)
+    c1, a1 = kmeans_fit(x, 64)
+    c2, a2 = kmeans_fit(x, 64)
+    assert c1.is_cuda and torch.equal(c1, c2) and torch.equal(a1, a2)
+    sums, counts = cluster_sums(x, label, 64)
+    assert torch.equal(counts, torch.bincount(label, minlength=64))
+    # within (n - 1) u sum|x| of the exact sum (u = 2^-24)
+    exact = torch.zeros(sums.shape, dtype=torch.float64, device=cuda_device)
+    exact.index_add_(0, label, x.double())
+    bound = torch.zeros_like(exact).index_add_(0, label, x.abs().double())
+    assert bool(((sums.double() - exact).abs() <= bound * counts[:, None] * 2.0 ** -24).all())
+
+
+@pytest.mark.cuda
+def test_ivfflat_index_loaded_twice_searches_alike(cuda_device, tmp_path):
+    """A saved IVFFlat index keeps its rows only, so each load clusters
+    them again: two loads give the same layout and the same results."""
+    from anorag_tpu_torch.index.vector_index import VectorIndex
+
+    x = torch.from_numpy(clustered_corpus(np.random.default_rng(4), 30000, 256, 40))
+    index = VectorIndex(dimension=256, index_type="IVFFlat", device=cuda_device)
+    index.add(x)
+    index.save(tmp_path / "ivf")
+    q = x[:64] + 0.01 * torch.from_numpy(
+        np.random.default_rng(5).standard_normal((64, 256)).astype(np.float32))
+    loads = [VectorIndex.load(tmp_path / "ivf", device=cuda_device) for _ in range(2)]
+    for idx in loads:
+        idx.ivf_min_corpus = 0        # the IVF route below 5,000,000 rows
+    got = [idx.search_arrays(q, 20) for idx in loads]
+    a, b = (idx._layout for idx in loads)
+    assert a is not None and b is not None
+    np.testing.assert_array_equal(a.centroids, b.centroids)
+    np.testing.assert_array_equal(a.perm, b.perm)
+    assert torch.equal(loads[0]._device_emb, loads[1]._device_emb)
+    np.testing.assert_array_equal(got[0][1], got[1][1])
+    np.testing.assert_array_equal(got[0][0], got[1][0])
 
 
 @pytest.mark.cuda

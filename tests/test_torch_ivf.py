@@ -86,6 +86,51 @@ def test_kmeans_lloyd_invariants():
     assert kmeans.kmeans_inertia(x, c, a) <= kmeans.kmeans_inertia(x, c1, a1) + 1e-3
 
 
+def _index_add_sums(x, labels, n_clusters):
+    """The update k-means had before its fixed-order sums: index_add_ per
+    row chunk, the counts by bincount."""
+    sums = torch.zeros((n_clusters, x.shape[1]), dtype=torch.float32)
+    for lo in range(0, x.shape[0], kmeans._ROW_CHUNK):
+        sums.index_add_(0, labels[lo:lo + kmeans._ROW_CHUNK].long(),
+                        x[lo:lo + kmeans._ROW_CHUNK].float())
+    return sums, torch.bincount(labels.long(), minlength=n_clusters)
+
+
+@pytest.mark.parametrize("chunk", [1 << 18, 1000])
+def test_kmeans_fixed_order_update_against_index_add(monkeypatch, chunk):
+    """Above 4096 rows (Lloyd in torch), in one row chunk and in several:
+    the fixed-order cluster sums against the exact sums and index_add_'s
+    within the f32 bound of a sum, the fits' centroids
+    within 1e-6 of their largest magnitude, and the labels equal wherever
+    a row's two nearest centroids are more than 1e-4 apart in squared
+    distance; two fits bit-equal."""
+    monkeypatch.setattr(kmeans, "_ROW_CHUNK", chunk)
+    x = torch.from_numpy(clustered_corpus(np.random.default_rng(5), 6000, 32, 12))
+    labels = torch.from_numpy(np.random.default_rng(6).integers(0, 16, 6000))
+    got, got_n = kmeans.cluster_sums(x, labels, 17)
+    want, want_n = _index_add_sums(x, labels, 17)
+    assert torch.equal(got_n, want_n) and got_n[16] == 0 and not got[16].any()
+    # each within (n - 1) u sum|x| of the exact sum (u = 2^-24), so within
+    # twice that of each other
+    exact = torch.zeros((17, 32), dtype=torch.float64).index_add_(0, labels, x.double())
+    bound = (torch.zeros((17, 32), dtype=torch.float64).index_add_(0, labels, x.abs().double())
+             * got_n[:, None] * 2.0 ** -24)
+    assert bool(((got.double() - exact).abs() <= bound).all())
+    assert bool(((got - want).double().abs() <= 2 * bound).all())
+
+    c, a = kmeans.kmeans_fit(x, 12, iters=15, seed=3)
+    c2, a2 = kmeans.kmeans_fit(x, 12, iters=15, seed=3)
+    assert torch.equal(c, c2) and torch.equal(a, a2)
+    monkeypatch.setattr(kmeans, "cluster_sums", _index_add_sums)
+    c_old, a_old = kmeans.kmeans_fit(x, 12, iters=15, seed=3)
+    assert float((c - c_old).abs().max()) <= 1e-6 * float(c_old.abs().max())
+    dist = ((x[:, None, :] - c_old[None]) ** 2).sum(-1)
+    two = dist.topk(2, dim=1, largest=False).values
+    clear = (two[:, 1] - two[:, 0]) > 1e-4
+    assert clear.float().mean() > 0.99
+    assert torch.equal(a[clear], a_old[clear])
+
+
 # ------------------------------------------------------------------- layout
 @pytest.mark.parametrize("n,nlist,block_rows", [(600, 6, 128), (1000, 8, 256), (130, 3, 1024)])
 def test_layout_from_assign_matches_build_ivf(n, nlist, block_rows):

@@ -235,7 +235,8 @@ def test_port_imports_no_jax_and_nothing_of_anorag_tpu(path):
             continue
         for name in names:
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "optax", "anorag_tpu"), (path, name)
+            assert top not in ("jax", "jaxlib", "optax", "orbax", "yaml", "anorag_tpu"), \
+                (path, name)
 
 
 def test_port_runs_with_jax_blocked():
