@@ -23,7 +23,11 @@ The parameters keep the reference's layout (qkv (H, 3, N, Dh), attn_out
 tensor code (the reference's is plain JAX with no Pallas kernel): its
 matmuls go to torch.matmul. Greedy decoding (temperature <= 0) is the
 operating point and matches the reference token for token; sampling draws
-from an explicit torch.Generator, not from JAX's PRNG.
+from an explicit torch.Generator, not from JAX's PRNG. ShardedDecoder places
+the parameters on a (data, model) mesh by param_pspecs, as the reference's
+dry run does (__graft_entry__.py:222-260), and lm_loss, make_train_step,
+forward and generate run it data x tensor parallel
+(parallel/tensor_parallel.py).
 """
 from __future__ import annotations
 
@@ -31,7 +35,9 @@ import dataclasses
 import json
 import math
 from pathlib import Path
-from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
+from types import SimpleNamespace
+from typing import (Any, Callable, Dict, List, Mapping, NamedTuple, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -39,6 +45,9 @@ from torch import nn
 
 from anorag_tpu_torch.device import DeviceLike, resolve_device
 from anorag_tpu_torch.models.encoder import _layer_norm
+from anorag_tpu_torch.parallel.tensor_parallel import (Row, ShardedParams, broadcast,
+                                                       gather_rows, reduce_sum, split_axes,
+                                                       split_rows, vocab_parallel_lookup)
 from anorag_tpu_torch.training.optim import make_step
 
 PAD_ID = 0
@@ -269,51 +278,190 @@ def _ffn(x: torch.Tensor, lp: DecoderLayer) -> torch.Tensor:
     return torch.matmul(ff, lp.ffn_out)
 
 
-def _logits(params: DecoderParams, x: torch.Tensor) -> torch.Tensor:
-    x = _layer_norm(x, params.final_ln_scale, params.final_ln_bias)
-    return torch.matmul(x.float(), params.tok_emb.float().T)
+# one data row of parameters (DecoderParams as one row of one shard, or a
+# ShardedDecoder's row): the blocks over the row's model shards
+def _layer_views(row: Row, i: int):
+    """Layer i of a row: (ln1 scale, bias), (ln2 scale, bias) and each
+    shard's slices as an object with the attributes _qkv, _attend and
+    _ffn read."""
+    pre = f"layers.{i}."
+    shards = [SimpleNamespace(**{k: sh[pre + k] for k in ("qkv", "attn_out", "ffn_in",
+                                                          "ffn_out")})
+              for sh in row.shards]
+    return ((row.rep[pre + "ln1_scale"], row.rep[pre + "ln1_bias"]),
+            (row.rep[pre + "ln2_scale"], row.rep[pre + "ln2_bias"]), shards)
+
+
+class _RowLayers(NamedTuple):
+    """A data row of parameters and its layers' views (_layer_views), built
+    once a call (generate builds them once for all its steps)."""
+    row: Row
+    layers: List[tuple]
+
+
+def _rows(params: "Params", cfg: DecoderConfig) -> List[_RowLayers]:
+    """Each data row of `params` (DecoderParams: one row of one shard)
+    with its layers' views."""
+    rows = params.rows if isinstance(params, ShardedDecoder) else [_as_row(params)]
+    return [_RowLayers(r, [_layer_views(r, i) for i in range(cfg.num_layers)]) for r in rows]
+
+
+def _blocks(rl: _RowLayers, x: torch.Tensor, allowed: torch.Tensor, rope,
+            cfg: DecoderConfig, caches=None, step_pos: Optional[int] = None) -> torch.Tensor:
+    """The blocks over a row's model shards: x (B, S, H) on the row's
+    device -> x after the last block. rope: (cos, sin) of x's positions.
+    caches: one list a layer of each shard's (k, v) buffers (B, max_len,
+    N / model, Dh), written at [0, S) (prefill) or at step_pos (a decode
+    step, which then attends over the whole buffer)."""
+    row = rl.row
+    # each shard's mask and rope tables on its device, once for all layers
+    on_dev = [(allowed.to(d), rope[0].to(d), rope[1].to(d)) for d in row.devices]
+    for i, (ln1, ln2, lps) in enumerate(rl.layers):
+        parts = []
+        for j, (hj, lp) in enumerate(zip(broadcast(_layer_norm(x, *ln1), row.devices), lps)):
+            allowed_j, cos, sin = on_dev[j]
+            q, k, v = _qkv(hj, lp)
+            q, k = _rope(q, cos, sin), _rope(k, cos, sin)
+            if caches is not None:
+                ck, cv = caches[i][j]
+                if step_pos is None:
+                    ck[:, :k.shape[1]] = k
+                    cv[:, :v.shape[1]] = v
+                else:
+                    ck[:, step_pos] = k[:, 0]
+                    cv[:, step_pos] = v[:, 0]
+                    k, v = ck, cv
+            parts.append(_attend(q, k, v, allowed_j, lp, cfg))
+        x = x + reduce_sum(parts, row.device)
+        h = broadcast(_layer_norm(x, *ln2), row.devices)
+        x = x + reduce_sum([_ffn(hj, lp) for hj, lp in zip(h, lps)], row.device)
+    return x
+
+
+def _logit_parts(row: Row, x: torch.Tensor) -> List[torch.Tensor]:
+    """The tied output projection by vocabulary shard: the final layer
+    norm on the row's device, then each shard's f32 logits (..., V /
+    model) on its device."""
+    x = _layer_norm(x, row.rep["final_ln_scale"], row.rep["final_ln_bias"])
+    return [torch.matmul(xj.float(), t.float().T)
+            for xj, t in zip(broadcast(x, row.devices), row.tables("tok_emb"))]
+
+
+def _gather_vocab(row: Row, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    if len(parts) == 1:
+        return parts[0].to(row.device)
+    return torch.cat([p.to(row.device) for p in parts], dim=-1)
+
+
+def _embed(row: Row, ids: torch.Tensor, cfg: DecoderConfig) -> torch.Tensor:
+    return vocab_parallel_lookup(row.tables("tok_emb"), ids.long(), row.devices,
+                                 row.device, cfg.dtype)
+
+
+def _forward_row(rl: _RowLayers, token_ids: torch.Tensor, cfg: DecoderConfig,
+                 attn_mask: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+    """forward over one data row: its logits by vocabulary shard."""
+    row = rl.row
+    b, s = token_ids.shape
+    x = _embed(row, token_ids, cfg)
+    pos = torch.arange(s, device=row.device)
+    causal = pos[None, :, None] >= pos[None, None, :]   # (1, S, T)
+    if attn_mask is None:
+        allowed = causal.expand(b, s, s)
+    else:
+        allowed = causal & (attn_mask.to(row.device)[:, None, :] > 0)
+    return _logit_parts(row, _blocks(rl, x, allowed, _rope_tables(pos, cfg.head_dim), cfg))
+
+
+def _kv_buffers(b: int, lp, cfg: DecoderConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A shard's zeroed (k, v) cache of one layer: (B, max_len, its heads,
+    Dh) on its device."""
+    k = torch.zeros((b, cfg.max_len, lp.qkv.shape[2], cfg.head_dim), dtype=cfg.dtype,
+                    device=lp.qkv.device)
+    return k, torch.zeros_like(k)
+
+
+def _as_row(params: DecoderParams) -> Row:
+    """DecoderParams as one data row of one shard: each parameter is the
+    row's and its shard's, so the row functions run the one-device
+    arithmetic (a broadcast to one device is the tensor itself, a sum of one
+    part the part)."""
+    named = dict(params.named_parameters())
+    return Row([params.device], named, [named])
+
+
+def _prefill_row(rl: _RowLayers, ids: torch.Tensor, pad_lens: torch.Tensor,
+                 cfg: DecoderConfig):
+    """_prefill over one data row: (last-position logits (B, V) on the
+    row's device, its cache: per layer, each shard's (k, v))."""
+    row = rl.row
+    b, pb = ids.shape
+    pos = torch.arange(pb, device=row.device)
+    valid = pos[None, :] >= pad_lens[:, None]           # (B, Pb)
+    allowed = (pos[None, :, None] >= pos[None, None, :]) & valid[:, None, :]
+    caches = [[_kv_buffers(b, lp, cfg) for lp in lps] for _, _, lps in rl.layers]
+    x = _blocks(rl, _embed(row, ids, cfg), allowed, _rope_tables(pos, cfg.head_dim), cfg,
+                caches)
+    return _gather_vocab(row, _logit_parts(row, x[:, -1, :])), caches
+
+
+def _rope_at(rope: Optional[Tuple[torch.Tensor, torch.Tensor]], step_pos: int,
+             cfg: DecoderConfig, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos and sin at step_pos, from `rope` (_rope_tables of arange(max_len))
+    or computed."""
+    cos, sin = rope or _rope_tables(torch.arange(cfg.max_len, device=device), cfg.head_dim)
+    return cos[step_pos:step_pos + 1], sin[step_pos:step_pos + 1]
+
+
+def _decode_row(rl: _RowLayers, tok: torch.Tensor, step_pos: int, pad_lens: torch.Tensor,
+                caches, cfg: DecoderConfig, rope_one) -> torch.Tensor:
+    """_decode_step over one data row: logits (B, V) on the row's device."""
+    row = rl.row
+    tpos = torch.arange(cfg.max_len, device=row.device)
+    key_ok = (tpos[None, :] >= pad_lens[:, None]) & (tpos[None, :] <= step_pos)
+    x = _blocks(rl, _embed(row, tok, cfg)[:, None, :], key_ok[:, None, :], rope_one, cfg,
+                caches, step_pos)
+    return _gather_vocab(row, _logit_parts(row, x[:, 0, :]))
 
 
 @torch.no_grad()
-def forward(params: DecoderParams, token_ids: torch.Tensor, cfg: DecoderConfig,
+def forward(params: "Params", token_ids: torch.Tensor, cfg: DecoderConfig,
             attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Full-sequence causal forward: (B, S) ids -> (B, S, V) f32 logits.
+    """Full-sequence causal forward: (B, S) ids -> (B, S, V) f32 logits
+    (on a ShardedDecoder's first device, gathered).
 
     attn_mask (B, S) marks valid tokens (left- OR right-padding excluded
     from keys); causality is applied on top.
     """
+    if isinstance(params, ShardedDecoder):
+        masks = (split_rows(params.mesh, "attn_mask", attn_mask) if attn_mask is not None
+                 else [None] * len(params.rows))
+        return gather_rows([_gather_vocab(rl.row, _forward_row(rl, ids, cfg, m))
+                            for rl, ids, m in zip(_rows(params, cfg),
+                                                  split_rows(params.mesh, "token_ids",
+                                                             token_ids), masks)],
+                           params.device)
     return _forward(params, token_ids, cfg, attn_mask)
 
 
 def _forward(params: DecoderParams, token_ids: torch.Tensor, cfg: DecoderConfig,
              attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """forward, with autograd's graph when the parameters take gradients."""
-    b, s = token_ids.shape
-    x = params.tok_emb[token_ids.long()].to(cfg.dtype)
-    pos = torch.arange(s, device=x.device)
-    causal = pos[None, :, None] >= pos[None, None, :]   # (1, S, T)
-    if attn_mask is None:
-        allowed = causal.expand(b, s, s)
-    else:
-        allowed = causal & (attn_mask[:, None, :] > 0)
-    cos, sin = _rope_tables(pos, cfg.head_dim)
-    for lp in params.layers:
-        h = _layer_norm(x, lp.ln1_scale, lp.ln1_bias)
-        q, k, v = _qkv(h, lp)
-        q, k = _rope(q, cos, sin), _rope(k, cos, sin)
-        x = x + _attend(q, k, v, allowed, lp, cfg)
-        x = x + _ffn(_layer_norm(x, lp.ln2_scale, lp.ln2_bias), lp)
-    return _logits(params, x)
+    return _forward_row(_rows(params, cfg)[0], token_ids, cfg, attn_mask)[0]
 
 
 # ----------------------------------------------------------------- loss
-def lm_loss(params: DecoderParams, batch: Mapping[str, torch.Tensor],
+def lm_loss(params: "Params", batch: Mapping[str, torch.Tensor],
             cfg: DecoderConfig) -> torch.Tensor:
-    """Next-token CE masked to completion tokens.
+    """Next-token CE masked to completion tokens; on a ShardedDecoder the
+    batch split over 'data', the cross-entropy vocabulary-parallel, and the
+    masked sum over every row divided by the mask count of the whole batch.
 
     batch: ids (B, S) int, loss_mask (B, S) f32 -- mask[i, t] weights the
     prediction OF token t (from position t-1).
     """
+    if isinstance(params, ShardedDecoder):
+        return _tp_lm_loss(params, batch, cfg)
     ids, mask = batch["ids"], batch["loss_mask"]
     logits = _forward(params, ids[:, :-1], cfg,
                       attn_mask=(ids[:, :-1] != PAD_ID).to(torch.int32))
@@ -338,58 +486,36 @@ Cache = List[Tuple[torch.Tensor, torch.Tensor]]
 
 
 @torch.no_grad()
-def _prefill(params: DecoderParams, ids: torch.Tensor, pad_lens: torch.Tensor,
-             cfg: DecoderConfig) -> Tuple[torch.Tensor, Cache]:
+def _prefill(params: "Params", ids: torch.Tensor, pad_lens: torch.Tensor,
+             cfg: DecoderConfig, rows: Optional[List[_RowLayers]] = None
+             ) -> Tuple[torch.Tensor, Cache]:
     """LEFT-padded prompt (B, Pb) -> (last-position logits, KV cache).
 
     Cache buffers are (B, max_len, N, Dh) with prompt K/V in columns
-    [0, Pb); decode writes Pb, Pb+1, ...
+    [0, Pb); decode writes Pb, Pb+1, ... `rows`: _rows(params, cfg), made
+    here when None. A ShardedDecoder's: _tp_prefill.
     """
-    b, pb = ids.shape
-    pos = torch.arange(pb, device=ids.device)
-    valid = pos[None, :] >= pad_lens[:, None]           # (B, Pb)
-    causal = pos[None, :, None] >= pos[None, None, :]
-    allowed = causal & valid[:, None, :]
-    x = params.tok_emb[ids.long()].to(cfg.dtype)
-    cos, sin = _rope_tables(pos, cfg.head_dim)
-    cache: Cache = []
-    for lp in params.layers:
-        h = _layer_norm(x, lp.ln1_scale, lp.ln1_bias)
-        q, k, v = _qkv(h, lp)
-        q, k = _rope(q, cos, sin), _rope(k, cos, sin)
-        ck = torch.zeros((b, cfg.max_len, cfg.num_heads, cfg.head_dim),
-                         dtype=cfg.dtype, device=ids.device)
-        cv = torch.zeros_like(ck)
-        ck[:, :pb] = k
-        cv[:, :pb] = v
-        cache.append((ck, cv))
-        x = x + _attend(q, k, v, allowed, lp, cfg)
-        x = x + _ffn(_layer_norm(x, lp.ln2_scale, lp.ln2_bias), lp)
-    return _logits(params, x[:, -1, :]), cache
+    rows = rows or _rows(params, cfg)
+    if isinstance(params, ShardedDecoder):
+        return _tp_prefill(params, ids, pad_lens, cfg, rows)
+    logits, caches = _prefill_row(rows[0], ids, pad_lens, cfg)
+    return logits, [layer[0] for layer in caches]
 
 
 @torch.no_grad()
-def _decode_step(params: DecoderParams, tok: torch.Tensor, step_pos: int,
+def _decode_step(params: "Params", tok: torch.Tensor, step_pos: int,
                  pad_lens: torch.Tensor, cache: Cache, cfg: DecoderConfig,
-                 rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+                 rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                 rows: Optional[List[_RowLayers]] = None) -> torch.Tensor:
     """One token (B,) at absolute position step_pos -> logits (B, V); the
     step's K/V are written into `cache` in place. `rope`: _rope_tables of
-    arange(max_len), which generate makes once for all its steps."""
-    x = params.tok_emb[tok.long()][:, None, :].to(cfg.dtype)      # (B, 1, H)
-    tpos = torch.arange(cfg.max_len, device=tok.device)
-    key_ok = (tpos[None, :] >= pad_lens[:, None]) & (tpos[None, :] <= step_pos)
-    allowed = key_ok[:, None, :]                                  # (B, 1, T)
-    cos, sin = rope or _rope_tables(tpos, cfg.head_dim)
-    cos, sin = cos[step_pos:step_pos + 1], sin[step_pos:step_pos + 1]
-    for lp, (ck, cv) in zip(params.layers, cache):
-        h = _layer_norm(x, lp.ln1_scale, lp.ln1_bias)
-        q, k, v = _qkv(h, lp)
-        q, k = _rope(q, cos, sin), _rope(k, cos, sin)
-        ck[:, step_pos] = k[:, 0]
-        cv[:, step_pos] = v[:, 0]
-        x = x + _attend(q, ck, cv, allowed, lp, cfg)
-        x = x + _ffn(_layer_norm(x, lp.ln2_scale, lp.ln2_bias), lp)
-    return _logits(params, x[:, 0, :])
+    arange(max_len), and `rows`: _rows(params, cfg), which generate makes
+    once for all its steps. A ShardedDecoder's: _tp_decode_step."""
+    rows = rows or _rows(params, cfg)
+    if isinstance(params, ShardedDecoder):
+        return _tp_decode_step(params, tok, step_pos, pad_lens, cache, cfg, rope, rows)
+    return _decode_row(rows[0], tok, step_pos, pad_lens, [[kv] for kv in cache],
+                       cfg, _rope_at(rope, step_pos, cfg, tok.device))
 
 
 def _mask_unused(logits: torch.Tensor) -> torch.Tensor:
@@ -409,14 +535,18 @@ def _pick(logits: torch.Tensor, generator: Optional[torch.Generator],
 
 
 @torch.no_grad()
-def generate(params: DecoderParams, ids: torch.Tensor, pad_lens: torch.Tensor,
+def generate(params: "Params", ids: torch.Tensor, pad_lens: torch.Tensor,
              cfg: DecoderConfig, max_new: int, temperature: float = 0.0,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """(ids (B, Pb) left-padded, pad_lens (B,)) -> (B, max_new) int32 tokens,
     PAD after a row's EOS (EOS itself is not emitted), as the reference's
     compiled generator gives them. The loop ends early once every row is
-    done; the steps it skips would emit PAD only."""
-    logits, cache = _prefill(params, ids, pad_lens, cfg)
+    done; the steps it skips would emit PAD only. On a ShardedDecoder the
+    batch is split over 'data', each row's heads and KV cache over its
+    model shards, and each step's logits are gathered on the first device
+    before the pick, so greedy tokens are the unsharded ones."""
+    rows = _rows(params, cfg)
+    logits, cache = _prefill(params, ids, pad_lens, cfg, rows)
     pb = ids.shape[1]
     rope = _rope_tables(torch.arange(cfg.max_len, device=ids.device), cfg.head_dim)
     tok = _pick(logits, generator, temperature)
@@ -428,10 +558,101 @@ def generate(params: DecoderParams, ids: torch.Tensor, pad_lens: torch.Tensor,
             break
         emit = torch.where(done, PAD_ID, tok)
         out[:, i] = emit
-        logits = _decode_step(params, emit, pb + i, pad_lens, cache, cfg, rope)
+        logits = _decode_step(params, emit, pb + i, pad_lens, cache, cfg, rope, rows)
         tok = _pick(logits, generator, temperature)
         done = done | (tok == EOS_ID)
     return out
+
+
+# ------------------------------------------------- over a mesh (dp x tp)
+class ShardedDecoder(ShardedParams):
+    """The decoder's parameters placed on a (data, model) mesh by
+    param_pspecs (heads, FFN width and the tied vocabulary over 'model',
+    the layer norms replicated, one copy a data row), as the reference's
+    dry run places them by NamedSharding (__graft_entry__.py:229-233).
+    lm_loss, make_train_step, forward and generate take it where they take
+    DecoderParams: each data row's rows by tensor parallelism over its
+    devices (the vocabulary-parallel lookup, each shard's heads with its
+    part of attn_out and its KV cache, its FFN columns with its rows of
+    ffn_out, partial sums added in shard order; the tied logits split by
+    vocabulary). ValueError where the reference's device_put raises."""
+
+    def __init__(self, state: Mapping[str, torch.Tensor], cfg: DecoderConfig, mesh):
+        super().__init__(state, split_axes(param_pspecs(cfg)), mesh)
+        self.cfg = cfg
+
+    def to_params(self) -> DecoderParams:
+        """DecoderParams on the mesh's first device holding the gathered
+        parameters (taking no gradients)."""
+        params = DecoderParams(self.cfg, self.device)
+        params.load_state_dict(self.state_dict())
+        return params
+
+
+Params = Union[DecoderParams, ShardedDecoder]
+
+
+def _vocab_parallel_nll(row: Row, parts: Sequence[torch.Tensor],
+                        tgt: torch.Tensor) -> torch.Tensor:
+    """-log_softmax(logits)[tgt] from the logits' vocabulary shards: the
+    max and the sum of exps reduced over the shards in shard order on the
+    row's device (the max taken as a constant, which leaves the value and
+    the softmax gradient as they are), the target's logit from the shard
+    that holds it."""
+    dev = row.device
+    top = parts[0].detach().amax(-1).to(dev)
+    for p in parts[1:]:
+        top = torch.maximum(top, p.detach().amax(-1).to(dev))
+    sums, picked, lo = [], [], 0
+    for p, d in zip(parts, row.devices):
+        sums.append(torch.exp(p - top.to(d)[..., None]).sum(-1))
+        local, n = tgt.to(d) - lo, p.shape[-1]
+        got = torch.gather(p, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+        picked.append(torch.where((local >= 0) & (local < n), got,
+                                  torch.zeros((), dtype=got.dtype, device=d)))
+        lo += n
+    return top + torch.log(reduce_sum(sums, dev)) - reduce_sum(picked, dev)
+
+
+def _tp_lm_loss(params: ShardedDecoder, batch: Mapping[str, Any],
+                cfg: DecoderConfig) -> torch.Tensor:
+    total = count = None
+    for rl, ids, mask in zip(_rows(params, cfg), split_rows(params.mesh, "ids", batch["ids"]),
+                             split_rows(params.mesh, "loss_mask", batch["loss_mask"])):
+        parts = _forward_row(rl, ids[:, :-1], cfg,
+                             attn_mask=(ids[:, :-1] != PAD_ID).to(torch.int32))
+        nll = _vocab_parallel_nll(rl.row, parts, ids[:, 1:].long())
+        w = mask[:, 1:]
+        s_i, c_i = torch.sum(nll * w).to(params.device), torch.sum(w).to(params.device)
+        total = s_i if total is None else total + s_i
+        count = c_i if count is None else count + c_i
+    return total / torch.clamp_min(count, 1.0)
+
+
+@torch.no_grad()
+def _tp_prefill(params: ShardedDecoder, ids: torch.Tensor, pad_lens: torch.Tensor,
+                cfg: DecoderConfig, rows: List[_RowLayers]):
+    """_prefill over the mesh: (last-position logits (B, V) on the first
+    device, the cache: per data row, per layer, each shard's (k, v))."""
+    out = [_prefill_row(rl, ids_i, pad_i, cfg) for rl, ids_i, pad_i
+           in zip(rows, split_rows(params.mesh, "ids", ids),
+                  split_rows(params.mesh, "pad_lens", pad_lens))]
+    return gather_rows([logits for logits, _ in out], params.device), [c for _, c in out]
+
+
+@torch.no_grad()
+def _tp_decode_step(params: ShardedDecoder, tok: torch.Tensor, step_pos: int,
+                    pad_lens: torch.Tensor, cache, cfg: DecoderConfig,
+                    rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
+                    rows: List[_RowLayers]) -> torch.Tensor:
+    """_decode_step over the mesh: logits (B, V) on the first device; each
+    shard's K/V written into its cache in place."""
+    one = _rope_at(rope, step_pos, cfg, params.device)
+    return gather_rows([_decode_row(rl, tok_i, step_pos, pad_i, caches, cfg, one)
+                        for rl, tok_i, pad_i, caches
+                        in zip(rows, split_rows(params.mesh, "tok", tok),
+                               split_rows(params.mesh, "pad_lens", pad_lens), cache)],
+                       params.device)
 
 
 class DecoderLM:

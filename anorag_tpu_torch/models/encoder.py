@@ -16,6 +16,9 @@ cfg.param_dtype f32 and cfg.dtype bf16 the parameters are f32 masters and
 the forward casts every one of them (layer norms too) to bf16 at entry, as
 the reference's encode casts its tree; cfg.remat recomputes each block in
 the backward pass (torch.utils.checkpoint, the reference's jax.checkpoint).
+ShardedEncoder is the encoder placed on a (data, model) mesh by
+param_pspecs, its forward data x tensor parallel (parallel/
+tensor_parallel.py), the reference's sharded training step.
 """
 from __future__ import annotations
 
@@ -28,6 +31,9 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from anorag_tpu_torch.parallel.tensor_parallel import (Row, ShardedParams, broadcast,
+                                                       gather_rows, reduce_sum, split_axes,
+                                                       split_rows, vocab_parallel_lookup)
 from anorag_tpu_torch.training.optim import make_step
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -119,24 +125,53 @@ class EncoderLayer(nn.Module):
         self.ln2_scale = p(h, dtype=torch.float32)
         self.ln2_bias = p(h, dtype=torch.float32)
 
-    def _attention(self, x: torch.Tensor, mask: torch.Tensor, w) -> torch.Tensor:
-        qkv = torch.einsum("bsh,htnd->tbsnd", x, w["qkv"]) + w["qkv_b"][:, None, None]
-        q, k, v = qkv[0], qkv[1], qkv[2]                      # (B, S, N, Dh)
-        logits = torch.einsum("bsnd,btnd->bnst", q, k).float()
-        logits = logits / math.sqrt(self.cfg.head_dim)
-        neg = torch.finfo(torch.float32).min
-        logits = logits.masked_fill(~(mask[:, None, None, :] > 0), neg)
-        probs = torch.softmax(logits, dim=-1).to(x.dtype)
-        ctx = torch.einsum("bnst,btnd->bsnd", probs, v)
-        return torch.einsum("bsnd,ndh->bsh", ctx, w["attn_out"]) + w["attn_out_b"]
-
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         w = {name: _compute(getattr(self, name), self.cfg) for name in _LAYER_PARAMS}
-        x = _layer_norm(x + self._attention(x, mask, w), w["ln1_scale"], w["ln1_bias"])
-        ff = torch.matmul(x, w["ffn_in"]) + w["ffn_in_b"]
-        ff = torch.nn.functional.gelu(ff, approximate="none")  # erf GELU
-        ff = torch.matmul(ff, w["ffn_out"]) + w["ffn_out_b"]
+        x = _layer_norm(x + (_attention_part(x, mask, w["qkv"], w["qkv_b"],
+                                             w["attn_out"], self.cfg) + w["attn_out_b"]),
+                        w["ln1_scale"], w["ln1_bias"])
+        ff = _ffn_part(x, w["ffn_in"], w["ffn_in_b"], w["ffn_out"]) + w["ffn_out_b"]
         return _layer_norm(x + ff, w["ln2_scale"], w["ln2_bias"])
+
+
+def _attention_part(x: torch.Tensor, mask: torch.Tensor, qkv: torch.Tensor,
+                    qkv_b: torch.Tensor, attn_out: torch.Tensor,
+                    cfg: EncoderConfig) -> torch.Tensor:
+    """Self-attention over the heads of qkv (h, 3, n, dh) and attn_out
+    (n, dh, h), without the output bias: all heads, or one model shard's
+    heads, whose partial results sum to the whole."""
+    qkv = torch.einsum("bsh,htnd->tbsnd", x, qkv) + qkv_b[:, None, None]
+    q, k, v = qkv[0], qkv[1], qkv[2]                      # (B, S, N, Dh)
+    logits = torch.einsum("bsnd,btnd->bnst", q, k).float()
+    logits = logits / math.sqrt(cfg.head_dim)
+    neg = torch.finfo(torch.float32).min
+    logits = logits.masked_fill(~(mask[:, None, None, :] > 0), neg)
+    probs = torch.softmax(logits, dim=-1).to(x.dtype)
+    ctx = torch.einsum("bnst,btnd->bsnd", probs, v)
+    return torch.einsum("bsnd,ndh->bsh", ctx, attn_out)
+
+
+def _ffn_part(x: torch.Tensor, ffn_in: torch.Tensor, ffn_in_b: torch.Tensor,
+              ffn_out: torch.Tensor) -> torch.Tensor:
+    """The FFN without its output bias, over all its columns or one model
+    shard's (ffn_in (h, f), ffn_out (f, h))."""
+    ff = torch.matmul(x, ffn_in) + ffn_in_b
+    ff = torch.nn.functional.gelu(ff, approximate="none")  # erf GELU
+    return torch.matmul(ff, ffn_out)
+
+
+def _pool(x: torch.Tensor, mask: torch.Tensor, cfg: EncoderConfig) -> torch.Tensor:
+    """(B, L, H) -> (B, H) f32: cls or mean pooling, L2-normalized when
+    cfg.normalize."""
+    if cfg.pooling == "mean":
+        m = mask[:, :, None].float()
+        pooled = (x.float() * m).sum(dim=1) / m.sum(dim=1).clamp_min(1.0)
+    else:
+        pooled = x[:, 0, :].float()
+    if cfg.normalize:
+        pooled = pooled / torch.linalg.vector_norm(
+            pooled, dim=-1, keepdim=True).clamp_min(1e-9)
+    return pooled
 
 
 class Encoder(nn.Module):
@@ -183,15 +218,7 @@ class Encoder(nn.Module):
                 x = torch.utils.checkpoint.checkpoint(lp, x, mask, use_reentrant=False)
             else:
                 x = lp(x, mask)
-        if cfg.pooling == "mean":
-            m = mask[:, :, None].float()
-            pooled = (x.float() * m).sum(dim=1) / m.sum(dim=1).clamp_min(1.0)
-        else:
-            pooled = x[:, 0, :].float()
-        if cfg.normalize:
-            pooled = pooled / torch.linalg.vector_norm(
-                pooled, dim=-1, keepdim=True).clamp_min(1e-9)
-        return pooled
+        return _pool(x, mask, cfg)
 
 
 @torch.no_grad()
@@ -277,14 +304,96 @@ def param_pspecs(cfg: EncoderConfig, model_axis: str = "model") -> Dict[str, Any
     }
 
 
+# ---------------------------------------------------- over a mesh (dp x tp)
+class ShardedEncoder(ShardedParams):
+    """The encoder's parameters placed on a (data, model) mesh by
+    param_pspecs (the reference's device_put by NamedSharding, models/
+    train.py:67-73): heads, the FFN width and the vocabulary split over
+    'model', the rest replicated, one copy a data row. Called as the
+    Encoder is, (ids, mask) -> (B, H) f32 embeddings on the mesh's first
+    device: the batch split over 'data', each row's rows encoded by tensor
+    parallelism over its devices
+    (the vocabulary-parallel lookup; each shard's heads with its part of
+    attn_out, and its FFN columns with its rows of ffn_out, the partial
+    sums added in shard order and each bias added once after the sum),
+    then gathered in row order. With cfg.remat each shard's attention and
+    FFN and each residual layer norm is recomputed in the backward pass, a
+    piece on one device at a time. ValueError where the reference's
+    device_put raises: a split axis or the batch not divisible."""
+
+    def __init__(self, state: Mapping[str, torch.Tensor], cfg: EncoderConfig, mesh):
+        super().__init__(state, split_axes(param_pspecs(cfg)), mesh)
+        self.cfg = cfg
+
+    def __call__(self, token_ids, mask) -> torch.Tensor:
+        ids_rows = split_rows(self.mesh, "token_ids", token_ids)
+        mask_rows = split_rows(self.mesh, "mask", mask)
+        return gather_rows([self._encode(row, ids.long(), m) for row, ids, m
+                            in zip(self.rows, ids_rows, mask_rows)], self.device)
+
+    def _encode(self, row: Row, token_ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        cfg, rep = self.cfg, row.rep
+        s = token_ids.shape[1]
+        x = (vocab_parallel_lookup(row.tables("tok_emb"), token_ids, row.devices,
+                                   row.device, cfg.dtype)
+             + _compute(rep["pos_emb"][:s], cfg)[None, :, :])
+        x = _layer_norm(x.to(cfg.dtype), _compute(rep["emb_ln_scale"], cfg),
+                        _compute(rep["emb_ln_bias"], cfg))
+        masks = [mask.to(d) for d in row.devices]
+        remat = cfg.remat and torch.is_grad_enabled()
+
+        def run(fn, *args):
+            if remat:
+                return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+            return fn(*args)
+
+        def attention(xj, mj, qkv, qkv_b, attn_out):
+            return _attention_part(xj, mj, _compute(qkv, cfg), _compute(qkv_b, cfg),
+                                   _compute(attn_out, cfg), cfg)
+
+        def ffn(xj, ffn_in, ffn_in_b, ffn_out):
+            return _ffn_part(xj, _compute(ffn_in, cfg), _compute(ffn_in_b, cfg),
+                             _compute(ffn_out, cfg))
+
+        def add_norm(x, y, b, scale, bias):
+            return _layer_norm(x + (y + _compute(b, cfg)), _compute(scale, cfg),
+                               _compute(bias, cfg))
+
+        for i in range(cfg.num_layers):
+            pre = f"layers.{i}."
+            y = reduce_sum([run(attention, xj, mj, sh[pre + "qkv"], sh[pre + "qkv_b"],
+                                sh[pre + "attn_out"])
+                            for xj, mj, sh in zip(broadcast(x, row.devices), masks,
+                                                  row.shards)], row.device)
+            x = run(add_norm, x, y, rep[pre + "attn_out_b"], rep[pre + "ln1_scale"],
+                    rep[pre + "ln1_bias"])
+            y = reduce_sum([run(ffn, xj, sh[pre + "ffn_in"], sh[pre + "ffn_in_b"],
+                                sh[pre + "ffn_out"])
+                            for xj, sh in zip(broadcast(x, row.devices), row.shards)],
+                           row.device)
+            x = run(add_norm, x, y, rep[pre + "ffn_out_b"], rep[pre + "ln2_scale"],
+                    rep[pre + "ln2_bias"])
+        return _pool(x, mask, cfg)
+
+    def to_encoder(self) -> Encoder:
+        """An Encoder on the mesh's first device holding the gathered
+        parameters (taking no gradients)."""
+        model = Encoder(self.cfg, self.device)
+        model.load_state_dict(self.state_dict())
+        return model
+
+
 # ------------------------------------------------------------- training
 def info_nce_loss(params: Encoder, batch: Mapping[str, torch.Tensor],
                   cfg: Optional[EncoderConfig] = None,
                   temperature: float = 0.05) -> torch.Tensor:
     """Contrastive loss: query i matches positive i, in-batch negatives;
     the mean of the row-wise and the column-wise -log_softmax diagonal,
-    times 0.5. `params` is the Encoder; cfg is taken for the reference's
-    signature (the model carries its own)."""
+    times 0.5. `params` is the Encoder or a ShardedEncoder (whose q and
+    p embeddings of every data row are gathered on the mesh's first device
+    first, so the negatives span the whole batch, as the reference's
+    global loss); cfg is taken for the reference's signature (the model
+    carries its own)."""
     q = params(batch["q_ids"], batch["q_mask"])
     p = params(batch["p_ids"], batch["p_mask"])
     logits = torch.matmul(q, p.T) / temperature                  # (B, B)

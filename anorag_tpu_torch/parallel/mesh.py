@@ -10,7 +10,9 @@ process group: a Mesh is a grid of torch.devices, a shard's body runs on
 the first device of its 'data' row, and its results are gathered on the
 mesh's first device (parallel/sharded_search.py). A device may appear more
 than once, so one card (or the CPU) can carry several shards; a mesh over
-one device is the 'on' mode of parallel/runtime.py.
+one device is the 'on' mode of parallel/runtime.py. Training over a mesh
+(parameters split over 'model', batches over 'data') is
+parallel/tensor_parallel.py.
 """
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from anorag_tpu_torch.device import DeviceLike, resolve_device
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -56,6 +60,17 @@ class Mesh:
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, devices={[str(d) for d in self.distinct_devices()]})"
+
+
+def visible_devices(device: DeviceLike = None, n: Optional[int] = None) -> List[torch.device]:
+    """The devices a mesh over `device`'s kind takes (cuda unless asked
+    for the CPU, as resolve_device picks): every visible card, or the CPU
+    once; with `n`, n entries that cycle through them, so a mesh of n
+    entries repeats a device where fewer are visible."""
+    dev = resolve_device(device)
+    pool = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+            if dev.type == "cuda" else [dev])
+    return pool if n is None else [pool[i % len(pool)] for i in range(n)]
 
 
 def make_mesh(

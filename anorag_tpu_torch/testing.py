@@ -492,22 +492,26 @@ NOTE_LM_TPU_LARGE = {"vocab_size": 384, "hidden_size": 384, "num_layers": 6,
 
 
 def decoder_parity(params, b: int, steps: int = 64, pb: int = 256, seed: int = 0,
-                   atol: float = 1e-4, margin: float = 1e-3) -> dict:
-    """The decoder on params' device against the same weights on the CPU:
-    b seeded prompts left-padded to pb, prefill and `steps` decode steps,
-    each fed the CPU's emitted token; every step's logits finite and within
-    `atol`; then generate's greedy tokens on the device equal to the CPU's,
-    each row up to its first step whose top-2 margin on the CPU is under
-    `margin` (an f32 rounding difference may pick the other token there).
-    Raises AssertionError; returns max_abs_err, the steps compared (the
-    least over rows) and the rows cut short by a near tie."""
+                   atol: float = 1e-4, margin: float = 1e-3, reference=None) -> dict:
+    """The decoder `params` (DecoderParams or a ShardedDecoder) against
+    `reference`, DecoderParams of the same weights (a copy on the CPU when
+    None): b seeded prompts left-padded to pb, prefill and `steps` decode
+    steps, each fed the reference's emitted token; every step's logits
+    finite and within `atol`; then generate's greedy tokens equal to the
+    reference's, each row up to its first step whose top-2 margin in the
+    reference is under `margin` (an f32 rounding difference may pick the
+    other token there). Raises AssertionError; returns max_abs_err, the
+    steps compared (the least over rows) and the rows cut short by a near
+    tie."""
     import torch
 
     from anorag_tpu_torch.models import decoder_lm as dlm
 
     cfg = params.cfg
-    host = dlm.DecoderParams(cfg, torch.device("cpu"))
-    host.load_state_dict(params.state_dict())
+    host = reference
+    if host is None:
+        host = dlm.DecoderParams(cfg, torch.device("cpu"))
+        host.load_state_dict(params.state_dict())
     rng = np.random.default_rng(seed)
     lens = rng.integers(pb // 4, pb + 1, b)
     ids = np.full((b, pb), dlm.PAD_ID, np.int32)
@@ -515,13 +519,13 @@ def decoder_parity(params, b: int, steps: int = 64, pb: int = 256, seed: int = 0
         ids[i, pb - n] = dlm.BOS_ID
         ids[i, pb - n + 1:] = rng.integers(dlm._BYTE0 + 32, dlm._BYTE0 + 127, n - 1)
     pad = (pb - lens).astype(np.int32)
-    ids_h, pad_h = torch.from_numpy(ids), torch.from_numpy(pad)
+    ids_h, pad_h = torch.from_numpy(ids).to(host.device), torch.from_numpy(pad).to(host.device)
     ids_c, pad_c = ids_h.to(params.device), pad_h.to(params.device)
     err = 0.0
 
     def check(got, want, what):
         nonlocal err
-        got = got.cpu()
+        got, want = got.cpu(), want.cpu()
         if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
             raise AssertionError(f"decoder {what}: logits not finite")
         err = max(err, float((got - want).abs().max()))
@@ -532,11 +536,11 @@ def decoder_parity(params, b: int, steps: int = 64, pb: int = 256, seed: int = 0
     lc, cache_c = dlm._prefill(params, ids_c, pad_c, cfg)
     check(lc, lh, f"prefill at ({b}, {pb})")
     emitted, cut = [], np.full(b, steps)
-    done = torch.zeros(b, dtype=torch.bool)
+    done = torch.zeros(b, dtype=torch.bool, device=host.device)
     for i in range(steps):
         masked = dlm._mask_unused(lh)
         top2 = masked.topk(2, dim=-1).values
-        near = ((top2[:, 0] - top2[:, 1]) < margin).numpy()
+        near = ((top2[:, 0] - top2[:, 1]) < margin).cpu().numpy()
         cut = np.where(near & (cut == steps), i, cut)
         tok = masked.argmax(-1).to(torch.int32)
         done |= tok == dlm.EOS_ID
@@ -546,7 +550,7 @@ def decoder_parity(params, b: int, steps: int = 64, pb: int = 256, seed: int = 0
         lc = dlm._decode_step(params, emit.to(params.device), pb + i, pad_c, cache_c, cfg)
         check(lc, lh, f"decode step {i} at ({b}, {pb})")
     got = dlm.generate(params, ids_c, pad_c, cfg, steps).cpu()
-    want = torch.stack(emitted, 1)
+    want = torch.stack(emitted, 1).cpu()
     for r in range(b):
         if not torch.equal(got[r, :cut[r]], want[r, :cut[r]]):
             raise AssertionError(f"decoder greedy tokens differ in row {r} of {b} "

@@ -6,7 +6,8 @@ lines and report:
     python -m anorag_tpu_torch.train_retrieval_encoder [--out checkpoints/encoder_synth_small] \
         [--train-worlds 2000] [--eval-worlds 500] [--steps 600] [--batch 128] \
         [--hidden 256] [--layers 4] [--heads 8] [--ffn 1024] [--vocab 8192] \
-        [--lr 3e-4] [--remat] [--f32-params] [--warmup 100] [--device cuda]
+        [--lr 3e-4] [--remat] [--f32-params] [--warmup 100] [--device cuda] \
+        [--devices N]
 
 Data: synthetic MuSiQue-style worlds (scripts/gen_synth_musique.py's
 templates, loaded by path). Training pairs are (question-surface query,
@@ -18,7 +19,11 @@ saves the weights at the inference dtypes (bf16 weights, f32 layer norms).
 The checkpoint is the encoder's state dict written with torch.save to
 --out, the file embedding.checkpoint_path reads (the reference writes an
 orbax directory there), and <out>_report.json beside it holds the
-reference's keys. --device: cuda (the default) or cpu.
+reference's keys. --device: cuda (the default) or cpu, where training runs.
+--devices N trains data parallel over a mesh of N entries that take the
+visible devices in turn, repeating a device where fewer are visible. The
+reference trains over every chip it sees; here a mesh over several cards is
+slower than one card (PERF.md §6), so the default is the one device.
 """
 from __future__ import annotations
 
@@ -108,12 +113,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                          "masters round adamw updates to zero)")
     ap.add_argument("--warmup", type=int, default=100)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--devices", type=int, default=None,
+                    help="mesh entries, taken from the visible devices in turn (default: "
+                         "the one device; several cards are slower than one for now)")
     args = ap.parse_args(argv)
 
     from anorag_tpu_torch.models import encoder as enc
     from anorag_tpu_torch.models.hash_embedder import HashEmbedder
     from anorag_tpu_torch.models.tokenizer import HashTokenizer
-    from anorag_tpu_torch.models.train import EncoderTrainer
+    from anorag_tpu_torch.models.train import EncoderTrainer, save_state_dict
+    from anorag_tpu_torch.parallel.mesh import visible_devices
     from anorag_tpu_torch.training.optim import linear_schedule
 
     cfg = enc.EncoderConfig(
@@ -136,9 +145,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     r_hash = recall_at_k(hash_emb.encode(queries), hash_emb.encode(eval_corpus), gold)
 
     lr_sched = linear_schedule(0.0, args.lr, max(args.warmup, 1))
-    trainer = EncoderTrainer(cfg=cfg, learning_rate=lr_sched, device=args.device)
-    r_random = recall_at_k(embed(trainer.model, tok, queries),
-                           embed(trainer.model, tok, eval_corpus), gold)
+    trainer = EncoderTrainer(cfg=cfg, learning_rate=lr_sched,
+                             devices=(visible_devices(args.device, args.devices)
+                                      if args.devices else [args.device]))
+    initial = trainer.model
+    r_random = recall_at_k(embed(initial, tok, queries), embed(initial, tok, eval_corpus),
+                           gold)
+    del initial
     print(f"recall@10 random-init encoder: {r_random:.4f}", flush=True)
     print(f"recall@10 hash embedder:       {r_hash:.4f}", flush=True)
 
@@ -153,8 +166,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     print(f"trained {len(hist)} steps in {dt:.0f}s "
           f"(loss {hist[0]:.3f} -> {hist[-1]:.3f})", flush=True)
 
-    r_trained = recall_at_k(embed(trainer.model, tok, queries),
-                            embed(trainer.model, tok, eval_corpus), gold)
+    trained = trainer.model
+    r_trained = recall_at_k(embed(trained, tok, queries), embed(trained, tok, eval_corpus),
+                            gold)
     print(f"recall@10 trained encoder:     {r_trained:.4f}", flush=True)
 
     out = Path(args.out)
@@ -170,9 +184,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             intermediate_size=cfg.intermediate_size,
             max_position=cfg.max_position, pooling=cfg.pooling)
         shipped = enc.Encoder(ref_cfg, trainer.device)
-        shipped.load_state_dict(trainer.model.state_dict())
-        trainer.model = shipped
-    ok = trainer.save_checkpoint(out.resolve())
+        shipped.load_state_dict(trainer.state_dict())
+        ok = save_state_dict(shipped.state_dict(), out.resolve())
+    else:
+        ok = trainer.save_checkpoint(out.resolve())
     report = {
         "config": {"vocab": cfg.vocab_size, "hidden": cfg.hidden_size,
                    "layers": cfg.num_layers, "heads": cfg.num_heads,

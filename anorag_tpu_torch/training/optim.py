@@ -26,6 +26,8 @@ from typing import Any, Callable, Iterable, List, Mapping, Optional, Union
 import numpy as np
 import torch
 
+from anorag_tpu_torch.parallel.tensor_parallel import ShardedParams
+
 Schedule = Callable[[int], float]
 ScalarOrSchedule = Union[float, Schedule]
 
@@ -107,16 +109,22 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_st
 
 def clip_by_global_norm(max_norm: float) -> Callable[[Iterable[torch.Tensor]], None]:
     """optax.clip_by_global_norm(max_norm) as a function that clips the
-    .grad of each parameter given, in place, with no host sync."""
+    .grad of each parameter given, in place, with no host sync. The
+    parameters may lie on several devices (a ShardedParams' masters: each
+    replicated parameter once, each shard of a split one); the squares
+    are summed on the first one's."""
 
     def clip(params: Iterable[torch.Tensor]) -> None:
         grads: List[torch.Tensor] = [p.grad for p in params if p.grad is not None]
         if not grads:
             return
-        norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+        # over devices: each tensor's sum of squares added on the first's
+        dev = grads[0].device
+        norm = torch.sqrt(sum(torch.sum(g.float() ** 2).to(dev) for g in grads))
         keep = norm < max_norm
         for g in grads:
-            g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * max_norm))
+            g.copy_(torch.where(keep.to(g.device), g,
+                                g / norm.to(g.device, g.dtype) * max_norm))
 
     return clip
 
@@ -128,14 +136,24 @@ def make_step(loss_fn: Callable[[torch.nn.Module, Mapping[str, Any]], torch.Tens
     loss_fn(params, batch)'s gradients, `clip` applied to them (as optax
     chains clip_by_global_norm before adamw), one optimizer step in place,
     which keeps each parameter's dtype. The optimizer holds its own state,
-    so opt_state passes through."""
+    so opt_state passes through. `params` may be a ShardedParams (the
+    optimizer over its masters): each data row's gradients are summed onto
+    the masters in row order before the clip and the step, and the stepped
+    masters are copied to the other rows after it."""
     def train_step(params, opt_state, batch):
+        sharded = isinstance(params, ShardedParams)
+        if sharded:
+            params.zero_grad()
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(params, batch)
         loss.backward()
+        if sharded:
+            params.reduce_grads()
         if clip is not None:
             clip(list(params.parameters()))
         optimizer.step()
+        if sharded:
+            params.broadcast_masters()
         return params, opt_state, loss.detach()
 
     return train_step

@@ -316,7 +316,26 @@ Phases, each printing its seconds:
                 clustering, clustering.json included), with times and
                 peak device memory; the two kernels' launches on the
                 sharded path counted from 0 and added to the kernel line;
-  21. scripts -- the repo's index and evaluation scripts as the port's
+  21. multichip -- data- and tensor-parallel training over a mesh of
+                several devices, its entries taken in turn from the visible
+                cards (one card: the card repeated): the encoder's InfoNCE
+                step at encoder_synth_full's shape (f32 masters, bf16,
+                remat, 128 pairs) on a 1x1 mesh, then on 2x2, 4x1 and 1x4
+                meshes from the same weights and batch, each held to the
+                1x1 step (loss rtol 2e-2, gradients to a relative norm of
+                2e-2), timed beside it and its bound, with peak memory by
+                card; a second 2x2 run bit-equal to the first (with more
+                than one card, also the 2x2 mesh over the first card
+                alone); the decoder at note_lm_tpu_large's shape, a clipped
+                step on a 2x2 mesh held to the 1x1 step (loss rtol 1e-4,
+                parameters atol 1e-5 but Adam's noise elements) and greedy
+                generation held to the 1x1 set's (testing.decoder_parity);
+                train_retrieval_encoder --devices 4 and train_encoder
+                --model-parallel 2 --devices 4, each checkpoint read by
+                EmbeddingManager.load_checkpoint; the dry run (the main
+                of python -m anorag_tpu_torch.dryrun_multichip --devices
+                4, in-process: its five parts, one summary line);
+  22. scripts -- the repo's index and evaluation scripts as the port's
                 CLIs, in-process: rebuild_vector_index over phase offline's
                 atomic_notes.json (27,557 notes) at the config's encoder
                 (24 layers, hidden 1024, bf16, vocab 250,002, seeded) and
@@ -4336,6 +4355,408 @@ def _sharded_phase(dev, qp, em, notes, requests, top_k: int, seed: int,
     return {"dense_topk": dense_launches, "segment_totals": totals_launches}
 
 
+# the multichip phase: data- and tensor-parallel training over a mesh of
+# several devices, its entries taken in turn from the visible cards (one
+# card: the card repeated)
+MULTI_MESHES = ((2, 2), (4, 1), (1, 4))   # (data, model) meshes of the full-width step
+MULTI_LR = 1e-4
+# a sharded bf16 step against the (1, 1) step: the loss to this rtol and
+# the gradients, as one vector, to this relative norm (bf16 partial sums
+# and per-row matmuls round at other points; encoder_step_parity's bound)
+MULTI_TOL = 2e-2
+# the step's update (parameters after it less before), as one vector, to
+# this relative norm of the 1x1 step's: Adam's first step moves an element
+# by about lr times its gradient's sign, so an update not applied is 1 off
+# and one of the wrong sign 2; bf16 flips the sign of some near-zero
+# gradients (2 lr each)
+MULTI_UPDATE_TOL = 0.5
+MULTI_NOTES = 256              # phase offline's notes that train_encoder trains on here
+# train_retrieval_encoder --devices 4 at its default (small) geometry
+MULTI_CLI_CUT = ["--train-worlds", "40", "--eval-worlds", "20", "--steps", "4",
+                 "--batch", "64", "--warmup", "2"]
+MULTI_GEN_STEPS = 32           # greedy decode steps held to the (1, 1) decoder's
+
+
+def _sync_all() -> None:
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _step_ms(step, reps: int = TRAIN_TIMED_STEPS) -> float:
+    """Median host ms of step() between synchronisations of every card
+    (after a warm call made by the caller)."""
+    times = []
+    for _ in range(reps):
+        _sync_all()
+        t0 = time.perf_counter()
+        step()
+        _sync_all()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def _busy_by_card(step) -> str:
+    """One step() under torch.profiler: its wall ms and each card's busy
+    ms (the union of its kernels' intervals, from the raw kineto events)
+    and idle share, as a line's text."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.autograd.DeviceType.CUDA
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _sync_all()
+        t0 = time.perf_counter()
+        step()
+        _sync_all()
+        wall = 1e3 * (time.perf_counter() - t0)
+    spans: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            spans.setdefault(e.device_index(), []).append((e.start_ns(), e.end_ns()))
+    busy = {i: _union_ms(v, 1e6) for i, v in sorted(spans.items())}
+    return (f"profiled step {wall:.1f} ms, device busy by card "
+            + ", ".join(f"cuda:{i} {ms:.1f} ms (idle {1 - ms / wall:.3f})"
+                        for i, ms in busy.items()))
+
+
+def _peaks_gb(devices) -> list:
+    import torch
+
+    return [round(torch.cuda.max_memory_allocated(d) / 1e9, 2) for d in devices]
+
+
+def _reset_peaks(devices) -> None:
+    import torch
+
+    for d in devices:
+        torch.cuda.reset_peak_memory_stats(d)
+
+
+def _rise_gb(device, held: int) -> float:
+    """GB by which `device`'s peak since the last reset rose above `held`
+    bytes (what was allocated at the reset)."""
+    import torch
+
+    return round((torch.cuda.max_memory_allocated(device) - held) / 1e9, 2)
+
+
+def _multichip_encoder(dev, seed: int, smi_line: str) -> None:
+    """(a) the encoder's InfoNCE step at ENCODER_FULL's shape (f32 masters,
+    bf16 compute, remat, ENCODER_BATCH pairs): the (1, 1) step of the
+    Encoder, then a ShardedEncoder step on a (1, 1) mesh (its bits, time
+    and peak memory against the Encoder's, reported) and on each mesh of
+    MULTI_MESHES (and, with more than one card, the (2, 2) mesh over the
+    first card alone, which must give the distinct cards' bits) from the
+    same weights and batch, held to the Encoder's step: loss and gradients
+    within MULTI_TOL, the update within MULTI_UPDATE_TOL; each timed; a
+    second (2, 2) run bit-equal to the first."""
+    import torch
+
+    from anorag_tpu_torch import train_retrieval_encoder as tre
+    from anorag_tpu_torch.models import encoder as enc
+    from anorag_tpu_torch.models.tokenizer import HashTokenizer
+    from anorag_tpu_torch.models.train import make_pair_batches
+    from anorag_tpu_torch.parallel.mesh import make_mesh, visible_devices
+    from anorag_tpu_torch.training.optim import adamw
+
+    cfg = enc.EncoderConfig(**ENCODER_FULL, dtype=torch.bfloat16, param_dtype=torch.float32,
+                            remat=True)
+    tok = HashTokenizer(cfg.vocab_size, cfg.max_position)
+    pairs, _ = tre.make_world_pairs(ENCODER_BATCH // 7 + 1, seed=0)
+    batch = next(make_pair_batches([(q, p) for q, p, _ in pairs], tok, ENCODER_BATCH,
+                                   cfg.max_position, seed=0))
+    b, s = batch["q_ids"].shape
+    batch = {k: torch.from_numpy(v).to(dev, torch.long if k.endswith("ids") else torch.int32)
+             for k, v in batch.items()}
+    state = enc.Encoder(cfg, dev).init_random(
+        torch.Generator(device=dev).manual_seed(seed)).state_dict()
+    names = list(state)
+    n_params = sum(v.numel() for v in state.values())
+    bound = _step_bound(_encoder_step_flops(cfg, b, s, True), BF16_OPS_PER_S, n_params, 28)[0]
+    bound_plain = _step_bound(_encoder_step_flops(cfg, b, s, False), BF16_OPS_PER_S,
+                              n_params, 28)[0]
+
+    model = enc.Encoder(cfg, dev)
+    model.load_state_dict(state)
+    model.requires_grad_(True)
+    step = enc.make_train_step(cfg, adamw(model.parameters(), MULTI_LR, weight_decay=0.01))
+    _reset_peaks([dev])
+    held = torch.cuda.memory_allocated(dev)
+    want_loss = float(step(model, None, batch)[2])
+    base_peak, base_rise = _peaks_gb([dev]), _rise_gb(dev, held)
+    grads = dict(model.named_parameters())
+    want_grad = torch.cat([grads[n].grad.flatten().float() for n in names])
+    before = torch.cat([state[n].flatten() for n in names])
+    want_after = torch.cat([grads[n].detach().flatten() for n in names])
+    want_update = want_after - before
+    base_ms = _step_ms(lambda: step(model, None, batch))
+    print(f"multichip: encoder step on a 1x1 mesh ({cfg.num_layers} layers, "
+          f"{cfg.hidden_size} wide, {b} pairs x {s}, f32 masters, bf16 compute, remat): "
+          f"{base_ms:.1f} ms; bound {bound:.1f} ms ({bound_plain:.1f} without the "
+          f"recompute); loss {want_loss:.6f}; peak memory {base_peak} GB; "
+          f"{_busy_by_card(lambda: step(model, None, batch))} | {smi_line}", flush=True)
+    del model, step, grads
+    torch.cuda.empty_cache()
+
+    cards = visible_devices(dev.type)
+    runs = [((1, 1), [dev])] + [(shape, visible_devices(dev.type, 4))
+                                for shape in MULTI_MESHES]
+    if len(cards) > 1:
+        runs.append(((2, 2), [cards[0]] * 4))
+    first = None             # (loss, parameters after the step) of the first (2, 2) run
+    for (d, m), devices in runs + [((2, 2), visible_devices(dev.type, 4))]:
+        mesh = make_mesh(model_parallel=m, devices=devices)
+        if mesh.shape != {"data": d, "model": m}:
+            raise AssertionError(f"a {d}x{m} mesh came out {mesh.shape}")
+        distinct = mesh.distinct_devices()
+        params = enc.ShardedEncoder(state, cfg, mesh)
+        step = enc.make_train_step(cfg, adamw(params.parameters(), MULTI_LR,
+                                              weight_decay=0.01))
+        _sync_all()
+        _reset_peaks(distinct)
+        held = torch.cuda.memory_allocated(distinct[0])
+        t0 = time.perf_counter()
+        loss = float(step(params, None, batch)[2])
+        _sync_all()
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        rise = _rise_gb(distinct[0], held)
+        after = torch.cat([t.flatten() for t in params.state_dict().values()])
+        where = f"a {d}x{m} mesh over {[str(x) for x in distinct]}"
+        update_err = float((after - before - want_update).norm() / want_update.norm())
+        if (d, m) != (2, 2):
+            pass
+        elif first is None:
+            first = (loss, after)
+        else:
+            if loss != first[0] or not torch.equal(after, first[1]):
+                raise AssertionError(f"the (2, 2) step on {where} is not bit-equal to the "
+                                     f"first (2, 2) run's: loss {loss} against {first[0]}")
+            print(f"multichip: the (2, 2) step on {where} bit-equal to the first (2, 2) "
+                  f"run's (loss and every parameter after the step)", flush=True)
+            del params, step, after
+            torch.cuda.empty_cache()
+            continue
+        g = params.grad_dict()
+        got_grad = torch.cat([g[n].flatten().float() for n in names])
+        del g
+        loss_err = abs(loss - want_loss) / abs(want_loss)
+        grad_err = float((got_grad - want_grad).norm() / want_grad.norm())
+        bits = (loss == want_loss, torch.equal(got_grad, want_grad),
+                torch.equal(after, want_after))
+        del got_grad
+        if loss_err > MULTI_TOL or grad_err > MULTI_TOL or update_err > MULTI_UPDATE_TOL:
+            raise AssertionError(f"encoder step on {where}: loss {loss} against the 1x1 "
+                                 f"step's {want_loss}, gradients off by {grad_err:.3g}, "
+                                 f"the update by {update_err:.3g} (relative norms)")
+        ms = _step_ms(lambda: step(params, None, batch))
+        if (d, m) == (1, 1):
+            print(f"multichip: the ShardedEncoder's step on {where} against the Encoder's "
+                  f"1x1 step: {ms:.1f} ms against {base_ms:.1f}; the first step's peak "
+                  f"{rise} GB above what was held before it, against {base_rise}; bit-equal (loss, gradients, parameters after the "
+                  f"step): {bits}; loss rel err {loss_err:.3g}, gradients off by "
+                  f"{grad_err:.3g}, the update by {update_err:.3g} (relative norms), "
+                  f"parameters after the step by "
+                  f"{float((after - want_after).abs().max()):.3g} at most | {smi_line}",
+                  flush=True)
+            del params, step, after
+            torch.cuda.empty_cache()
+            continue
+        n = len(distinct)
+        print(f"multichip: encoder step on {where}: {ms:.1f} ms (first {first_ms:.1f}; the "
+              f"1x1 step {base_ms:.1f} ms, x{ms / base_ms:.2f}; bound {bound / n:.1f} ms "
+              f"over {n} card(s), {bound_plain / n:.1f} without the recompute); loss "
+              f"{loss:.6f} (rel err {loss_err:.3g}), gradients off by {grad_err:.3g} "
+              f"(relative norm, <= {MULTI_TOL}), the update by {update_err:.3g} (<= "
+              f"{MULTI_UPDATE_TOL}); peak memory by card {_peaks_gb(distinct)} "
+              f"GB; {_busy_by_card(lambda: step(params, None, batch))} | {smi_line}",
+              flush=True)
+        del params, step, after
+        torch.cuda.empty_cache()
+
+
+def _multichip_decoder(dev, seed: int, smi_line: str) -> None:
+    """(b) the decoder at note_lm_tpu_large's shape: a clipped adamw step
+    (LM_BATCH x LM_SEQ, f32) on a (2, 2) mesh against the (1, 1) step
+    (testing.decoder_step_parity's bounds: loss rtol 1e-4, parameters
+    atol 1e-5 but Adam's noise elements), both timed; then greedy
+    generation on the stepped (2, 2) set against the (1, 1) one
+    (testing.decoder_parity)."""
+    import torch
+
+    from anorag_tpu_torch.models import decoder_lm as dlm
+    from anorag_tpu_torch.parallel.mesh import make_mesh, visible_devices
+    from anorag_tpu_torch.testing import (NOTE_LM_TPU_LARGE, _adam_noise_check,
+                                          decoder_parity, lm_batch)
+    from anorag_tpu_torch.training.optim import adamw, clip_by_global_norm
+
+    cfg = dlm.DecoderConfig(**NOTE_LM_TPU_LARGE)
+    state = dlm.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                            dev).state_dict()
+    ids, w = lm_batch(LM_BATCH, LM_SEQ, seed)
+    batch = {"ids": torch.from_numpy(ids).to(dev), "loss_mask": torch.from_numpy(w).to(dev)}
+    one = dlm.DecoderParams(cfg, dev)
+    one.load_state_dict(state)
+    one.requires_grad_(True)
+    step1 = dlm.make_train_step(cfg, adamw(one.parameters(), MULTI_LR),
+                                clip=clip_by_global_norm(1.0))
+    want_loss = float(step1(one, None, batch)[2])
+    want = {n: t.detach().clone() for n, t in one.state_dict().items()}
+    grads = {n: p.grad.detach().clone() for n, p in one.named_parameters()}
+    one_ms = _step_ms(lambda: step1(one, None, batch))
+    mesh = make_mesh(model_parallel=2, devices=visible_devices(dev.type, 4))
+    sharded = dlm.ShardedDecoder(state, cfg, mesh)
+    step = dlm.make_train_step(cfg, adamw(sharded.parameters(), MULTI_LR),
+                               clip=clip_by_global_norm(1.0))
+    loss = float(step(sharded, None, batch)[2])
+    got = sharded.state_dict()
+    loss_err = abs(loss - want_loss) / abs(want_loss)
+    if loss_err > 1e-4:
+        raise AssertionError(f"decoder step on a 2x2 mesh: loss {loss} against {want_loss}")
+    noise = sum(_adam_noise_check(n, got[n].float(), want[n].float(), grads[n].float(),
+                                  MULTI_LR, 1e-5) for n in want)
+    param_err = max(float((got[n] - want[n]).abs().max()) for n in want)
+    ms = _step_ms(lambda: step(sharded, None, batch))
+    print(f"multichip: decoder step ({cfg.num_layers} layers, {cfg.hidden_size} wide, "
+          f"{LM_BATCH} x {LM_SEQ - 1} positions, f32, clip and adamw) on a 2x2 mesh over "
+          f"{[str(x) for x in mesh.distinct_devices()]}: {ms:.1f} ms against {one_ms:.1f} ms "
+          f"on 1x1; loss {loss:.6f} (rel err {loss_err:.3g}); parameters after the step off "
+          f"by {param_err:.3g} ({noise} Adam noise elements within 2 lr) | {smi_line}",
+          flush=True)
+    del step1, step, grads
+    # greedy generation from the (1, 1) and (2, 2) sets, both after 1 + reps steps
+    with torch.no_grad():
+        for t in sharded.parameters():
+            t.grad = None
+    one.requires_grad_(False)
+    t0 = time.perf_counter()
+    par = decoder_parity(sharded, b=4, steps=MULTI_GEN_STEPS, pb=256, seed=seed,
+                         reference=one)
+    print(f"multichip: greedy generation on the 2x2 decoder against the 1x1 one (4 rows, "
+          f"prompts of 256, {MULTI_GEN_STEPS} steps): {par} ({time.perf_counter() - t0:.2f} s)",
+          flush=True)
+
+
+def _multichip_clis(dev, train_notes, tmp, smi_line: str) -> None:
+    """(c) train_retrieval_encoder --devices 4 and train_encoder
+    --model-parallel 2 --devices 4 in-process, each checkpoint read back by
+    EmbeddingManager.load_checkpoint."""
+    import contextlib
+    import io
+
+    import torch
+
+    from anorag_tpu_torch import train_encoder, train_retrieval_encoder
+    from anorag_tpu_torch.config import Config
+    from anorag_tpu_torch.models.embedding_manager import EmbeddingManager
+    from anorag_tpu_torch.utils.file_io import read_json, write_json
+
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = train_retrieval_encoder.main(["--out", str(tmp / "enc.pt"), *MULTI_CLI_CUT,
+                                             "--devices", "4", "--device", dev.type])
+    report = read_json(tmp / "enc.pt_report.json")
+    if code != 0 or not report["checkpoint_saved"]:
+        raise AssertionError(f"train_retrieval_encoder --devices 4: exit {code}, {report}")
+    c = report["config"]
+    em = EmbeddingManager({"embedding": {"backend": "torch", "model_name": "",
+                                         "max_length": 128},
+                           "encoder": {"vocab_size": c["vocab"], "hidden_size": c["hidden"],
+                                       "num_layers": c["layers"], "num_heads": c["heads"],
+                                       "intermediate_size": c["ffn"], "max_position": 128,
+                                       "pooling": c["pooling"]}}, device=dev)
+    if not em.load_checkpoint(str(tmp / "enc.pt")):
+        raise AssertionError("EmbeddingManager.load_checkpoint could not read "
+                             "train_retrieval_encoder --devices 4's checkpoint")
+    e = em.encode_texts([n["content"] for n in train_notes[:64]])
+    if not bool(torch.isfinite(e).all()):
+        raise AssertionError("the --devices 4 checkpoint's embeddings are not finite")
+    print(f"multichip: train_retrieval_encoder --devices 4 ({c}): {report['steps']} steps, "
+          f"loss {report['loss_first']} -> {report['loss_last']}, recall@10 "
+          f"{report['recall_at_10']} ({time.perf_counter() - t0:.2f} s); checkpoint read by "
+          f"EmbeddingManager.load_checkpoint | {smi_line}", flush=True)
+
+    write_json(tmp / "notes.json", train_notes[:MULTI_NOTES])
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = train_encoder.main([str(tmp / "notes.json"), "--small", "--model-parallel", "2",
+                                   "--devices", "4", "--checkpoint", str(tmp / "small.pt")],
+                                  Config({"system": {"device": dev.type}}))
+    if code != 0 or "saved to" not in out.getvalue():
+        raise AssertionError(f"train_encoder --model-parallel 2: exit {code}, "
+                             f"{out.getvalue()!r}")
+    em = EmbeddingManager({"embedding": {"backend": "torch", "model_name": "",
+                                         "max_length": 128},
+                           "encoder": {"vocab_size": 1024, "hidden_size": 128, "num_layers": 2,
+                                       "num_heads": 4, "intermediate_size": 256,
+                                       "max_position": 128}}, device=dev)
+    if not em.load_checkpoint(str(tmp / "small.pt")):
+        raise AssertionError("EmbeddingManager.load_checkpoint could not read "
+                             "train_encoder --model-parallel 2's checkpoint")
+    print(f"multichip: train_encoder --small --model-parallel 2 --devices 4 on "
+          f"{MULTI_NOTES} of phase offline's notes: {out.getvalue().strip()} "
+          f"({time.perf_counter() - t0:.2f} s); checkpoint read by "
+          f"EmbeddingManager.load_checkpoint | {smi_line}", flush=True)
+
+
+def _multichip_phase(dev, train_notes, seed: int, smi_line: str) -> None:
+    """Training over a mesh of several devices: (a) the full-width encoder
+    step on each mesh, (b) the decoder's dp x tp step and generation, (c)
+    the training CLIs with --devices, (d) the dry run (the main of python -m
+    anorag_tpu_torch.dryrun_multichip) over 4 entries, in-process.
+    The hand kernels' launches are counted from 0 and printed (the path
+    launches none)."""
+    import io
+    import logging
+    import tempfile
+
+    import torch
+
+    from anorag_tpu_torch import dryrun_multichip
+    from anorag_tpu_torch.ops import bm25, ivf, topk
+
+    counted = (topk.dense_topk_kernel, topk.bucket_winners, topk.bucket_merge,
+               bm25.window_winners, bm25.segment_totals, bm25.segment_winners,
+               ivf.ivf_scan, ivf.ivf_work_plan)
+    _sync_all()
+    for fn in counted:
+        fn.launches = 0
+    print(f"multichip: {torch.cuda.device_count()} visible card(s); meshes take their "
+          f"entries in turn from them", flush=True)
+    tmp = Path(tempfile.mkdtemp(prefix="anorag_multichip_"))
+    root_log = logging.getLogger()
+    log_state = (root_log.level, list(root_log.handlers))
+    try:
+        t = time.perf_counter()
+        _multichip_encoder(dev, seed, smi_line)
+        t = _phase("multichip (a) encoder", t)
+        _multichip_decoder(dev, seed, smi_line)
+        torch.cuda.empty_cache()
+        t = _phase("multichip (b) decoder", t)
+        _multichip_clis(dev, train_notes, tmp, smi_line)
+        t = _phase("multichip (c) CLIs", t)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            code = dryrun_multichip.main(["--devices", "4", "--device", dev.type])
+        line = [ln for ln in out.getvalue().splitlines()
+                if ln.startswith("dryrun_multichip OK")]
+        if code != 0 or len(line) != 1:
+            raise AssertionError(f"dryrun_multichip --devices 4: exit {code}\n"
+                                 f"{out.getvalue()[-2000:]}")
+        print(f"multichip: dryrun_multichip.main(['--devices', '4']): {line[0]}", flush=True)
+        _phase("multichip (d) dry run", t)
+    finally:
+        _drop_log_handlers(log_state)
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    launches = {fn.__name__: fn.launches for fn in counted}
+    print(f"hand kernels launched in the multichip phase (counted from 0): {launches} "
+          f"| {smi_line}", flush=True)
+
+
 # the scripts phase: the repo's index and evaluation scripts as port CLIs
 SCRIPTS_QUERIES = 512          # queries of each search of the rebuilt index
 SCRIPTS_HELDOUT = 12           # run_heldout --embedder trained items (the CLI's 188; 24 took 17 s)
@@ -4883,7 +5304,11 @@ def run(dev, keep, seed: int = 0):
     segment_kernels[0]["launches"] += sharded["segment_totals"]
     t = _phase("sharded", t)
 
-    # 21. scripts: the index and evaluation scripts as the port's CLIs
+    # 21. multichip: training over a mesh of several devices
+    _multichip_phase(dev, train_notes, seed, smi_line)
+    t = _phase("multichip", t)
+
+    # 22. scripts: the index and evaluation scripts as the port's CLIs
     scripts = _scripts_phase(dev, keep, smi_line)
     ivf_launches += scripts["ivf_scan"]
     plan_launches += scripts["ivf_work_plan"]

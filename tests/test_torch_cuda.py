@@ -985,3 +985,92 @@ def test_sharded_union_on_the_card_equals_the_cpu(cuda_device):
     mx = out["cpu"][3]
     tol = 8 * 2.0**-24 * float(weight_rows.sum(1).max()) * 0.6 / float(mx[mx > 0].min())
     torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=0, atol=tol + 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 2), (4, 1), (1, 4)])
+def test_multichip_encoder_step_on_the_card_matches_the_cpu(cuda_device, shape):
+    """One InfoNCE adamw step of a ShardedEncoder (2 layers at full width,
+    f32) on a mesh over the card's visible devices, taken in turn, against
+    the same mesh over the CPU: the loss to rtol 1e-5 and the gradients as
+    one vector to a relative norm of 1e-5 (testing.encoder_step_parity's
+    f32 bounds); the parameters after the step as _adam_noise_check holds
+    them, to atol 2e-5 (an element of layers.0.ffn_out came out 1.04e-05
+    off on the card; Adam's first step moves each element by about lr,
+    1e-4, so a step not applied or of the wrong sign fails)."""
+    from anorag_tpu_torch.models import encoder as enc
+    from anorag_tpu_torch.parallel.mesh import make_mesh, visible_devices
+    from anorag_tpu_torch.testing import _adam_noise_check
+    from anorag_tpu_torch.training.optim import adamw
+
+    cfg = enc.EncoderConfig(vocab_size=8192, hidden_size=1024, num_layers=2, num_heads=16,
+                            intermediate_size=4096, max_position=128, pooling="mean",
+                            dtype=torch.float32)
+    state = enc.Encoder(cfg, torch.device("cpu")).init_random(
+        torch.Generator().manual_seed(0)).state_dict()
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(3, 8192, (16, 64))) if "ids" in k
+             else torch.ones((16, 64), dtype=torch.int32)
+             for k in ("q_ids", "q_mask", "p_ids", "p_mask")}
+    runs = []
+    for devices in ([torch.device("cpu")] * 4, visible_devices("cuda", 4)):
+        params = enc.ShardedEncoder(state, cfg, make_mesh(model_parallel=shape[1],
+                                                          devices=devices))
+        step = enc.make_train_step(cfg, adamw(params.parameters(), 1e-4, weight_decay=0.01))
+        loss = float(step(params, None, batch)[2])
+        runs.append((loss, {k: v.cpu() for k, v in params.state_dict().items()},
+                     {k: v.cpu() for k, v in params.grad_dict().items()}))
+    (l_h, p_h, g_h), (l_c, p_c, g_c) = runs
+    assert abs(l_c - l_h) <= 1e-5 * abs(l_h)
+    diff = torch.cat([(g_c[n] - g_h[n]).flatten() for n in g_h])
+    assert float(diff.norm() / torch.cat([g.flatten() for g in g_h.values()]).norm()) <= 1e-5
+    for name in p_h:
+        _adam_noise_check(name, p_c[name], p_h[name], g_h[name], 1e-4, 2e-5)
+
+
+@pytest.mark.cuda
+def test_multichip_steps_on_the_card_are_bit_stable(cuda_device):
+    """Two runs of a (2, 2) ShardedEncoder step (f32 masters, bf16, remat)
+    and of a (2, 2) ShardedDecoder step on the card: loss and parameters
+    bit-equal; the stepped decoder's logits and greedy tokens against the
+    gathered DecoderParams' (testing.decoder_parity)."""
+    from anorag_tpu_torch.models import decoder_lm as dlm
+    from anorag_tpu_torch.models import encoder as enc
+    from anorag_tpu_torch.parallel.mesh import make_mesh, visible_devices
+    from anorag_tpu_torch.testing import decoder_parity, lm_batch
+    from anorag_tpu_torch.training.optim import adamw, clip_by_global_norm
+
+    mesh = make_mesh(model_parallel=2, devices=visible_devices("cuda", 4))
+    cfg = enc.EncoderConfig(vocab_size=8192, hidden_size=512, num_layers=2, num_heads=8,
+                            intermediate_size=2048, max_position=128, pooling="mean",
+                            param_dtype=torch.float32, remat=True)
+    state = enc.Encoder(cfg, cuda_device).init_random(
+        torch.Generator(device=cuda_device).manual_seed(0)).state_dict()
+    rng = np.random.default_rng(1)
+    batch = {k: torch.from_numpy(rng.integers(3, 8192, (16, 64))) if "ids" in k
+             else torch.ones((16, 64), dtype=torch.int32)
+             for k in ("q_ids", "q_mask", "p_ids", "p_mask")}
+    dcfg = dlm.DecoderConfig(hidden_size=128, num_layers=2, num_heads=4,
+                             intermediate_size=256, max_len=256)
+    dstate = dlm.init_params(dcfg, torch.Generator(device=cuda_device).manual_seed(1),
+                             cuda_device).state_dict()
+    ids, w = lm_batch(8, 96)
+    dbatch = {"ids": torch.from_numpy(ids), "loss_mask": torch.from_numpy(w)}
+    runs = []
+    for _ in range(2):
+        params = enc.ShardedEncoder(state, cfg, mesh)
+        step = enc.make_train_step(cfg, adamw(params.parameters(), 1e-4, weight_decay=0.01))
+        loss = float(step(params, None, batch)[2])
+        dparams = dlm.ShardedDecoder(dstate, dcfg, mesh)
+        dstep = dlm.make_train_step(dcfg, adamw(dparams.parameters(), 1e-3),
+                                    clip=clip_by_global_norm(1.0))
+        dloss = float(dstep(dparams, None, dbatch)[2])
+        runs.append((loss, params.state_dict(), dloss, dparams))
+    (l0, s0, d0, dp0), (l1, s1, d1, dp1) = runs
+    assert l0 == l1 and d0 == d1
+    for name in s0:
+        assert torch.equal(s0[name], s1[name]), name
+    for name, t in dp0.state_dict().items():
+        assert torch.equal(t, dp1.state_dict()[name]), name
+    par = decoder_parity(dp0, 4, steps=16, pb=64, reference=dp0.to_params())
+    assert par["steps_compared"] >= 8, par

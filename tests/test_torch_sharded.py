@@ -1,7 +1,8 @@
 """The port's device mesh and sharded search (anorag_tpu_torch/parallel/
 {mesh,runtime,sharded_search}.py and the sharded branch of VectorIndex,
 VectorRetriever and QueryProcessor), param_pspecs and
-EncoderTrainer(model_parallel) against anorag_tpu's, on the CPU.
+EncoderTrainer(model_parallel) on a (4, 2) mesh against anorag_tpu's, on
+the CPU.
 
 The reference runs on its 8 virtual CPU devices (tests/conftest.py); the
 port's meshes repeat the CPU device, 8, 3 or 1 times, so each shard's body
@@ -397,8 +398,9 @@ def test_param_pspecs_equal_the_reference(axis):
 # --------------------------------------------------------------- the trainer
 def test_model_parallel_trainer_histories_equal_the_reference():
     """The reference's EncoderTrainer(model_parallel=2) shards over a (4, 2)
-    mesh of its 8 devices; the port's builds its mesh over its one device,
-    where the clamp makes it (1, 1), and trains as model_parallel 1 does."""
+    mesh of its 8 devices; the port's, given 8 entries of the CPU, over a
+    (4, 2) mesh of them (tests/test_torch_tp_train.py holds the other
+    meshes and the parameters)."""
     jcfg = dataclasses.replace(jenc.EncoderConfig.small(), dtype=jnp.float32)
     pairs = _pairs(40)
     jt = jtrain.EncoderTrainer(cfg=jcfg, learning_rate=1e-3, model_parallel=2, seed=3)
@@ -407,9 +409,16 @@ def test_model_parallel_trainer_histories_equal_the_reference():
     want = jt.train(pairs, epochs=2, batch_size=8, max_length=32)
     cfg = port_cfg(jcfg, dtype=torch.float32)
     tt = ttrain.EncoderTrainer(cfg=cfg, learning_rate=1e-3, model_parallel=2, seed=3,
-                               device="cpu")
-    assert tt.mesh.shape == {"data": 1, "model": 1}
-    tt.model.load_state_dict(tenc.params_from_jax(jax.tree.map(np.asarray, jparams), cfg))
-    got = tt.train(pairs, epochs=2, batch_size=8, max_length=32)
+                               devices=[CPU] * 8)
+    assert tt.mesh.shape == {"data": 4, "model": 2}
+    tt.params.load_state_dict(tenc.params_from_jax(jax.tree.map(np.asarray, jparams), cfg))
+    # many small ops a step: one torch thread (a loaded host's thread pool
+    # spends more time waiting than computing on them)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        got = tt.train(pairs, epochs=2, batch_size=8, max_length=32)
+    finally:
+        torch.set_num_threads(threads)
     assert len(got) == len(want) == 10
     np.testing.assert_allclose(got, want, rtol=1e-4)

@@ -341,10 +341,10 @@ def test_encoder_trainer_defaults_and_log_line(caplog):
     assert lines[0].endswith("steps/s)")
 
 
-def test_model_parallel_above_one_raises():
-    """model_parallel 2 no longer raises: the trainer's mesh over its one
-    device clamps to (1, 1), as the reference's on one chip, and the first
-    steps equal model_parallel 1's."""
+def test_device_cpu_alone_clamps_model_parallel_to_one():
+    """Given one device, model_parallel 2 raises nothing: the trainer's mesh
+    over that device clamps to (1, 1), as the reference's on one chip, and
+    the first steps equal model_parallel 1's."""
     one = ttrain.EncoderTrainer(device="cpu")
     two = ttrain.EncoderTrainer(model_parallel=2, device="cpu")
     assert two.mesh.shape == one.mesh.shape == {"data": 1, "model": 1}

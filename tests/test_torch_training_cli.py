@@ -53,7 +53,9 @@ CLIS = {"train_encoder": "train_encoder.py",
 # flags whose default or choices differ, by CLI, and flags only the port has
 FLAG_DIFFERS = {("train_note_lm", "--device"): "cuda by default, cuda or cpu (the "
                                                 "reference's cpu or tpu)"}
-PORT_ONLY = {("train_retrieval_encoder", "--device"), ("run_calibration", "--device")}
+PORT_ONLY = {("train_retrieval_encoder", "--device"), ("run_calibration", "--device"),
+             # mesh entries (the reference's mesh spans every device it sees)
+             ("train_retrieval_encoder", "--devices"), ("train_encoder", "--devices")}
 
 _NOTE_LM = ["--items", "2", "--seeds", "101"]
 _TINY_LM = ["--out", "lm", *_NOTE_LM, "--steps", "3", "--batch", "2", "--hidden", "32",
